@@ -1,0 +1,77 @@
+"""Binding of ``csrc/nn_search.cu``: exact brute-force nearest neighbour (K5).
+
+``nn_cuda`` takes CUDA tensors only and raises on anything else; the plain
+version it must agree with bit for bit is ``ops.nn_search._nn_torch``.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from moptimizer_0_tpu_torch.kernels import build
+
+NAME = "nn_search"
+SOURCES = ("nn_search.cu",)
+
+# Kernel launches since import (or since a caller reset it to 0).
+LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    path, _ = build.build(NAME, SOURCES)
+    fn = ctypes.CDLL(str(path)).nn_bruteforce_f32
+    fn.argtypes = [
+        ctypes.c_void_p,  # query
+        ctypes.c_void_p,  # points
+        ctypes.c_int,  # n_query
+        ctypes.c_int,  # n_points
+        ctypes.c_void_p,  # out_idx
+        ctypes.c_void_p,  # out_d2
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t):
+    if not t.is_cuda:
+        raise ValueError(f"nn_cuda: {name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"nn_cuda: {name} must be float32, got {t.dtype}")
+    if t.ndim != 2 or t.shape[1] != 3:
+        raise ValueError(f"nn_cuda: {name} must have shape (n, 3), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"nn_cuda: {name} must be contiguous")
+    if t.shape[0] == 0 or 3 * t.shape[0] >= 2**31:
+        raise ValueError(f"nn_cuda: {name} has {t.shape[0]} points; need 1 to {2**31 // 3}")
+
+
+def nn_cuda(query, points):
+    """For each query point, (index int32, squared distance float32) of its
+    nearest point in ``points``. Launches on the current stream and does not
+    synchronise."""
+    global LAUNCHES
+    _check("query", query)
+    _check("points", points)
+    if query.device != points.device:
+        raise ValueError(f"nn_cuda: query on {query.device}, points on {points.device}")
+    launch = _launcher()
+    n_query, n_points = query.shape[0], points.shape[0]
+    idx = torch.empty(n_query, dtype=torch.int32, device=query.device)
+    d2 = torch.empty(n_query, dtype=torch.float32, device=query.device)
+    with torch.cuda.device(query.device):
+        err = launch(
+            query.data_ptr(),
+            points.data_ptr(),
+            n_query,
+            n_points,
+            idx.data_ptr(),
+            d2.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"nn_bruteforce_f32 launch failed with CUDA error {err}")
+    LAUNCHES += 1
+    return idx, d2

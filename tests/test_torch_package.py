@@ -1,0 +1,69 @@
+"""Package-level properties of moptimizer_0_tpu_torch that need no JAX."""
+
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import moptimizer_0_tpu_torch
+from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
+from moptimizer_0_tpu_torch.ops.nn_search import nearest_neighbors
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, moptimizer_0_tpu_torch, moptimizer_0_tpu_torch.registration, "
+        "moptimizer_0_tpu_torch.interop, moptimizer_0_tpu_torch.kernels.nn_search; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'moptimizer_0_tpu.'))"
+        " or m == 'moptimizer_0_tpu'); print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_fp32_matmul_precision_is_set():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_public_names_mirror_the_jax_package():
+    names = {
+        "Cauchy", "GemanMcClure", "Huber", "TrivialLoss", "ResidualBlock", "Problem",
+        "linearize", "compute_cost", "LMConfig", "LMResult", "Status",
+        "levenberg_marquardt", "levenberg_marquardt_batched", "lm_step", "solve_multistart", "lie",
+    }
+    missing = [n for n in names if not hasattr(moptimizer_0_tpu_torch, n)]
+    assert not missing
+
+
+@pytest.mark.parametrize(
+    "query,points,error",
+    [
+        (torch.rand(4, 3), torch.rand(5, 3), ValueError),  # CPU tensors
+        (torch.rand(4, 3, dtype=torch.float64), torch.rand(5, 3), ValueError),
+    ],
+)
+def test_nn_cuda_refuses_cpu_tensors_without_building(query, points, error):
+    """No card here: the wrapper refuses before it builds or launches."""
+    before = k_nn.LAUNCHES
+    with pytest.raises(error, match="CUDA tensor"):
+        k_nn.nn_cuda(query, points)
+    assert k_nn.LAUNCHES == before
+    assert k_nn._launcher.cache_info().currsize == 0
+
+
+def test_auto_backend_on_cpu_never_reaches_the_kernel():
+    before = k_nn.LAUNCHES
+    nearest_neighbors(torch.rand(8, 3), torch.rand(9, 3))
+    assert k_nn.LAUNCHES == before
+    assert k_nn._launcher.cache_info().currsize == 0
+
+
+def test_library_name_is_keyed_by_source_hash():
+    path = build.library_path(k_nn.NAME, k_nn.SOURCES)
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libnn_search-") and path.suffix == ".so"
+    assert path == build.library_path(k_nn.NAME, k_nn.SOURCES)
+    assert (build.CSRC_DIR / "nn_search.cu").is_file()
