@@ -10,6 +10,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from moptimizer_0_tpu_torch.ba import BAProblem
+from moptimizer_0_tpu_torch.ba_dense import DenseBAConfig
 from moptimizer_0_tpu_torch.core import loss as _loss
 from moptimizer_0_tpu_torch.core.solver import LMConfig
 
@@ -37,6 +39,32 @@ def loss_from_numpy(kind, params=None):
     return _LOSSES[kind](**{k: torch.as_tensor(np.asarray(v)) for k, v in params.items()})
 
 
+def ba_problem_from_numpy(camera_params, points, cam_idx, pt_idx, pixels, intrinsics,
+                          n_fixed_cameras=1, loss=None, device=None):
+    """The port's BAProblem from the numpy arrays of a JAX BAProblem's fields
+    (``np.asarray`` of each); indices become int64, floats keep their dtype.
+    ``loss`` is a port loss (e.g. from ``loss_from_numpy``) or None."""
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)  # a writable copy
+
+    return BAProblem(
+        camera_params=t(camera_params),
+        points=t(points),
+        cam_idx=t(cam_idx, torch.int64),
+        pt_idx=t(pt_idx, torch.int64),
+        pixels=t(pixels),
+        intrinsics=t(intrinsics),
+        loss=loss,
+        n_fixed_cameras=int(n_fixed_cameras),
+    )
+
+
+def dense_config_from_fields(fields):
+    """The port's DenseBAConfig from ``dataclasses.asdict`` of the JAX one."""
+    return DenseBAConfig(**fields)
+
+
 def _to_numpy(value):
     if isinstance(value, dict):
         return {k: _to_numpy(v) for k, v in value.items()}
@@ -44,6 +72,6 @@ def _to_numpy(value):
 
 
 def result_to_numpy(result):
-    """An LMResult as a dict of numpy arrays: x, status, iterations, cost,
-    lam and the (nested) trace."""
+    """An LMResult or a BAResult as a dict of numpy arrays, one per field,
+    the (nested) trace as a dict of them."""
     return {f.name: _to_numpy(getattr(result, f.name)) for f in dataclasses.fields(result)}

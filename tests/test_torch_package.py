@@ -15,7 +15,9 @@ from moptimizer_0_tpu_torch.ops.nn_search import nearest_neighbors
 def test_import_leaves_jax_out():
     code = (
         "import sys, moptimizer_0_tpu_torch, moptimizer_0_tpu_torch.registration, "
-        "moptimizer_0_tpu_torch.interop, moptimizer_0_tpu_torch.kernels.nn_search; "
+        "moptimizer_0_tpu_torch.interop, moptimizer_0_tpu_torch.kernels.nn_search, "
+        "moptimizer_0_tpu_torch.ba, moptimizer_0_tpu_torch.ba_dense, moptimizer_0_tpu_torch.ops.schur, "
+        "moptimizer_0_tpu_torch.ops.block_cholesky, moptimizer_0_tpu_torch.kernels.schur; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'moptimizer_0_tpu.'))"
         " or m == 'moptimizer_0_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
