@@ -21,7 +21,18 @@ prints no result):
    instance of the JAX package's bench in float32, which must end in the χ²
    band around its noise floor with the fixed cameras unmoved; its first
    three outer iterations are repeated with the plain S build and must give
-   the same costs.
+   the same costs;
+6. the fleet path: ``icp_batched`` on 64 lanes of the full fachada scan in
+   float32, each lane with its own shuffled target and known transform to
+   be recovered to 2e-3, with one launch of the expansion kernel K6 per
+   pass of the batched loop; lanes 0, 1 and 63 are repeated as single
+   ``icp(..., nn_backend="pallas_mxu")`` solves and must agree to 1e-5.
+
+Each kernel's line also carries its bound: the larger of the bytes it must
+move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
+tensor cores), the published peaks of an H100 SXM at 700 W; and, where one
+PyTorch call computes the same function, that call's time (``library_ms``),
+which the port never uses.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; the kernels of the path must have been launched. The line
@@ -42,15 +53,16 @@ import torch
 
 import moptimizer_0_tpu_torch  # noqa: F401  (sets fp32 matmul precision)
 from moptimizer_0_tpu_torch import ba, ba_dense
-from moptimizer_0_tpu_torch.core.loss import GemanMcClure
+from moptimizer_0_tpu_torch.core.loss import GemanMcClure, TrivialLoss
 from moptimizer_0_tpu_torch.core.solver import Status
 from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
 from moptimizer_0_tpu_torch.lie import se3
-from moptimizer_0_tpu_torch.ops.nn_search import _nn_torch
+from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
 from moptimizer_0_tpu_torch.ops.schur import _schur_corr_torch, fold_linv
-from moptimizer_0_tpu_torch.registration import icp
+from moptimizer_0_tpu_torch.registration import icp, icp_batched
 from moptimizer_0_tpu_torch.utils.pointcloud import load_txt_cloud
 
 ROOT = Path(__file__).resolve().parent
@@ -77,6 +89,22 @@ S_BOUND = 1e-5
 # of the first three outer iterations agree to 1e-5 relative.
 BA_COST_RTOL = 1e-5
 
+# The fleet of the JAX package's batch-64 ICP bench (bench.py:104-152): 64
+# lanes of the full fachada scan. Lanes 0 and 1 use X_A and X_B, the others
+# seeded transforms with |t| ≤ 0.4 m and |ω| ≤ 0.06 rad.
+FLEET_B = 64
+FLEET_T, FLEET_W = 0.4, 0.06
+# Single solves against their fleet lanes: the batched moment sums round in
+# another order than the single ones, so the two x differ by float32
+# roundoff of the noise-floor solve.
+FLEET_X_TOL = 1e-5
+FLEET_SINGLES = (0, 1, 63)
+
+# Published peaks of an H100 SXM at 700 W (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
 
 def _time_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
@@ -87,6 +115,38 @@ def _time_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _bound(flops, n_bytes):
+    """(bound_ms, bound_by): the least time of the work on the card."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nn_bound(lanes, n_query, n_points):
+    """8 flops a pair; each query and target read once, (idx, d²) written once."""
+    pairs = lanes * n_query * n_points
+    return _bound(8 * pairs, 4 * lanes * (3 * n_query + 3 * n_points + 2 * n_query))
+
+
+def _library_nn(q, p):
+    """torch.cdist's matrix-product form and a min, one call a lane (the
+    whole fleet's distance block would be 220 GB)."""
+    if q.ndim == 2:
+        return torch.cdist(q, p, compute_mode="use_mm_for_euclid_dist").min(-1)
+    return [torch.cdist(qb, pb, compute_mode="use_mm_for_euclid_dist").min(-1) for qb, pb in zip(q, p)]
+
+
+def _alternate(plain, kernel, library, reps, plain_reps=None):
+    """Mean ms of each, in the order plain, library, kernel, kernel, library,
+    plain (CUDA events)."""
+    plain_reps = plain_reps or reps
+    t = dict(plain=[], kernel=[], library=[])
+    for name, fn, r in (("plain", plain, plain_reps), ("library", library, plain_reps),
+                        ("kernel", kernel, reps), ("kernel", kernel, reps),
+                        ("library", library, plain_reps), ("plain", plain, plain_reps)):
+        t[name].append(_time_ms(fn, r))
+    return t
 
 
 def _transformed(cloud, x, rng):
@@ -127,16 +187,168 @@ def check_nn_kernel(cloud, rng):
     for _ in range(3):
         k_nn.nn_cuda(q, p)
         _nn_torch(q, p)
+        _library_nn(q, p)
     reps = 20
-    plain_ms = [_time_ms(lambda: _nn_torch(q, p), reps)]
-    kernel_ms = [_time_ms(lambda: k_nn.nn_cuda(q, p), reps)]
-    kernel_ms.append(_time_ms(lambda: k_nn.nn_cuda(q, p), reps))
-    plain_ms.append(_time_ms(lambda: _nn_torch(q, p), reps))
+    t = _alternate(lambda: _nn_torch(q, p), lambda: k_nn.nn_cuda(q, p), lambda: _library_nn(q, p), reps)
     print(
-        f"nn time at {q.shape[0]}x{p.shape[0]} (CUDA events, mean of {reps}, "
-        f"order plain, kernel, kernel, plain): kernel {kernel_ms} ms, plain {plain_ms} ms"
+        f"nn time at {q.shape[0]}x{p.shape[0]} (CUDA events, mean of {reps}, order plain, library, "
+        f"kernel, kernel, library, plain): kernel {t['kernel']} ms, plain {t['plain']} ms, "
+        f"library (cdist + min) {t['library']} ms"
     )
-    return max_abs_err, sum(kernel_ms) / 2, sum(plain_ms) / 2
+    timing = {k: sum(v) / len(v) for k, v in t.items()}
+    return max_abs_err, timing, _nn_bound(1, q.shape[0], p.shape[0])
+
+
+def _fleet_inputs(cloud, rng):
+    """The fleet: 64 copies of the scan as sources; each lane's target is
+    the scan under its transform, shuffled with its own permutation."""
+    x_true = [X_A, X_B]
+    for _ in range(FLEET_B - 2):
+        t, w = rng.normal(size=3), rng.normal(size=3)
+        t *= FLEET_T * rng.uniform() / np.linalg.norm(t)
+        w *= FLEET_W * rng.uniform() / np.linalg.norm(w)
+        x_true.append(np.concatenate([t, w]).tolist())
+    srcs = cloud.expand(FLEET_B, *cloud.shape).contiguous()
+    tgts = torch.stack([_transformed(cloud, x, rng) for x in x_true])
+    return srcs, tgts, torch.tensor(x_true, dtype=torch.float64)
+
+
+def _check_same(name, kernel_out, plain_out):
+    idx_k, d2_k = kernel_out
+    idx_p, d2_p = plain_out
+    torch.cuda.synchronize()
+    if not torch.equal(idx_k, idx_p):
+        bad = int((idx_k != idx_p).sum())
+        raise AssertionError(f"expansion kernel {name}: {bad} indices differ from the plain version")
+    if not torch.equal(d2_k.view(torch.int32), d2_p.view(torch.int32)):
+        raise AssertionError(f"expansion kernel {name}: d² not bit-equal to the plain version")
+    finite = torch.isfinite(d2_k)
+    return float((d2_k[finite] - d2_p[finite]).abs().max()) if finite.any() else 0.0
+
+
+def check_expand_kernel(cloud, srcs, tgts, rng):
+    """nn_expand_cuda against _nn_expand_torch: equal indices and bit-equal
+    d² at the fleet shape and at one-lane, ragged, tied, NaN and 3-lane
+    cases; timed at the fleet shape and at one lane."""
+    dev = cloud.device
+    cases = {
+        f"fleet {FLEET_B}x{cloud.shape[0]}x{cloud.shape[0]}": (srcs, tgts),
+        "one fachada lane": (_transformed(cloud, X_A, rng), cloud),
+    }
+    for n_query, n_points in ((33, 77), (1000, 4097)):
+        q = torch.as_tensor(rng.uniform(-10, 10, (n_query, 3)), dtype=torch.float32, device=dev)
+        p = torch.as_tensor(rng.uniform(-10, 10, (n_points, 3)), dtype=torch.float32, device=dev)
+        cases[f"{n_query}x{n_points}"] = (q, p)
+    base = torch.as_tensor(rng.uniform(-10, 10, (700, 3)), dtype=torch.float32, device=dev)
+    cases["ties"] = (base[::3].contiguous(), torch.cat([base, base, base]))
+    q_nan = torch.as_tensor(rng.uniform(-10, 10, (300, 3)), dtype=torch.float32, device=dev)
+    q_nan[17] = torch.nan
+    q_nan[200, 1] = torch.nan
+    cases["NaN query rows"] = (q_nan, base)
+    lanes_p = torch.as_tensor(rng.uniform(-10, 10, (3, 900, 3)), dtype=torch.float32, device=dev)
+    lanes_p[1] += 40.0
+    lanes_q = torch.as_tensor(rng.uniform(-10, 10, (3, 500, 3)), dtype=torch.float32, device=dev)
+    cases["3 lanes of different clouds"] = (lanes_q, lanes_p)
+
+    max_abs_err = 0.0
+    for name, (q, p) in cases.items():
+        out = k_expand.nn_expand_cuda(q, p)
+        max_abs_err = max(max_abs_err, _check_same(name, out, _nn_expand_torch(q, p)))
+        if name == "ties" and not bool((out[0] < base.shape[0]).all()):
+            raise AssertionError("expansion kernel: a tie did not go to the smallest index")
+        if name == "NaN query rows":
+            for row in (17, 200):
+                if int(out[0][row]) != 0 or float(out[1][row]) != float("inf"):
+                    raise AssertionError(f"expansion kernel: NaN query row {row} gave {out[0][row]}, {out[1][row]}")
+        if name.startswith("3 lanes"):
+            for b in range(3):
+                _check_same(f"{name}, lane {b} alone", k_expand.nn_expand_cuda(q[b], p[b]),
+                            tuple(o[b] for o in out))
+        print(f"expansion kernel {name}: {tuple(q.shape)} x {tuple(p.shape)} idx equal, d2 bit-equal")
+
+    timing = {}
+    for name, reps, plain_reps in ((next(iter(cases)), 3, 1), ("one fachada lane", 20, 5)):
+        q, p = cases[name]
+        k_expand.nn_expand_cuda(q, p)
+        _library_nn(q, p)
+        torch.cuda.synchronize()
+        t = _alternate(lambda: _nn_expand_torch(q, p), lambda: k_expand.nn_expand_cuda(q, p),
+                       lambda: _library_nn(q, p), reps, plain_reps)
+        print(
+            f"expansion time, {name} (CUDA events, means of {plain_reps}/{reps}, order plain, library, "
+            f"kernel, kernel, library, plain): kernel {t['kernel']} ms, plain {t['plain']} ms, "
+            f"library (cdist + min, one call a lane) {t['library']} ms"
+        )
+        timing[name] = {k: sum(v) / len(v) for k, v in t.items()}
+    lanes = srcs.shape[0]
+    fleet_bound = _nn_bound(lanes, srcs.shape[1], tgts.shape[1])
+    lane_bound = _nn_bound(1, cloud.shape[0], cloud.shape[0])
+    print(f"expansion bound: fleet {fleet_bound[0]:.4f} ms, one lane {lane_bound[0]:.4f} ms (by {fleet_bound[1]})")
+    return max_abs_err, timing[next(iter(cases))], fleet_bound
+
+
+def run_fleet(srcs, tgts, x_true):
+    """The fleet path, as a user calls it: icp_batched with config=None,
+    x0s=None, no gate and TrivialLoss. Every lane must recover its transform
+    with K6 launched once per pass of the batched loop."""
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = icp_batched(srcs, tgts, loss=TrivialLoss())
+    x = res.x.cpu()
+    wall_s = time.perf_counter() - t0
+    launches = k_expand.LAUNCHES
+    tr = res.trace
+    passes = int(torch.isfinite(tr["cost"]).any(0).sum())
+    # trials run in each pass: the most any lane ran (a trial writes its λ)
+    per_pass = torch.isfinite(tr["inner"]["lam"]).sum(-1).amax(0)
+    trials = int(per_pass.sum())
+    # a lane writes its record in every pass it is still running
+    lane_passes = int(torch.isfinite(tr["cost"]).sum())
+    status = res.status.cpu()
+    err = (x.double() - x_true).abs().amax(1)
+    names = {Status(int(v)).name: int((status == v).sum()) for v in status.unique()}
+    print(
+        f"fleet B={srcs.shape[0]} x {srcs.shape[1]} points float32: wall {wall_s:.4f} s, "
+        f"{srcs.shape[0] / wall_s:.2f} alignments/s, {wall_s / srcs.shape[0] * 1e3:.3f} ms a lane; "
+        f"passes {passes}, trials {trials} {per_pass[:passes].tolist()}, host reads {passes + trials}; "
+        f"lane iterations min {int(res.iterations.min())} mean {float(res.iterations.double().mean()):.2f} "
+        f"max {int(res.iterations.max())}; running lane-passes {lane_passes} of {passes * srcs.shape[0]} "
+        f"searched; statuses {names}; max|x - x_true| over lanes {float(err.max()):.3e} (lane {int(err.argmax())})"
+    )
+    print(f"expansion kernel launches on the fleet path: {launches} for {passes} passes")
+    if (status == Status.NUMERIC_ERROR).any() or not torch.isfinite(x).all():
+        raise AssertionError(f"fleet: statuses {names}")
+    if float(err.max()) > X_TOL:
+        raise AssertionError(f"fleet: lane {int(err.argmax())} off by {float(err.max())} > {X_TOL}")
+    if launches != passes or launches == 0:
+        raise AssertionError(f"the fleet path launched the expansion kernel {launches} times for {passes} passes")
+    if k_nn.LAUNCHES or k_schur.LAUNCHES:
+        raise AssertionError("the fleet path launched the nn or schur kernel")
+    return res, wall_s, launches
+
+
+def fleet_vs_single(cloud, tgts, fleet, fleet_wall_s):
+    """Lanes of the fleet repeated as single icp(..., "pallas_mxu") solves:
+    healthy, x within FLEET_X_TOL of the lane; K6 at B = 1."""
+    for b in FLEET_SINGLES:
+        k_expand.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = icp(cloud, tgts[b], loss=TrivialLoss(), nn_backend="pallas_mxu")
+        x = res.x.cpu()
+        wall_s = time.perf_counter() - t0
+        dx = float((x - fleet.x[b].cpu()).abs().max())
+        st, st_lane = Status(int(res.status)), Status(int(fleet.status[b]))
+        print(
+            f"lane {b} as a single solve: wall {wall_s:.4f} s (fleet {fleet_wall_s / tgts.shape[0]:.4f} s "
+            f"a lane), max|x - x_lane| {dx:.3e}, status {st.name} (lane {st_lane.name}), iterations "
+            f"{int(res.iterations)} (lane {int(fleet.iterations[b])}), K6 launches {k_expand.LAUNCHES}"
+        )
+        if Status.NUMERIC_ERROR in (st, st_lane) or not dx <= FLEET_X_TOL:
+            raise AssertionError(f"lane {b}: single solve differs from the fleet by {dx}, {st.name}")
+        if k_expand.LAUNCHES == 0:
+            raise AssertionError(f"lane {b}: the single pallas_mxu solve did not launch K6")
 
 
 def run_request(name, cloud, x_true, rng, nn_backend="auto", loss=None, max_corr_dist=None):
@@ -226,32 +438,68 @@ def check_schur_kernel(prob, grouped, dev, rng):
 
     segs, C = next(iter(cases.values()))
     k_schur.schur_corr_cuda(segs, C)
+    A2 = _dense_panel(segs, C)
+    S_lib = A2.T @ A2
+    S_p = _schur_corr_torch(segs, C)
     torch.cuda.synchronize()
+    lib_rel = float((S_lib - S_p).abs().max()) / float(S_p.abs().max())
     kernel_reps, plain_reps = 10, 2  # the plain build is 432 GFLOP of float32 matmul
-    plain_ms = [_time_ms(lambda: _schur_corr_torch(segs, C), plain_reps)]
-    kernel_ms = [_time_ms(lambda: k_schur.schur_corr_cuda(segs, C), kernel_reps)]
-    kernel_ms.append(_time_ms(lambda: k_schur.schur_corr_cuda(segs, C), kernel_reps))
-    plain_ms.append(_time_ms(lambda: _schur_corr_torch(segs, C), plain_reps))
+    t = _alternate(lambda: _schur_corr_torch(segs, C), lambda: k_schur.schur_corr_cuda(segs, C),
+                   lambda: A2.T @ A2, kernel_reps, plain_reps)
     print(
-        f"schur time at the headline shape (CUDA events, order plain, kernel, kernel, plain; "
-        f"means of {plain_reps}/{kernel_reps}): kernel {kernel_ms} ms, plain {plain_ms} ms"
+        f"schur time at the headline shape (CUDA events, order plain, library, kernel, kernel, library, "
+        f"plain; means of {plain_reps}/{kernel_reps}): kernel {t['kernel']} ms, plain {t['plain']} ms, "
+        f"library (A2ᵀA2 over the dense {tuple(A2.shape)} panel, {lib_rel:.2e} of max|S| from the plain "
+        f"S) {t['library']} ms"
     )
-    return max_abs_err, sum(kernel_ms) / 2, sum(plain_ms) / 2
+    # the bound: the dot products of every ordered pair of real slots
+    # (2·3 flops for each of 36 entries), each input read once, S_corr written once
+    pairs, n_bytes = 0, 4 * (6 * C) ** 2
+    for G, cam, mask in segs:
+        real = (mask != 0) & (cam >= 0) & (cam < C)
+        pairs += int((real.sum(1).double() ** 2).sum())
+        n_bytes += 4 * (G.numel() + cam.numel() + mask.numel())
+    bound = _bound(216 * pairs, n_bytes)
+    print(f"schur bound: {pairs} ordered slot pairs, {216 * pairs / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB: "
+          f"{bound[0]:.4f} ms by {bound[1]}")
+    del A2, S_lib
+    return max_abs_err, {k: sum(v) / len(v) for k, v in t.items()}, bound
+
+
+def _dense_panel(segments, C):
+    """The dense (3L, 6C) camera-incidence panel A2 that the TPU kernel
+    streams: A2[3l + m, i·C + c] = Σ_k G[l,k,i,m]·mask[l,k]·[cam[l,k] = c]."""
+    rows = []
+    for G, cam_ids, mask in segments:
+        n, K = cam_ids.shape
+        if n * K == 0:
+            continue
+        real = (mask != 0) & (cam_ids >= 0) & (cam_ids < C)
+        q = torch.arange(n, device=G.device)[:, None, None, None]
+        i = torch.arange(6, device=G.device)[None, None, :, None]
+        m = torch.arange(3, device=G.device)[None, None, None, :]
+        cam = torch.where(real, cam_ids, 0).to(torch.int64)[:, :, None, None]
+        idx = ((q * 3 + m) * 6 + i) * C + cam
+        vals = torch.where(real[..., None, None], G * mask[..., None, None], 0.0)
+        A2 = torch.zeros(n * 18 * C, dtype=G.dtype, device=G.device)
+        A2.index_add_(0, idx.reshape(-1), vals.reshape(-1))
+        rows.append(A2.reshape(n * 3, 6 * C))
+    return torch.cat(rows)
 
 
 def run_ba(prob, n_segs):
     """The dense-BA main path: one solve_ba_dense call, as a user makes it
     (host grouping included); K11 must launch once per trial and non-empty
     segment (``n_segs``)."""
-    k_nn.LAUNCHES = k_schur.LAUNCHES = 0
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = ba_dense.solve_ba_dense(prob, ba_dense.DenseBAConfig(), schur_backend="auto")
     cost = float(res.cost)
     wall_s = time.perf_counter() - t0
     launches = k_schur.LAUNCHES
-    if k_nn.LAUNCHES:
-        raise AssertionError("the BA path launched the nn kernel")
+    if k_nn.LAUNCHES or k_expand.LAUNCHES:
+        raise AssertionError("the BA path launched an nn kernel")
 
     status = Status(int(res.status))
     trials = res.trace["trials"].tolist()
@@ -307,8 +555,9 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(build.build, k.NAME, k.SOURCES) for k in (k_nn, k_schur)]
+    kernels = (k_nn, k_expand, k_schur)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        futures = [pool.submit(build.build, k.NAME, k.SOURCES) for k in kernels]
         built = [f.result() for f in futures]
     print(f"build (one nvcc per source, in parallel): {time.perf_counter() - t0:.3f} s")
     for path, log in built:
@@ -319,17 +568,19 @@ def main():
 
     rng = np.random.default_rng(SEED)
     cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
-    max_abs_err, kernel_ms, plain_ms = check_nn_kernel(cloud, rng)
+    max_abs_err, nn_t, nn_bound = check_nn_kernel(cloud, rng)
+    srcs, tgts, fleet_x = _fleet_inputs(cloud, np.random.default_rng(SEED + 2))
+    e_err, e_t, e_bound = check_expand_kernel(cloud, srcs, tgts, rng)
     ba_prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
     ba_grouped = ba_dense.group_by_landmark(ba_prob, segments="auto")
-    s_err, s_kernel_ms, s_plain_ms = check_schur_kernel(ba_prob, ba_grouped, dev, rng)
+    s_err, s_t, s_bound = check_schur_kernel(ba_prob, ba_grouped, dev, rng)
 
     requests = [
         ("A", X_A, {}),
         ("B", X_B, {}),
         ("A-gated", X_A, dict(loss=GemanMcClure(tau=1.0), max_corr_dist=1.0)),
     ]
-    k_nn.LAUNCHES = k_schur.LAUNCHES = 0
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
     results, outer_total = {}, 0
     for name, x_true, kw in requests:
         results[name], outer = run_request(name, cloud, x_true, np.random.default_rng(SEED + 1), **kw)
@@ -338,8 +589,8 @@ def main():
     print(f"nn kernel launches on the ICP path: {launches} for {outer_total} outer iterations")
     if launches < outer_total or launches == 0:
         raise AssertionError(f"the ICP path launched the nn kernel {launches} times")
-    if k_schur.LAUNCHES:
-        raise AssertionError("the ICP path launched the schur kernel")
+    if k_schur.LAUNCHES or k_expand.LAUNCHES:
+        raise AssertionError("the ICP path launched the schur or expansion kernel")
 
     plain, _ = run_request("A", cloud, X_A, np.random.default_rng(SEED + 1), nn_backend="torch")
     if int(plain.iterations) != int(results["A"].iterations):
@@ -360,27 +611,23 @@ def main():
     if not worst <= BA_COST_RTOL:
         raise AssertionError(f"plain-S repeat: costs differ by {worst} > {BA_COST_RTOL}")
 
+    fleet, fleet_wall_s, e_launches = run_fleet(srcs, tgts, fleet_x)
+    fleet_vs_single(cloud, tgts, fleet, fleet_wall_s)
+
+    def entry(name, source, replaces, n_launches, err, t, bound):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=n_launches,
+            max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound[0],
+            bound_by=bound[1], library_ms=t["library"],
+        )
+
     kernels = [
-        dict(
-            name="nn_bruteforce",
-            route="cuda",
-            source="moptimizer_0_tpu_torch/csrc/nn_search.cu",
-            replaces="moptimizer_0_tpu/ops/nn_search.py:136",
-            launches=launches,
-            max_abs_err=max_abs_err,
-            ms=kernel_ms,
-            plain_ms=plain_ms,
-        ),
-        dict(
-            name="schur_pairs",
-            route="cuda",
-            source="moptimizer_0_tpu_torch/csrc/schur.cu",
-            replaces="benchmarks/schur_pallas_ab.py:38",
-            launches=s_launches,
-            max_abs_err=s_err,
-            ms=s_kernel_ms,
-            plain_ms=s_plain_ms,
-        ),
+        entry("nn_bruteforce", "moptimizer_0_tpu_torch/csrc/nn_search.cu",
+              "moptimizer_0_tpu/ops/nn_search.py:136", launches, max_abs_err, nn_t, nn_bound),
+        entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
+              "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound),
+        entry("schur_pairs", "moptimizer_0_tpu_torch/csrc/schur.cu",
+              "benchmarks/schur_pallas_ab.py:38", s_launches, s_err, s_t, s_bound),
     ]
     print(json.dumps({"kernels": kernels}))
     print(

@@ -20,6 +20,7 @@ import torch
 
 from moptimizer_0_tpu_torch.core.solver import Status
 from moptimizer_0_tpu_torch.lie import se3
+from moptimizer_0_tpu_torch.utils.device import require
 
 
 @dataclasses.dataclass
@@ -186,13 +187,15 @@ def _lm_trials(state, y0, b_flat, cams0, pts0, solve_fn, cost_fn, inner_iteratio
     )
 
 
-def make_ba_problem(O, C, L, seed=0, dtype=torch.float32, device=None):
+def make_ba_problem(O, C, L, seed=0, dtype=torch.float32, device="cuda"):
     """Synthetic BA instance with the numpy draws of the JAX package's bench
     (``bench._make_ba_problem``), in the same order: landmarks in a 20 m box
     30 m ahead, C cameras on a line, O observations with sorted uniform
     landmark ids and uniform camera ids, pixels projected by ``_project``
     plus N(0, 0.5²) noise, then cameras 2.. and every landmark perturbed.
-    Two cameras are fixed."""
+    Two cameras are fixed. On the card unless ``device`` says otherwise;
+    without a card the default raises."""
+    device = require(device)
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-10, 10, size=(L, 3)) + np.array([0.0, 0.0, 30.0])
     cams = np.stack(

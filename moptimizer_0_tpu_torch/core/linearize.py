@@ -7,6 +7,11 @@ over the flattened (N·O) axis:
     H = Aᵀ B   with A = J as (N·O, P), B = (w ⊙ ΣJ) as (N·O, P)
     b = Aᵀ (w ⊙ Σr)
 
+``linearize_batched``, ``compute_cost_batched`` and
+``compute_block_costs_batched`` evaluate the same functions for every lane of
+a (B, P) x with ``torch.func.vmap``, over each block's data too where that
+block's data carries the lane axis.
+
 Derivative modes:
 
 * ``auto``     — forward-mode AD (``torch.func.jacfwd``) through
@@ -19,9 +24,13 @@ The loss weight and Σ enter H and b only; the cost is the unweighted
 Σ_valid ‖r‖² unless the block sets ``weighted_cost``.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
+
+from moptimizer_0_tpu_torch.core.residual import Problem
 
 
 def _blocks_of(block_or_problem):
@@ -162,6 +171,50 @@ def _linearize_block(block, x, mode, accum_dtype=None):
         raise ValueError(f"unknown diff mode {mode!r}")
 
     return _accumulate(block, x, r, valid, J, accum_dtype=accum_dtype)
+
+
+def _over_lanes(fn, block_or_problem, x, batch_data):
+    """fn(problem_i, x_i) for every lane i of x (B, P), through vmap.
+
+    batch_data: True (every block's data has the lane axis), False (data is
+    shared by all lanes), or one bool per block. A block with data=None is
+    shared whatever it says."""
+    blocks = _blocks_of(block_or_problem)
+    if isinstance(batch_data, bool):
+        batch_data = (batch_data,) * len(blocks)
+    datas = tuple(b.data for b in blocks)
+    dims = tuple(0 if (lane and d is not None) else None for lane, d in zip(batch_data, datas))
+
+    def one(datas_i, x_i):
+        return fn(
+            Problem(blocks=tuple(dataclasses.replace(b, data=d) for b, d in zip(blocks, datas_i))),
+            x_i,
+        )
+
+    return vmap(one, in_dims=(dims, 0))(datas, x)
+
+
+def linearize_batched(block_or_problem, x, mode="auto", accum_dtype=None, batch_data=True):
+    """``linearize`` for every lane of x (B, P): cost (B,), H (B, P, P), b (B, P)."""
+    return _over_lanes(
+        lambda p, xi: linearize(p, xi, mode=mode, accum_dtype=accum_dtype),
+        block_or_problem, x, batch_data,
+    )
+
+
+def compute_cost_batched(block_or_problem, x, accum_dtype=None, batch_data=True):
+    """``compute_cost`` for every lane of x (B, P): (B,)."""
+    return _over_lanes(
+        lambda p, xi: compute_cost(p, xi, accum_dtype=accum_dtype), block_or_problem, x, batch_data
+    )
+
+
+def compute_block_costs_batched(block_or_problem, x, accum_dtype=None, batch_data=True):
+    """``compute_block_costs`` for every lane of x (B, P): (B, n_blocks)."""
+    return _over_lanes(
+        lambda p, xi: compute_block_costs(p, xi, accum_dtype=accum_dtype),
+        block_or_problem, x, batch_data,
+    )
 
 
 def _accumulate(block, x, r, valid, J, accum_dtype=None):

@@ -5,7 +5,11 @@ A block is ``(residual_fn, data, loss, weight_matrix)`` plus two hooks:
 * ``prepare_fn(x) -> state``: the cheap parameter → transform conversion,
   run once per evaluation;
 * ``update_fn(x, data) -> data``: run once per outer LM iteration, for
-  example ICP's correspondence search.
+  example ICP's correspondence search;
+* ``batch_update_fn(x, data) -> data``: the same for every lane of a batched
+  solve at once, x (B, P) and data with a leading B. A block needs one where
+  its hook cannot run under ``torch.func.vmap``, as a kernel launch cannot;
+  the batched solver runs ``vmap(update_fn)`` for a block without one.
 
 ``residual_fn(state, data_i)`` returns the residual (O,) of ONE index, or a
 tuple ``(residual, valid)``; ``core.linearize`` batches it over the leading
@@ -16,6 +20,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.func import vmap
 
 from moptimizer_0_tpu_torch.core.loss import TrivialLoss
 
@@ -42,6 +47,8 @@ class ResidualBlock:
         Analytic Jacobian for ``mode="analytic"``.
     update_fn : (x, data) -> data, or None
         Run once per outer iteration.
+    batch_update_fn : (x (B, P), data with a leading B) -> data, or None
+        The lane-aware hook of a batched solve.
     linearize_fn : (block, x) -> (cost, H, b), or None
         Fused fast path, taken for ``mode="auto"`` without ``accum_dtype``.
     weight_fn : (state, data_i) -> (O, O), or None
@@ -62,12 +69,22 @@ class ResidualBlock:
     weight_fn: Optional[Callable] = None
     weighted_cost: bool = False
     name: str = "block"
+    batch_update_fn: Optional[Callable] = None
 
     def update(self, x):
         """Run the update hook, returning a new block."""
         if self.update_fn is None:
             return self
         return dataclasses.replace(self, data=self.update_fn(x, self.data))
+
+    def update_batched(self, x):
+        """Run the update hook for every lane of x (B, P) on data with a
+        leading B, returning a new block."""
+        if self.batch_update_fn is not None:
+            return dataclasses.replace(self, data=self.batch_update_fn(x, self.data))
+        if self.update_fn is None:
+            return self
+        return dataclasses.replace(self, data=vmap(self.update_fn)(x, self.data))
 
 
 def make_block(
@@ -83,6 +100,7 @@ def make_block(
     weight_fn=None,
     weighted_cost=False,
     name="block",
+    batch_update_fn=None,
 ):
     """Build a `ResidualBlock`; the loss defaults to `TrivialLoss`."""
     return ResidualBlock(
@@ -97,6 +115,7 @@ def make_block(
         weight_fn=weight_fn,
         weighted_cost=weighted_cost,
         name=name,
+        batch_update_fn=batch_update_fn,
     )
 
 
@@ -109,6 +128,10 @@ class Problem:
     def update(self, x):
         """Run every block's update hook (once per outer LM iteration)."""
         return Problem(blocks=tuple(b.update(x) for b in self.blocks))
+
+    def update_batched(self, x):
+        """Run every block's update hook for every lane of x (B, P)."""
+        return Problem(blocks=tuple(b.update_batched(x) for b in self.blocks))
 
 
 def problem(*blocks):

@@ -29,10 +29,14 @@ import torch
 from moptimizer_0_tpu_torch.core.linearize import (
     _as_dtype,
     compute_block_costs,
+    compute_block_costs_batched,
     compute_cost,
+    compute_cost_batched,
     linearize,
+    linearize_batched,
 )
 from moptimizer_0_tpu_torch.core.residual import Problem
+from moptimizer_0_tpu_torch.ops.small_solve import cholesky_solve_unrolled
 
 
 class Status(enum.IntEnum):
@@ -85,25 +89,24 @@ class LMResult:
     trace: dict  # per-outer-iteration records, NaN-filled to max_iterations
 
 
-def _check_supported(config, manifold):
+def _check_supported(manifold):
     if manifold is not None:
         raise NotImplementedError("manifolds are ported with core/manifold.py, a later slice")
-    if config.linear_solver == "unrolled":
-        raise NotImplementedError(
-            'linear_solver="unrolled" is ported with the batched solver, a later slice'
-        )
 
 
 def _solve_damped(H, diag_H, lam, b, method):
-    """δ = (H + λ·diag(H))⁻¹(−b). A failed factorization gives a NaN δ, which
-    the caller turns into NUMERIC_ERROR through the NaN cost it causes."""
-    A = H + lam * torch.diag(diag_H)
+    """δ = (H + λ·diag(H))⁻¹(−b) over any leading lane axes: H (..., P, P),
+    λ (...). A failed factorization gives a NaN δ, which the caller turns
+    into NUMERIC_ERROR through the NaN cost it causes."""
+    A = H + lam[..., None, None] * torch.diag_embed(diag_H)
+    if method == "unrolled":
+        return cholesky_solve_unrolled(A, -b)
     if method == "cholesky":
         L, info = torch.linalg.cholesky_ex(A)
-        delta = torch.cholesky_solve(-b[:, None], L)[:, 0]
+        delta = torch.cholesky_solve(-b[..., None], L)[..., 0]
     else:
         delta, info = torch.linalg.solve_ex(A, -b)
-    return torch.where(info != 0, torch.full_like(delta, torch.nan), delta)
+    return torch.where(info[..., None] != 0, torch.full_like(delta, torch.nan), delta)
 
 
 def _trace_dtype(config, x):
@@ -120,7 +123,7 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
     Returns (problem', x', λ', terminal, status, record): ``terminal`` a
     Python bool, ``status`` a `Status`, the rest tensors on x's device.
     """
-    _check_supported(config, manifold)
+    _check_supported(manifold)
     dtype = _trace_dtype(config, x)
     dev = x.device
     eps = torch.finfo(dtype).eps
@@ -138,13 +141,7 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
     converged0 = bool(converged0)
 
     n_inner = config.inner_iterations
-    inner_trace = dict(
-        cost_new=_nan((n_inner,), dtype, dev),
-        rho=_nan((n_inner,), dtype, dev),
-        lam=_nan((n_inner,), dtype, dev),
-        nu=_nan((n_inner,), dtype, dev),
-        accepted=torch.zeros((n_inner,), dtype=torch.bool, device=dev),
-    )
+    inner_trace = _trial_rows((n_inner,), dtype, dev)
     nu = torch.tensor(2.0, dtype=dtype, device=dev)
     y = y0
     rho = torch.tensor(torch.nan, dtype=dtype, device=dev)
@@ -229,6 +226,31 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
     return problem, x_out, lam, terminal, status, record
 
 
+def _trial_rows(shape, dtype, dev):
+    """NaN-filled per-trial records of the given shape."""
+    return dict(
+        cost_new=_nan(shape, dtype, dev),
+        rho=_nan(shape, dtype, dev),
+        lam=_nan(shape, dtype, dev),
+        nu=_nan(shape, dtype, dev),
+        accepted=torch.zeros(shape, dtype=torch.bool, device=dev),
+    )
+
+
+def _new_trace(lanes, config, n_blocks, dtype, dev):
+    """The NaN-filled trace: (*lanes, max_iterations) per-iteration records
+    and (*lanes, max_iterations, inner_iterations) per-trial ones."""
+    n_it, n_inner = config.max_iterations, config.inner_iterations
+    trace = dict(
+        cost=_nan((*lanes, n_it), dtype, dev),
+        **_trial_rows((*lanes, n_it), dtype, dev),
+        inner=_trial_rows((*lanes, n_it, n_inner), dtype, dev),
+    )
+    if config.trace_block_costs:
+        trace["block_costs"] = _nan((*lanes, n_it, n_blocks), dtype, dev)
+    return trace
+
+
 def _write_record(trace, it, record):
     for key, value in record.items():
         if isinstance(value, dict):
@@ -251,24 +273,8 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
     x = torch.as_tensor(x0)
     dtype = _trace_dtype(config, x)
     dev = x.device
-    n_it, n_inner = config.max_iterations, config.inner_iterations
-    trace = dict(
-        cost=_nan((n_it,), dtype, dev),
-        cost_new=_nan((n_it,), dtype, dev),
-        rho=_nan((n_it,), dtype, dev),
-        lam=_nan((n_it,), dtype, dev),
-        nu=_nan((n_it,), dtype, dev),
-        accepted=torch.zeros((n_it,), dtype=torch.bool, device=dev),
-        inner=dict(
-            cost_new=_nan((n_it, n_inner), dtype, dev),
-            rho=_nan((n_it, n_inner), dtype, dev),
-            lam=_nan((n_it, n_inner), dtype, dev),
-            nu=_nan((n_it, n_inner), dtype, dev),
-            accepted=torch.zeros((n_it, n_inner), dtype=torch.bool, device=dev),
-        ),
-    )
-    if config.trace_block_costs:
-        trace["block_costs"] = _nan((n_it, len(problem.blocks)), dtype, dev)
+    n_it = config.max_iterations
+    trace = _new_trace((), config, len(problem.blocks), dtype, dev)
 
     lam = torch.tensor(-1.0, dtype=dtype, device=dev)
     status = Status.MAXIMUM_ITERATIONS_REACHED
@@ -302,13 +308,202 @@ def lm_step(problem, x, lam, config=LMConfig(), manifold=None):
     return _outer_iteration(problem, x, lam, config, manifold)
 
 
+def _lanes(mask, like):
+    """A (B,) mask shaped to broadcast against like (B, ...)."""
+    return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
+
+
+def _select(mask, new, old):
+    """new where the lane's mask is set, old elsewhere, through dicts."""
+    if isinstance(new, dict):
+        return {k: _select(mask, new[k], old[k]) for k in new}
+    return torch.where(_lanes(mask, new), new, old)
+
+
+def _broadcast_lanes(data, B):
+    """Shared data given a leading lane axis of size B (a view, no copy)."""
+    if isinstance(data, dict):
+        return {k: _broadcast_lanes(v, B) for k, v in data.items()}
+    return data.expand(B, *data.shape)
+
+
+def _write_lanes(trace, it, record, active):
+    for key, value in record.items():
+        if isinstance(value, dict):
+            _write_lanes(trace[key], it, value, active)
+        else:
+            trace[key][:, it] = torch.where(_lanes(active, value), value, trace[key][:, it])
+
+
 def levenberg_marquardt_batched(problem, x0_batch, config=LMConfig(), manifold=None, batch_data=True):
-    """Batched solve of B instances; ported with the batched-solver slice."""
-    raise NotImplementedError(
-        "levenberg_marquardt_batched is ported with the batched solver, a later slice"
+    """Solve B instances of one problem structure together: x0_batch (B, P).
+
+    Every lane does exactly what ``levenberg_marquardt`` does alone; the
+    loop runs with a lane axis, every lane's step is taken, and finished
+    lanes (and the data of their blocks) are frozen with ``torch.where``.
+    batch_data=True: every data leaf has a leading B; False: the data is
+    shared and only x0 varies (multistart). A data=None block is shared.
+    Update hooks run once per pass of the outer loop for all lanes together
+    (``ResidualBlock.update_batched``); the loop reads the host once per
+    pass and once per inner trial for the whole batch, and ends when every
+    lane is done.
+
+    Returns an LMResult with a leading B on every field: the trace is
+    (B, max_iterations) and (B, max_iterations, inner_iterations).
+    """
+    problem = _as_problem(problem)
+    _check_supported(manifold)
+    x = torch.as_tensor(x0_batch)
+    B = x.shape[0]
+    dtype = _trace_dtype(config, x)
+    dev = x.device
+    # constants filled on the device: torch.tensor(scalar, device=cuda)
+    # copies from pageable host memory and synchronises
+    eps = torch.full((), torch.finfo(dtype).eps, dtype=dtype, device=dev)
+    sqrt_eps = torch.sqrt(eps)
+    eight_eps = 8 * eps
+    third = torch.full((), 1.0 / 3.0, dtype=dtype, device=dev)
+    n_it, n_inner = config.max_iterations, config.inner_iterations
+    adt = config.accum_dtype
+
+    # a block with an update hook gets per-lane data from its first update on
+    hooked = tuple(
+        blk.update_fn is not None or blk.batch_update_fn is not None for blk in problem.blocks
+    )
+    if not batch_data:
+        problem = Problem(
+            blocks=tuple(
+                dataclasses.replace(blk, data=_broadcast_lanes(blk.data, B)) if h else blk
+                for blk, h in zip(problem.blocks, hooked)
+            )
+        )
+    lane_data = tuple(batch_data or h for h in hooked)
+
+    trace = _new_trace((B,), config, len(problem.blocks), dtype, dev)
+    lam = torch.full((B,), -1.0, dtype=dtype, device=dev)
+    status = torch.full((B,), int(Status.MAXIMUM_ITERATIONS_REACHED), dtype=torch.int32, device=dev)
+    it = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    def full(value, dt=dtype):
+        return torch.full((B,), value, dtype=dt, device=dev)
+
+    for p in range(n_it):
+        active = ~done
+        updated = problem.update_batched(x)
+        problem = Problem(
+            blocks=tuple(
+                dataclasses.replace(new, data=_select(active, new.data, old.data)) if h else old
+                for new, old, h in zip(updated.blocks, problem.blocks, hooked)
+            )
+        )
+        y0, H, b = linearize_batched(problem, x, config.diff_mode, adt, lane_data)
+        diag_H = torch.diagonal(H, dim1=-2, dim2=-1)
+
+        converged0 = torch.abs(y0) < eight_eps
+        if config.grad_tol > 0.0:
+            converged0 = converged0 | (torch.amax(torch.abs(b), dim=-1) < config.grad_tol)
+        seed = config.init_lambda_factor * torch.amax(torch.abs(diag_H), dim=-1)
+        lam = torch.where(active & (lam < 0.0), seed, lam)
+
+        inner = _trial_rows((B, n_inner), dtype, dev)
+        nu = full(2.0)
+        y = y0
+        rho = full(torch.nan)
+        accepted = full(False, torch.bool)
+        lane_status = full(int(Status.MAXIMUM_ITERATIONS_REACHED), torch.int32)
+        terminal = converged0
+        x_out = x
+        running = active & ~converged0
+        # the one read of this pass before its trials: is any lane left to try?
+        all_done = not bool(running.any())
+
+        for k in range(0 if all_done else n_inner):
+            delta = _solve_damped(H, diag_H, lam, b, config.linear_solver)
+            xi = x + delta.to(x.dtype)
+            yi = compute_cost_batched(problem, xi, adt, lane_data)
+            rho_k = (y0 - yi) / torch.sum(delta * (lam[:, None] * delta - b), dim=-1)
+
+            is_nan = running & torch.isnan(yi)
+            ok = running & ~torch.isnan(yi)
+            reject = rho_k < 0.0  # a NaN ρ falls through to accept
+            small = torch.amax(torch.abs(delta), dim=-1) < sqrt_eps
+            accept = ok & ~reject
+            term_small = ok & reject & small
+            retry = ok & reject & ~small
+
+            small_status = torch.where(
+                torch.abs(yi) < eight_eps, int(Status.CONVERGED), int(Status.SMALL_DELTA)
+            ).to(torch.int32)
+            lane_status = torch.where(term_small, small_status, lane_status)
+            lane_status = torch.where(is_nan, int(Status.NUMERIC_ERROR), lane_status).to(torch.int32)
+            term = is_nan | term_small
+            if config.rel_cost_tol > 0.0:
+                rel = accept & (yi <= y0) & ((y0 - yi) <= config.rel_cost_tol * torch.abs(y0))
+                term = term | rel
+                lane_status = torch.where(rel, int(Status.CONVERGED), lane_status).to(torch.int32)
+
+            if config.verbose:
+                print(
+                    f"[DEBUG] lm inner (lanes): {k + 1}/{n_inner} {y0.tolist()} {yi.tolist()} "
+                    f"{rho_k.tolist()} {lam.tolist()} {nu.tolist()} running {running.tolist()}"
+                )
+
+            trial = dict(cost_new=yi, rho=rho_k, lam=lam, nu=nu, accepted=accept)
+            for key, value in trial.items():
+                inner[key][:, k] = torch.where(running, value, inner[key][:, k])
+
+            x_out = torch.where(accept[:, None], xi, x_out)
+            gain = torch.maximum(third, 1.0 - (2.0 * rho_k - 1.0) ** 3)
+            lam = torch.where(accept, lam * gain, torch.where(retry, nu * lam, lam))
+            nu = torch.where(retry, 2.0 * nu, nu)
+            y = torch.where(accept | term, yi, y)
+            rho = torch.where(running, rho_k, rho)
+            accepted = torch.where(running, accept, accepted)
+            terminal = terminal | term
+            running = running & ~(accept | term)
+            # the trial's one read, for the whole batch
+            any_running, all_done = torch.stack([running.any(), (done | terminal).all()]).tolist()
+            if not any_running:
+                break
+
+        lane_status = torch.where(converged0, int(Status.CONVERGED), lane_status).to(torch.int32)
+        record = dict(
+            cost=y0, cost_new=y, rho=rho, lam=lam, nu=nu, accepted=accepted, inner=inner
+        )
+        if config.trace_block_costs:
+            record["block_costs"] = compute_block_costs_batched(problem, x, adt, lane_data)
+        _write_lanes(trace, p, record, active)
+        x = x_out
+        status = torch.where(active, lane_status, status)
+        # the terminal iteration is not counted as executed
+        it = torch.where(active & ~terminal, it + 1, it)
+        done = done | terminal
+        if all_done:
+            break
+
+    return LMResult(
+        x=x,
+        status=status,
+        iterations=it,
+        cost=compute_cost_batched(problem, x, adt, lane_data),
+        lam=lam,
+        trace=trace,
     )
 
 
 def solve_multistart(problem, x0_batch, config=LMConfig(), manifold=None, batch_data=False):
-    """Best-of-B multistart; ported with the batched-solver slice."""
-    raise NotImplementedError("solve_multistart is ported with the batched solver, a later slice")
+    """Best-of-B multistart: the B starts solved batched, and the lane with
+    the lowest final cost among those not in NUMERIC_ERROR returned as a
+    single LMResult; if every lane failed, the lowest raw cost (the caller
+    checks ``.status``). Returns (best, the batched LMResult)."""
+    res = levenberg_marquardt_batched(problem, x0_batch, config, manifold, batch_data=batch_data)
+    bad = res.status == int(Status.NUMERIC_ERROR)
+    cost = torch.where(bad, torch.inf, res.cost)
+    i = int(torch.argmin(torch.where(bad.all(), res.cost, cost)))
+
+    def pick(value):
+        return {k: pick(v) for k, v in value.items()} if isinstance(value, dict) else value[i]
+
+    best = LMResult(**{f.name: pick(getattr(res, f.name)) for f in dataclasses.fields(res)})
+    return best, res

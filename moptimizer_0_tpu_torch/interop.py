@@ -14,6 +14,7 @@ from moptimizer_0_tpu_torch.ba import BAProblem
 from moptimizer_0_tpu_torch.ba_dense import DenseBAConfig
 from moptimizer_0_tpu_torch.core import loss as _loss
 from moptimizer_0_tpu_torch.core.solver import LMConfig
+from moptimizer_0_tpu_torch.utils.device import require
 
 _LOSSES = {
     cls.__name__: cls
@@ -40,10 +41,12 @@ def loss_from_numpy(kind, params=None):
 
 
 def ba_problem_from_numpy(camera_params, points, cam_idx, pt_idx, pixels, intrinsics,
-                          n_fixed_cameras=1, loss=None, device=None):
+                          n_fixed_cameras=1, loss=None, device="cuda"):
     """The port's BAProblem from the numpy arrays of a JAX BAProblem's fields
     (``np.asarray`` of each); indices become int64, floats keep their dtype.
-    ``loss`` is a port loss (e.g. from ``loss_from_numpy``) or None."""
+    ``loss`` is a port loss (e.g. from ``loss_from_numpy``) or None. On the
+    card unless ``device`` says otherwise; without a card the default raises."""
+    device = require(device)
 
     def t(a, dtype=None):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)  # a writable copy

@@ -13,6 +13,8 @@ so the (N, 3, 6) Jacobian is never built. w = loss(‖r‖²)·valid scales H, b
 only; the cost is the unweighted Σ valid ‖r‖².
 
 Plain PyTorch here; a fused kernel for the moment pass is queued (ROADMAP K8).
+The batched solver runs it under ``torch.func.vmap``: for a fleet of B lanes
+each moment is one reduction over (B, N), one pass a fleet step.
 """
 
 import torch

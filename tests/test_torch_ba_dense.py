@@ -46,7 +46,9 @@ FIELDS = ("camera_params", "points", "cam_idx", "pt_idx", "pixels", "intrinsics"
 def port(jprob, loss=None):
     """The port's copy of a JAX BAProblem."""
     arrays = {k: np.asarray(getattr(jprob, k)) for k in FIELDS}
-    return interop.ba_problem_from_numpy(**arrays, n_fixed_cameras=jprob.n_fixed_cameras, loss=loss)
+    return interop.ba_problem_from_numpy(
+        **arrays, n_fixed_cameras=jprob.n_fixed_cameras, loss=loss, device="cpu"
+    )
 
 
 def uneven_problem():
@@ -391,13 +393,13 @@ def test_host_loop_flag_and_grouped_argument_change_nothing():
 @pytest.mark.parametrize("O,C,L,seed", [(3_000, 7, 400, 3)])
 def test_make_ba_problem_matches_bench(O, C, L, seed):
     j = bench._make_ba_problem(O, C, L, jnp, dtype=np.float64, seed=seed)
-    t = tba.make_ba_problem(O, C, L, seed=seed, dtype=torch.float64)
+    t = tba.make_ba_problem(O, C, L, seed=seed, dtype=torch.float64, device="cpu")
     for key in ("camera_params", "points", "cam_idx", "pt_idx", "intrinsics"):
         np.testing.assert_array_equal(getattr(t, key).numpy(), np.asarray(getattr(j, key)), err_msg=key)
     # pixels go through the two packages' own projections: rtol 1e-12
     np.testing.assert_allclose(t.pixels.numpy(), np.asarray(j.pixels), rtol=1e-12, atol=0)
     assert t.n_fixed_cameras == j.n_fixed_cameras == 2
-    assert tba.make_ba_problem(O, C, L, seed=seed).camera_params.dtype == torch.float32
+    assert tba.make_ba_problem(O, C, L, seed=seed, device="cpu").camera_params.dtype == torch.float32
     np.testing.assert_allclose(
         float(tba.compute_cost(t)), float(jba.compute_cost(j)), rtol=1e-12
     )

@@ -99,10 +99,13 @@ def test_nn_backend_routing_and_errors():
     torch.testing.assert_close(auto, plain, rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         nearest_neighbors(q, p, backend="cuda")
-    with pytest.raises(NotImplementedError, match="K6"):
+    # the expansion: K6 on CUDA tensors only, its plain version under "xla"
+    with pytest.raises(ValueError, match="CUDA tensor"):
         nearest_neighbors(q, p, backend="pallas_mxu")
+    xla = nearest_neighbors(q, p, backend="xla")
+    torch.testing.assert_close(xla[0], plain[0], rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown"):
-        nearest_neighbors(q, p, backend="xla")
+        nearest_neighbors(q, p, backend="grid")
     with pytest.raises(ValueError, match="non-empty"):
         nearest_neighbors(q[:0], p)
 

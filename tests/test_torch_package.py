@@ -8,6 +8,7 @@ import torch
 
 import moptimizer_0_tpu_torch
 from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.ops.nn_search import nearest_neighbors
 
@@ -17,7 +18,10 @@ def test_import_leaves_jax_out():
         "import sys, moptimizer_0_tpu_torch, moptimizer_0_tpu_torch.registration, "
         "moptimizer_0_tpu_torch.interop, moptimizer_0_tpu_torch.kernels.nn_search, "
         "moptimizer_0_tpu_torch.ba, moptimizer_0_tpu_torch.ba_dense, moptimizer_0_tpu_torch.ops.schur, "
-        "moptimizer_0_tpu_torch.ops.block_cholesky, moptimizer_0_tpu_torch.kernels.schur; "
+        "moptimizer_0_tpu_torch.ops.block_cholesky, moptimizer_0_tpu_torch.kernels.schur, "
+        "moptimizer_0_tpu_torch.kernels.nn_expand, moptimizer_0_tpu_torch.ops.small_solve, "
+        "moptimizer_0_tpu_torch.models.curve_fitting, moptimizer_0_tpu_torch.models.powell, "
+        "moptimizer_0_tpu_torch.models.rational, moptimizer_0_tpu_torch.utils.device; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'moptimizer_0_tpu.'))"
         " or m == 'moptimizer_0_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -35,6 +39,7 @@ def test_public_names_mirror_the_jax_package():
         "Cauchy", "GemanMcClure", "Huber", "TrivialLoss", "ResidualBlock", "Problem",
         "linearize", "compute_cost", "LMConfig", "LMResult", "Status",
         "levenberg_marquardt", "levenberg_marquardt_batched", "lm_step", "solve_multistart", "lie",
+        "icp", "icp_batched",
     }
     missing = [n for n in names if not hasattr(moptimizer_0_tpu_torch, n)]
     assert not missing
@@ -69,3 +74,11 @@ def test_library_name_is_keyed_by_source_hash():
     assert path.name.startswith("libnn_search-") and path.suffix == ".so"
     assert path == build.library_path(k_nn.NAME, k_nn.SOURCES)
     assert (build.CSRC_DIR / "nn_search.cu").is_file()
+
+
+def test_expansion_library_has_its_own_name_and_source():
+    path = build.library_path(k_expand.NAME, k_expand.SOURCES)
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libnn_expand-") and path.suffix == ".so"
+    assert path != build.library_path(k_nn.NAME, k_nn.SOURCES)
+    assert (build.CSRC_DIR / "nn_expand.cu").is_file()

@@ -220,12 +220,12 @@ def test_validation_and_later_slices_raise():
         tsol.levenberg_marquardt(tb, torch.zeros(2), tsol.LMConfig(diff_mode="bogus"))
     with pytest.raises(NotImplementedError, match="manifold"):
         tsol.levenberg_marquardt(tb, torch.zeros(2), manifold=object())
-    with pytest.raises(NotImplementedError, match="unrolled"):
-        tsol.levenberg_marquardt(tb, torch.zeros(2), tsol.LMConfig(linear_solver="unrolled"))
-    with pytest.raises(NotImplementedError, match="batched"):
-        tsol.levenberg_marquardt_batched(tb, torch.zeros(3, 2))
-    with pytest.raises(NotImplementedError, match="batched"):
-        tsol.solve_multistart(tb, torch.zeros(3, 2))
+    with pytest.raises(NotImplementedError, match="manifold"):
+        tsol.levenberg_marquardt_batched(tb, torch.zeros(3, 2), manifold=object())
+    with pytest.raises(NotImplementedError, match="manifold"):
+        tsol.solve_multistart(tb, torch.zeros(3, 2), manifold=object())
+    with pytest.raises(ValueError, match="No cost function"):
+        tsol.levenberg_marquardt_batched(tres.Problem(blocks=()), torch.zeros(3, 2))
 
 
 def test_interop_round_trip():
