@@ -11,17 +11,18 @@ prints no result):
 2. build: every kernel compiled from ``moptimizer_0_tpu_torch/csrc``, one
    nvcc per source, all started together;
 3. kernels against their plain PyTorch versions on the card, at the shapes
-   of the main paths and at ragged, tied and segmented shapes; timed with
-   CUDA events in the order plain, kernel, kernel, plain;
+   of the main paths and at ragged, tied, subnormal, split and segmented
+   shapes (K11 also against itself: two builds bit for bit); timed with
+   CUDA events in the order plain, library, kernel, kernel, library, plain;
 4. the ICP path: three ICP requests on the full 29,310-point fachada LiDAR
    scan in float32, each with a shuffled target and a known transform that
    must be recovered to 2e-3; one request is repeated with the plain search
    and must give the same iterations and x;
 5. the dense-BA path: ``solve_ba_dense`` on the O=500k, C=200, L=50k
    instance of the JAX package's bench in float32, which must end in the χ²
-   band around its noise floor with the fixed cameras unmoved; its first
-   three outer iterations are repeated with the plain S build and must give
-   the same costs;
+   band around its noise floor with the fixed cameras unmoved, with one K11
+   launch per S build; its first three outer iterations are repeated with
+   the plain S build and must give the same costs;
 6. the fleet path: ``icp_batched`` on 64 lanes of the full fachada scan in
    float32, each lane with its own shuffled target and known transform to
    be recovered to 2e-3, with one launch of the expansion kernel K6 per
@@ -61,7 +62,7 @@ from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
 from moptimizer_0_tpu_torch.lie import se3
 from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
-from moptimizer_0_tpu_torch.ops.schur import _schur_corr_torch, fold_linv
+from moptimizer_0_tpu_torch.ops.schur import _schur_corr_pairs_torch, _schur_corr_torch, fold_linv, pair_plan
 from moptimizer_0_tpu_torch.registration import icp, icp_batched
 from moptimizer_0_tpu_torch.utils.pointcloud import load_txt_cloud
 
@@ -80,10 +81,11 @@ BA_SIGMA = 0.5  # pixel noise of the instance
 # of freedom, whose standard deviation is √(2·dof) ≈ 0.15% of it: ±1% is
 # ±6.5 standard deviations.
 BA_BAND = 0.01
-# K11 against its plain version: max|ΔS_corr| ≤ 1e-5·max|S_corr|. Both sum
-# float32 products in other orders (atomics in no fixed order, blocked
-# matmul); an entry sums up to a few thousand products, so their roundoff
-# differs by up to ~√n·ε ≈ 1e-6 of the entry.
+# K11 against its plain versions: max|ΔS_corr| ≤ 1e-5·max|S_corr|. They sum
+# float32 products in other orders (lanes and a shuffle tree, a blocked
+# matmul, index_add_); an entry sums up to a few thousand products, so their
+# roundoff differs by up to ~√n·ε ≈ 1e-6 of the entry. Two runs of the
+# kernel sum in one fixed order and must agree bit for bit.
 S_BOUND = 1e-5
 # The plain-S repeat: the steps differ only by that roundoff, so the costs
 # of the first three outer iterations agree to 1e-5 relative.
@@ -226,10 +228,20 @@ def _check_same(name, kernel_out, plain_out):
     return float((d2_k[finite] - d2_p[finite]).abs().max()) if finite.any() else 0.0
 
 
+def _subnormal_cloud(rng, n, dev):
+    """Coordinates near 1e-20, whose products lie below float32's normal
+    range; every third point has one ordinary coordinate."""
+    a = rng.uniform(-1, 1, (n, 3)) * 1e-20
+    a[::3, 0] = rng.uniform(-1, 1, len(a[::3]))
+    return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+
 def check_expand_kernel(cloud, srcs, tgts, rng):
     """nn_expand_cuda against _nn_expand_torch: equal indices and bit-equal
-    d² at the fleet shape and at one-lane, ragged, tied, NaN and 3-lane
-    cases; timed at the fleet shape and at one lane."""
+    d² at the fleet shape and at one-lane, ragged, tied, NaN, 3-lane and
+    subnormal cases; every case but the fleet has its targets split, and the
+    tie cases have tied targets on both sides of a range's end. Timed at the
+    fleet shape and at one lane."""
     dev = cloud.device
     cases = {
         f"fleet {FLEET_B}x{cloud.shape[0]}x{cloud.shape[0]}": (srcs, tgts),
@@ -239,8 +251,13 @@ def check_expand_kernel(cloud, srcs, tgts, rng):
         q = torch.as_tensor(rng.uniform(-10, 10, (n_query, 3)), dtype=torch.float32, device=dev)
         p = torch.as_tensor(rng.uniform(-10, 10, (n_points, 3)), dtype=torch.float32, device=dev)
         cases[f"{n_query}x{n_points}"] = (q, p)
+    # every target three times; the first copy must win across every cut:
+    # 2,100 targets fall into ranges of 263 that cut the copies anywhere,
+    # 768 into 3 ranges of 256 cut exactly at the copies
     base = torch.as_tensor(rng.uniform(-10, 10, (700, 3)), dtype=torch.float32, device=dev)
     cases["ties"] = (base[::3].contiguous(), torch.cat([base, base, base]))
+    base_256 = base[:256]
+    cases["ties, ranges cut at the copies"] = (base_256[::3].contiguous(), torch.cat([base_256] * 3))
     q_nan = torch.as_tensor(rng.uniform(-10, 10, (300, 3)), dtype=torch.float32, device=dev)
     q_nan[17] = torch.nan
     q_nan[200, 1] = torch.nan
@@ -249,14 +266,19 @@ def check_expand_kernel(cloud, srcs, tgts, rng):
     lanes_p[1] += 40.0
     lanes_q = torch.as_tensor(rng.uniform(-10, 10, (3, 500, 3)), dtype=torch.float32, device=dev)
     cases["3 lanes of different clouds"] = (lanes_q, lanes_p)
+    cases["subnormal products"] = (_subnormal_cloud(rng, 600, dev), _subnormal_cloud(rng, 1500, dev))
 
     max_abs_err = 0.0
     for name, (q, p) in cases.items():
+        splits = k_expand.target_splits(q, p)
+        if name.startswith("ties") and splits < 3:
+            raise AssertionError(f"expansion kernel {name}: targets in {splits} ranges; the case needs 3 or more")
         out = k_expand.nn_expand_cuda(q, p)
         max_abs_err = max(max_abs_err, _check_same(name, out, _nn_expand_torch(q, p)))
-        if name == "ties" and not bool((out[0] < base.shape[0]).all()):
-            raise AssertionError("expansion kernel: a tie did not go to the smallest index")
-        if name == "NaN query rows":
+        n_base = p.shape[-2] // 3
+        if name.startswith("ties") and not bool((out[0] < n_base).all()):
+            raise AssertionError(f"expansion kernel {name}: a tie did not go to the smallest index")
+        if name.startswith("NaN query rows"):
             for row in (17, 200):
                 if int(out[0][row]) != 0 or float(out[1][row]) != float("inf"):
                     raise AssertionError(f"expansion kernel: NaN query row {row} gave {out[0][row]}, {out[1][row]}")
@@ -264,7 +286,8 @@ def check_expand_kernel(cloud, srcs, tgts, rng):
             for b in range(3):
                 _check_same(f"{name}, lane {b} alone", k_expand.nn_expand_cuda(q[b], p[b]),
                             tuple(o[b] for o in out))
-        print(f"expansion kernel {name}: {tuple(q.shape)} x {tuple(p.shape)} idx equal, d2 bit-equal")
+        print(f"expansion kernel {name}: {tuple(q.shape)} x {tuple(p.shape)}, targets in {splits} "
+              f"range(s): idx equal, d2 bit-equal")
 
     timing = {}
     for name, reps, plain_reps in ((next(iter(cases)), 3, 1), ("one fachada lane", 20, 5)):
@@ -409,7 +432,9 @@ def _segments_text(grouped):
 
 def check_schur_kernel(prob, grouped, dev, rng):
     """schur_corr_cuda against _schur_corr_torch: max|ΔS_corr|/max|S_corr| ≤
-    S_BOUND per case; timed at the headline shape."""
+    S_BOUND per case, and two builds of each equal bit for bit; the plan's
+    build time and bytes at the headline shape (the layout the solve
+    caches); timed at the headline shape."""
     # many unobserved landmarks: forced into a zero-width last segment
     small = ba.make_ba_problem(4_000, 20, 5_000, seed=SEED + 1, device=dev)
     grouped3 = ba_dense.group_by_landmark(small, segments=3)
@@ -423,47 +448,75 @@ def check_schur_kernel(prob, grouped, dev, rng):
         f"segments=3 with unobserved landmarks, segments {_segments_text(grouped3)}":
             (_s_build_segments(small, grouped3), 20),
     }
+    # the plan of the headline layout, as the solve builds it: once, cold
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head_plan = grouped.schur_plan(BA_C)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pair_plan([(v.cam_ids, v.mask) for _, v in grouped.views], BA_C)
+    torch.cuda.synchronize()
+    plan_again_s = time.perf_counter() - t0
+    print(f"schur plan at the headline shape: built in {plan_s * 1e3:.2f} ms (again {plan_again_s * 1e3:.2f} ms), "
+          f"{head_plan.nbytes / 1e6:.3f} MB: {head_plan.pairs.shape[0]} entries in "
+          f"{head_plan.block_cam.shape[0]} camera-pair blocks")
+
     max_abs_err = 0.0
     for name, (segs, C) in cases.items():
-        S_k = k_schur.schur_corr_cuda(segs, C)
+        plan, G = pair_plan([(cam, mask) for _, cam, mask in segs], C), _flat_g(segs)
+        S_k = k_schur.schur_corr_cuda(plan, G)
+        S_again = k_schur.schur_corr_cuda(plan, G)
         S_p = _schur_corr_torch(segs, C)
+        S_pairs = _schur_corr_pairs_torch(plan, G)
         torch.cuda.synchronize()
         err = float((S_k - S_p).abs().max())
         scale = float(S_p.abs().max())
         rel = err / scale
-        print(f"schur kernel {name}: max|dS| {err:.4e}, max|S| {scale:.4e}, ratio {rel:.3e} (bound {S_BOUND:g})")
-        if not torch.isfinite(S_k).all() or not rel <= S_BOUND:
-            raise AssertionError(f"schur kernel {name}: max|dS|/max|S| = {rel} > {S_BOUND}")
+        rel_pairs = float((S_k - S_pairs).abs().max()) / scale
+        same = torch.equal(S_k.view(torch.int32), S_again.view(torch.int32))
+        print(f"schur kernel {name}: max|dS| {err:.4e}, max|S| {scale:.4e}, ratio {rel:.3e} (bound {S_BOUND:g}); "
+              f"against the plain gather over the plan {rel_pairs:.3e}; two builds bit-equal: {same}")
+        if not torch.isfinite(S_k).all() or not rel <= S_BOUND or not rel_pairs <= S_BOUND:
+            raise AssertionError(f"schur kernel {name}: max|dS|/max|S| = {rel}, {rel_pairs} > {S_BOUND}")
+        if not same:
+            raise AssertionError(f"schur kernel {name}: two builds of S_corr differ")
         max_abs_err = max(max_abs_err, err)
 
     segs, C = next(iter(cases.values()))
-    k_schur.schur_corr_cuda(segs, C)
+    plan, G = head_plan, _flat_g(segs)
+    k_schur.schur_corr_cuda(plan, G)
     A2 = _dense_panel(segs, C)
     S_lib = A2.T @ A2
     S_p = _schur_corr_torch(segs, C)
     torch.cuda.synchronize()
     lib_rel = float((S_lib - S_p).abs().max()) / float(S_p.abs().max())
-    kernel_reps, plain_reps = 10, 2  # the plain build is 432 GFLOP of float32 matmul
-    t = _alternate(lambda: _schur_corr_torch(segs, C), lambda: k_schur.schur_corr_cuda(segs, C),
+    kernel_reps, plain_reps = 20, 2  # the plain build is 432 GFLOP of float32 matmul
+    t = _alternate(lambda: _schur_corr_torch(segs, C), lambda: k_schur.schur_corr_cuda(plan, G),
                    lambda: A2.T @ A2, kernel_reps, plain_reps)
     print(
-        f"schur time at the headline shape (CUDA events, order plain, library, kernel, kernel, library, "
-        f"plain; means of {plain_reps}/{kernel_reps}): kernel {t['kernel']} ms, plain {t['plain']} ms, "
-        f"library (A2ᵀA2 over the dense {tuple(A2.shape)} panel, {lib_rel:.2e} of max|S| from the plain "
-        f"S) {t['library']} ms"
+        f"schur time per S build at the headline shape (one launch; CUDA events, order plain, library, "
+        f"kernel, kernel, library, plain; means of {plain_reps}/{kernel_reps}): kernel {t['kernel']} ms, "
+        f"plain {t['plain']} ms, library (A2ᵀA2 over the dense {tuple(A2.shape)} panel, {lib_rel:.2e} of "
+        f"max|S| from the plain S) {t['library']} ms"
     )
-    # the bound: the dot products of every ordered pair of real slots
-    # (2·3 flops for each of 36 entries), each input read once, S_corr written once
-    pairs, n_bytes = 0, 4 * (6 * C) ** 2
-    for G, cam, mask in segs:
-        real = (mask != 0) & (cam >= 0) & (cam < C)
-        pairs += int((real.sum(1).double() ** 2).sum())
-        n_bytes += 4 * (G.numel() + cam.numel() + mask.numel())
-    bound = _bound(216 * pairs, n_bytes)
-    print(f"schur bound: {pairs} ordered slot pairs, {216 * pairs / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB: "
+    # the bound of the function, whatever its plan: the ordered pairs of
+    # real slots with cam_k ≤ cam_k′ (the other half is their transpose),
+    # 2·3 flops for each of 36 products; G, the camera ids and the masks
+    # read once, S_corr written once
+    entries = plan.pairs.shape[0]
+    n_bytes = 4 * (6 * C) ** 2 + sum(t.numel() * t.element_size() for seg in segs for t in seg)
+    bound = _bound(216 * entries, n_bytes)
+    print(f"schur bound: {entries} plan entries, {216 * entries / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB: "
           f"{bound[0]:.4f} ms by {bound[1]}")
     del A2, S_lib
     return max_abs_err, {k: sum(v) / len(v) for k, v in t.items()}, bound
+
+
+def _flat_g(segs):
+    """The G of (G, cam_ids, mask) segments in one flat (n_slots, 6, 3)
+    buffer, the kernel's layout."""
+    return torch.cat([G.reshape(-1, 6, 3) for G, _, _ in segs])
 
 
 def _dense_panel(segments, C):
@@ -487,10 +540,10 @@ def _dense_panel(segments, C):
     return torch.cat(rows)
 
 
-def run_ba(prob, n_segs):
+def run_ba(prob):
     """The dense-BA main path: one solve_ba_dense call, as a user makes it
-    (host grouping included); K11 must launch once per trial and non-empty
-    segment (``n_segs``)."""
+    (host grouping and the S build's plan included); K11 must launch once
+    per trial, one S build for all segments."""
     k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -514,7 +567,7 @@ def run_ba(prob, n_segs):
         f"({(cost / floor - 1) * 100:+.4f}%)"
     )
     print(f"  cost trace {costs}")
-    print(f"schur kernel launches on the BA path: {launches} for {sum(trials)} trials x {n_segs} segments")
+    print(f"schur kernel launches on the BA path: {launches} for {sum(trials)} trials (S builds)")
     if status == Status.NUMERIC_ERROR or not np.isfinite(cost):
         raise AssertionError(f"dense BA: status {status.name}, cost {cost}")
     if not torch.equal(res.camera_params[:2], prob.camera_params[:2]):
@@ -523,7 +576,7 @@ def run_ba(prob, n_segs):
         raise AssertionError(f"dense BA: the accepted cost rose: {costs}")
     if abs(cost / floor - 1) > BA_BAND:
         raise AssertionError(f"dense BA: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
-    if launches != sum(trials) * n_segs or launches == 0:
+    if launches != sum(trials) or launches == 0:
         raise AssertionError(f"the BA path launched the schur kernel {launches} times")
     return res, launches
 
@@ -600,8 +653,7 @@ def main():
         raise AssertionError(f"plain search: x differs from the kernel's run by {dx}")
     print(f"request A with the plain search: same iterations, max|dx| {dx:.3e}")
 
-    n_segs = sum(view.cam_ids.numel() > 0 for _, view in ba_dense._seg_views(ba_grouped))
-    ba_res, s_launches = run_ba(ba_prob, n_segs)
+    ba_res, s_launches = run_ba(ba_prob)
     ba_steps(ba_prob, ba_grouped, "auto")
     plain_costs = ba_steps(ba_prob, ba_grouped, "torch")
     kernel_costs = list(zip(ba_res.trace["cost"][:3].tolist(), ba_res.trace["cost_new"][:3].tolist()))

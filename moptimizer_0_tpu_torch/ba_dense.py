@@ -88,6 +88,18 @@ class GroupedBA:
             s = e
         return out
 
+    @functools.cached_property
+    def _schur_plans(self):
+        return {}
+
+    def schur_plan(self, C):
+        """The S build's camera-pair plan (``ops.schur.pair_plan``) of this
+        layout for C cameras: built on first use and kept, as ``views`` is
+        (the camera ids and masks do not change during a solve)."""
+        if C not in self._schur_plans:
+            self._schur_plans[C] = schur.pair_plan([(v.cam_ids, v.mask) for _, v in self.views], C)
+        return self._schur_plans[C]
+
 
 def _seg_views(grouped):
     return grouped.views
@@ -438,8 +450,8 @@ def _build_schur(U_d, Vinv_chol, W, grouped, fixed_mask, chunk=512, backend="aut
     """Explicit S = blockdiag(U′) − Σ_l Ã_lᵀÃ_l in the permuted i·C + c order,
     with gauge rows for fixed cameras (``ops.schur.build_schur``).
     Vinv_chol is L⁻¹ of V′ = L Lᵀ, per landmark in grid-row order."""
-    views, W_segs = _w_segments(W, grouped)
-    return schur.build_schur(U_d, Vinv_chol, W_segs, views, fixed_mask, backend=backend, chunk=chunk)
+    _, W_segs = _w_segments(W, grouped)
+    return schur.build_schur(U_d, Vinv_chol, W_segs, grouped, fixed_mask, backend=backend, chunk=chunk)
 
 
 def _solve_delta_dense(grouped, C, U, V, W, g, h, lam, fixed_mask, chunk, schur_solver="auto",
