@@ -1,20 +1,22 @@
-"""K6's inner loop in SASS, and the issue floors it implies, on one NVIDIA GPU.
+"""The NN kernels' hot loops in SASS, and the issue floors they imply, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
-    python3 chip_k6.py [--parent-source PATH] [--out DIR]
+    python3 chip_sass.py [--kernel k5|k6|both] [--parent-tree DIR] [--out DIR]
 
-Compiles ``moptimizer_0_tpu_torch/csrc/nn_expand.cu`` (and the file at
-``--parent-source``, another tree's K6, when given) to a cubin for sm_90a,
-disassembles it with ``cuobjdump -sass`` and finds the search kernel's hot
-loop: the backward branch whose body holds the most pair minima (FMNMX) or,
-in a kernel without them, pair compares (FSETP). Prints the loop's
-instructions, its pairs and instructions a pair, and its opcodes, and the
-issue floors at the fleet shape (64 × 29,310²) that follow: its pairs times
-instructions a pair (or times the 7 float operations a pair that
-bit-equality forces), one warp instruction for 32 pairs, at 4 issues a clock
-on each of the card's SMs at the card's maximum SM clock. The full listings
-go to DIR (default ``build/k6``).
+For each kernel asked for (both by default): K5, the search kernel of
+``moptimizer_0_tpu_torch/csrc/nn_search.cu``, at one fachada scan
+(29,310²); K6, that of ``csrc/nn_expand.cu``, at the fleet shape
+(64 × 29,310²). Compiles the source of this tree (and of the checkout at
+``--parent-tree``, when given) to a cubin for sm_90a, disassembles it with
+``cuobjdump -sass`` and finds the search kernel's hot loop: the backward
+branch whose body holds the most pair minima (FMNMX) or, in a kernel without
+them, pair compares (FSETP). Prints the loop's instructions, its pairs and
+instructions a pair, and its opcodes, and the issue floors that follow: the
+pairs times the loop's instructions a pair (or times the float operations a
+pair that bit-equality forces: 8 for K5, 7 for K6), one warp instruction for
+32 pairs, at 4 issues a clock on each of the card's SMs at the card's
+maximum SM clock. The full listings go to DIR (default ``build/sass``).
 """
 
 import argparse
@@ -29,7 +31,11 @@ import torch
 import chip_smoke as cs
 from moptimizer_0_tpu_torch.kernels import build
 
-SOURCE = build.CSRC_DIR / "nn_expand.cu"
+# name: (source under csrc/, search kernel, float operations a pair, lanes at its shape)
+KERNELS = {
+    "k5": ("nn_search.cu", "nn_bruteforce_kernel", 8, 1),
+    "k6": ("nn_expand.cu", "nn_expand_kernel", 7, cs.FLEET_B),
+}
 
 
 def _run(cmd):
@@ -43,7 +49,7 @@ def _tool(name):
     return str(Path(build._nvcc()).with_name(name))
 
 
-def sass_loop(source, out_dir, tag):
+def sass_loop(source, kernel, out_dir, tag):
     """(instructions, pairs, opcode counts) of the search kernel's hot loop."""
     cubin = out_dir / f"{tag}.cubin"
     _run([build._nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -52,7 +58,7 @@ def sass_loop(source, out_dir, tag):
     (out_dir / f"{tag}.sass").write_text(sass)
     # the search kernel's listing: from its Function header to the next one
     funcs = re.split(r"\n\s*Function : ", sass)
-    body = next(f for f in funcs if "nn_expand_kernel" in f.splitlines()[0])
+    body = next(f for f in funcs if kernel in f.splitlines()[0])
     labels, instrs, at = {}, [], {}
     for line in body.splitlines():
         m = re.match(r"\s*(\.L_x_\d+):", line)
@@ -80,17 +86,18 @@ def sass_loop(source, out_dir, tag):
         if pairs and (best is None or (pairs / len(loop), pairs) > (best[1] / best[0], best[1])):
             best = (len(loop), pairs, ops)
     if best is None:
-        raise RuntimeError(f"{tag}: no loop with pair minima or compares in the search kernel")
+        raise RuntimeError(f"{tag}: no loop with pair minima or compares in {kernel}")
     return best
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent-source", help="another tree's csrc/nn_expand.cu, for its SASS")
-    parser.add_argument("--out", default="build/k6", help="directory for the listings")
+    parser.add_argument("--kernel", choices=("k5", "k6", "both"), default="both")
+    parser.add_argument("--parent-tree", help="another checkout's root, for its kernels' SASS")
+    parser.add_argument("--out", default="build/sass", help="directory for the listings")
     args = parser.parse_args()
     if not torch.cuda.is_available():
-        raise SystemExit("chip_k6: no CUDA device; this runs on a GPU only")
+        raise SystemExit("chip_sass: no CUDA device; this runs on a GPU only")
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -102,19 +109,26 @@ def main():
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    fleet_pairs = cs.FLEET_B * cs.load_txt_cloud(cs.FACHADA).shape[0] ** 2
+    n = cs.load_txt_cloud(cs.FACHADA).shape[0]
+    trees = [("this tree", build.CSRC_DIR)]
+    if args.parent_tree:
+        trees.append(("parent", Path(args.parent_tree) / "moptimizer_0_tpu_torch" / "csrc"))
 
-    def floor_ms(per_pair):
-        return fleet_pairs * per_pair / 32 / (sms * 4 * max_mhz * 1e6) * 1e3
+    for name in (("k5", "k6") if args.kernel == "both" else (args.kernel,)):
+        source, kernel, flops, lanes = KERNELS[name]
+        pairs = lanes * n * n
 
-    print(f"issue floor at the fleet shape ({fleet_pairs} pairs, {sms} SMs, {max_mhz:.0f} MHz): "
-          f"7 float operations a pair {floor_ms(7):.3f} ms")
-    sources = [("this tree", SOURCE)] + ([("parent", Path(args.parent_source))] if args.parent_source else [])
-    for tag, src in sources:
-        n, pairs, ops = sass_loop(src, out_dir, tag.replace(" ", "_"))
-        print(f"K6 SASS, {tag} ({src}): hot loop {n} instructions, {pairs} pairs, "
-              f"{n / pairs:.3f} instructions a pair, issue floor {floor_ms(n / pairs):.3f} ms; "
-              f"opcodes {dict(ops.most_common())}")
+        def floor_ms(per_pair):
+            return pairs * per_pair / 32 / (sms * 4 * max_mhz * 1e6) * 1e3
+
+        print(f"{name.upper()} issue floor at {lanes} x {n}^2 ({pairs} pairs, {sms} SMs, {max_mhz:.0f} MHz): "
+              f"{flops} float operations a pair {floor_ms(flops):.3f} ms")
+        for tag, csrc in trees:
+            src = csrc / source
+            count, n_pairs, ops = sass_loop(src, kernel, out_dir, f"{name}_{tag.replace(' ', '_')}")
+            print(f"{name.upper()} SASS, {tag} ({src}): hot loop {count} instructions, {n_pairs} pairs, "
+                  f"{count / n_pairs:.3f} instructions a pair, issue floor {floor_ms(count / n_pairs):.3f} ms; "
+                  f"opcodes {dict(ops.most_common())}")
 
 
 if __name__ == "__main__":

@@ -11,9 +11,10 @@ prints no result):
 2. build: every kernel compiled from ``moptimizer_0_tpu_torch/csrc``, one
    nvcc per source, all started together;
 3. kernels against their plain PyTorch versions on the card, at the shapes
-   of the main paths and at ragged, tied, subnormal, split and segmented
-   shapes (K11 also against itself: two builds bit for bit); timed with
-   CUDA events in the order plain, library, kernel, kernel, library, plain;
+   of the main paths and at ragged, tied, NaN, overflowing, subnormal,
+   split and segmented shapes (K11 also against itself: two builds bit for
+   bit); timed with CUDA events in the order plain, library, kernel,
+   kernel, library, plain;
 4. the ICP path: three ICP requests on the full 29,310-point fachada LiDAR
    scan in float32, each with a shuffled target and a known transform that
    must be recovered to 2e-3; one request is repeated with the plain search
@@ -158,32 +159,68 @@ def _transformed(cloud, x, rng):
     return tgt[perm].contiguous()
 
 
-def check_nn_kernel(cloud, rng):
-    """nn_cuda against _nn_torch: equal indices and bit-equal d²."""
-    dev = cloud.device
-    cases = {"fachada": (_transformed(cloud, X_A, rng), cloud)}
+def _nn_cases(rng, dev):
+    """The small cases both NN kernels are held to: ragged shapes; every
+    target three times, where the first copy must win across every cut
+    (2,100 targets fall into ranges of 263 that cut the copies anywhere, 768
+    into 3 ranges of 256 cut exactly at the copies); NaN query rows 17 and
+    200, a whole row and one coordinate."""
+    cases = {}
     for n_query, n_points in ((33, 77), (1000, 4097)):
         q = torch.as_tensor(rng.uniform(-10, 10, (n_query, 3)), dtype=torch.float32, device=dev)
         p = torch.as_tensor(rng.uniform(-10, 10, (n_points, 3)), dtype=torch.float32, device=dev)
         cases[f"{n_query}x{n_points}"] = (q, p)
     base = torch.as_tensor(rng.uniform(-10, 10, (700, 3)), dtype=torch.float32, device=dev)
     cases["ties"] = (base[::3].contiguous(), torch.cat([base, base, base]))
+    base_256 = base[:256]
+    cases["ties, ranges cut at the copies"] = (base_256[::3].contiguous(), torch.cat([base_256] * 3))
+    q_nan = torch.as_tensor(rng.uniform(-10, 10, (300, 3)), dtype=torch.float32, device=dev)
+    q_nan[17] = torch.nan
+    q_nan[200, 1] = torch.nan
+    cases["NaN query rows"] = (q_nan, base)
+    return cases
+
+
+def check_nn_kernel(cloud, rng):
+    """nn_cuda against _nn_torch: equal indices and bit-equal d² at the
+    fachada shape, at the cases of ``_nn_cases`` and at NaN target rows,
+    overflowing rows and subnormal differences, each with its targets in the
+    ranges ``target_splits`` gives it. Timed at the fachada shape."""
+    dev = cloud.device
+    cases = {"fachada": (_transformed(cloud, X_A, rng), cloud), **_nn_cases(rng, dev)}
+    q_nan, base = cases["NaN query rows"]
+    p_nan = base.clone()
+    p_nan[5] = torch.nan
+    p_nan[400, 2] = torch.nan
+    cases["NaN target rows"] = (torch.cat([p_nan[[4, 6, 399, 401]], q_nan[:200]]), p_nan)
+    q_big, p_big = q_nan[:200].clone(), base.clone()
+    q_big[17] = 1e20  # every d² of these rows overflows to +inf
+    q_big[150, 0] = 3e19
+    p_big[5] = -1e20
+    p_big[400, 2] = -2e20
+    cases["overflow rows"] = (q_big, p_big)
+    tiny = _subnormal_cloud(rng, 2000, dev)
+    tiny[1::5] *= 1e-19  # subnormal coordinates and differences
+    cases["subnormal differences"] = (tiny[:600].contiguous(), tiny[500:].contiguous())
 
     max_abs_err = 0.0
     for name, (q, p) in cases.items():
-        idx_k, d2_k = k_nn.nn_cuda(q, p)
-        idx_p, d2_p = _nn_torch(q, p)
-        torch.cuda.synchronize()
-        if not torch.equal(idx_k, idx_p):
-            bad = int((idx_k != idx_p).sum())
-            raise AssertionError(f"nn kernel {name}: {bad} indices differ from the plain version")
-        if not torch.equal(d2_k.view(torch.int32), d2_p.view(torch.int32)):
-            raise AssertionError(f"nn kernel {name}: d² not bit-equal to the plain version")
-        if name == "ties" and not bool((idx_k < base.shape[0]).all()):
-            raise AssertionError("nn kernel: a tie did not go to the smallest index")
-        err = float((d2_k - d2_p).abs().max())
-        max_abs_err = max(max_abs_err, err)
-        print(f"nn kernel {name}: {q.shape[0]}x{p.shape[0]} idx equal, d2 bit-equal")
+        splits = k_nn.target_splits(q, p)
+        if name.startswith("ties") and splits < 3:
+            raise AssertionError(f"nn kernel {name}: targets in {splits} ranges; the case needs 3 or more")
+        out = k_nn.nn_cuda(q, p)
+        max_abs_err = max(max_abs_err, _check_same(f"nn kernel {name}", out, _nn_torch(q, p)))
+        idx_k, d2_k = out
+        if name.startswith("ties") and not bool((idx_k < p.shape[0] // 3).all()):
+            raise AssertionError(f"nn kernel {name}: a tie did not go to the smallest index")
+        rows = {"NaN query rows": (17, 200), "overflow rows": (17, 150)}.get(name, ())
+        for row in rows:
+            if int(idx_k[row]) != 0 or float(d2_k[row]) != float("inf"):
+                raise AssertionError(f"nn kernel {name}: row {row} gave {idx_k[row]}, {d2_k[row]}")
+        if name in ("NaN target rows", "overflow rows") and bool(((idx_k == 5) | (idx_k == 400)).any()):
+            raise AssertionError(f"nn kernel {name}: a NaN or overflowing target was chosen")
+        print(f"nn kernel {name}: {q.shape[0]}x{p.shape[0]}, targets in {splits} range(s): "
+              f"idx equal, d2 bit-equal")
 
     q, p = cases["fachada"]
     for _ in range(3):
@@ -198,7 +235,7 @@ def check_nn_kernel(cloud, rng):
         f"library (cdist + min) {t['library']} ms"
     )
     timing = {k: sum(v) / len(v) for k, v in t.items()}
-    return max_abs_err, timing, _nn_bound(1, q.shape[0], p.shape[0])
+    return max_abs_err, timing, _nn_bound(1, q.shape[0], p.shape[0]), k_nn.target_splits(q, p)
 
 
 def _fleet_inputs(cloud, rng):
@@ -215,15 +252,16 @@ def _fleet_inputs(cloud, rng):
     return srcs, tgts, torch.tensor(x_true, dtype=torch.float64)
 
 
-def _check_same(name, kernel_out, plain_out):
+def _check_same(what, kernel_out, plain_out):
+    """Equal indices and bit-equal d²; the largest |Δd²| over finite d²."""
     idx_k, d2_k = kernel_out
     idx_p, d2_p = plain_out
     torch.cuda.synchronize()
     if not torch.equal(idx_k, idx_p):
         bad = int((idx_k != idx_p).sum())
-        raise AssertionError(f"expansion kernel {name}: {bad} indices differ from the plain version")
+        raise AssertionError(f"{what}: {bad} indices differ from the plain version")
     if not torch.equal(d2_k.view(torch.int32), d2_p.view(torch.int32)):
-        raise AssertionError(f"expansion kernel {name}: d² not bit-equal to the plain version")
+        raise AssertionError(f"{what}: d² not bit-equal to the plain version")
     finite = torch.isfinite(d2_k)
     return float((d2_k[finite] - d2_p[finite]).abs().max()) if finite.any() else 0.0
 
@@ -246,22 +284,8 @@ def check_expand_kernel(cloud, srcs, tgts, rng):
     cases = {
         f"fleet {FLEET_B}x{cloud.shape[0]}x{cloud.shape[0]}": (srcs, tgts),
         "one fachada lane": (_transformed(cloud, X_A, rng), cloud),
+        **_nn_cases(rng, dev),
     }
-    for n_query, n_points in ((33, 77), (1000, 4097)):
-        q = torch.as_tensor(rng.uniform(-10, 10, (n_query, 3)), dtype=torch.float32, device=dev)
-        p = torch.as_tensor(rng.uniform(-10, 10, (n_points, 3)), dtype=torch.float32, device=dev)
-        cases[f"{n_query}x{n_points}"] = (q, p)
-    # every target three times; the first copy must win across every cut:
-    # 2,100 targets fall into ranges of 263 that cut the copies anywhere,
-    # 768 into 3 ranges of 256 cut exactly at the copies
-    base = torch.as_tensor(rng.uniform(-10, 10, (700, 3)), dtype=torch.float32, device=dev)
-    cases["ties"] = (base[::3].contiguous(), torch.cat([base, base, base]))
-    base_256 = base[:256]
-    cases["ties, ranges cut at the copies"] = (base_256[::3].contiguous(), torch.cat([base_256] * 3))
-    q_nan = torch.as_tensor(rng.uniform(-10, 10, (300, 3)), dtype=torch.float32, device=dev)
-    q_nan[17] = torch.nan
-    q_nan[200, 1] = torch.nan
-    cases["NaN query rows"] = (q_nan, base)
     lanes_p = torch.as_tensor(rng.uniform(-10, 10, (3, 900, 3)), dtype=torch.float32, device=dev)
     lanes_p[1] += 40.0
     lanes_q = torch.as_tensor(rng.uniform(-10, 10, (3, 500, 3)), dtype=torch.float32, device=dev)
@@ -274,7 +298,7 @@ def check_expand_kernel(cloud, srcs, tgts, rng):
         if name.startswith("ties") and splits < 3:
             raise AssertionError(f"expansion kernel {name}: targets in {splits} ranges; the case needs 3 or more")
         out = k_expand.nn_expand_cuda(q, p)
-        max_abs_err = max(max_abs_err, _check_same(name, out, _nn_expand_torch(q, p)))
+        max_abs_err = max(max_abs_err, _check_same(f"expansion kernel {name}", out, _nn_expand_torch(q, p)))
         n_base = p.shape[-2] // 3
         if name.startswith("ties") and not bool((out[0] < n_base).all()):
             raise AssertionError(f"expansion kernel {name}: a tie did not go to the smallest index")
@@ -284,7 +308,7 @@ def check_expand_kernel(cloud, srcs, tgts, rng):
                     raise AssertionError(f"expansion kernel: NaN query row {row} gave {out[0][row]}, {out[1][row]}")
         if name.startswith("3 lanes"):
             for b in range(3):
-                _check_same(f"{name}, lane {b} alone", k_expand.nn_expand_cuda(q[b], p[b]),
+                _check_same(f"expansion kernel {name}, lane {b} alone", k_expand.nn_expand_cuda(q[b], p[b]),
                             tuple(o[b] for o in out))
         print(f"expansion kernel {name}: {tuple(q.shape)} x {tuple(p.shape)}, targets in {splits} "
               f"range(s): idx equal, d2 bit-equal")
@@ -621,7 +645,7 @@ def main():
 
     rng = np.random.default_rng(SEED)
     cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
-    max_abs_err, nn_t, nn_bound = check_nn_kernel(cloud, rng)
+    max_abs_err, nn_t, nn_bound, nn_splits = check_nn_kernel(cloud, rng)
     srcs, tgts, fleet_x = _fleet_inputs(cloud, np.random.default_rng(SEED + 2))
     e_err, e_t, e_bound = check_expand_kernel(cloud, srcs, tgts, rng)
     ba_prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
@@ -666,16 +690,17 @@ def main():
     fleet, fleet_wall_s, e_launches = run_fleet(srcs, tgts, fleet_x)
     fleet_vs_single(cloud, tgts, fleet, fleet_wall_s)
 
-    def entry(name, source, replaces, n_launches, err, t, bound):
+    def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=n_launches,
             max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound[0],
-            bound_by=bound[1], library_ms=t["library"],
+            bound_by=bound[1], library_ms=t["library"], **extra,
         )
 
     kernels = [
         entry("nn_bruteforce", "moptimizer_0_tpu_torch/csrc/nn_search.cu",
-              "moptimizer_0_tpu/ops/nn_search.py:136", launches, max_abs_err, nn_t, nn_bound),
+              "moptimizer_0_tpu/ops/nn_search.py:136", launches, max_abs_err, nn_t, nn_bound,
+              splits=nn_splits),
         entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
               "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound),
         entry("schur_pairs", "moptimizer_0_tpu_torch/csrc/schur.cu",

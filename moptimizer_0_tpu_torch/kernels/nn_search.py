@@ -10,6 +10,7 @@ import functools
 import torch
 
 from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels.nn_expand import n_splits
 
 NAME = "nn_search"
 SOURCES = ("nn_search.cu",)
@@ -21,18 +22,22 @@ LAUNCHES = 0
 @functools.lru_cache(maxsize=None)
 def _launcher():
     path, _ = build.build(NAME, SOURCES)
-    fn = ctypes.CDLL(str(path)).nn_bruteforce_f32
-    fn.argtypes = [
+    lib = ctypes.CDLL(str(path))
+    lib.nn_bruteforce_f32.argtypes = [
         ctypes.c_void_p,  # query
         ctypes.c_void_p,  # points
         ctypes.c_int,  # n_query
         ctypes.c_int,  # n_points
+        ctypes.c_int,  # n_splits
+        ctypes.c_void_p,  # part_idx
+        ctypes.c_void_p,  # part_d2
         ctypes.c_void_p,  # out_idx
         ctypes.c_void_p,  # out_d2
         ctypes.c_void_p,  # stream
     ]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.nn_bruteforce_f32.restype = ctypes.c_int
+    lib.nn_bruteforce_queries_per_block.restype = ctypes.c_int
+    return lib
 
 
 def _check(name, t):
@@ -48,25 +53,42 @@ def _check(name, t):
         raise ValueError(f"nn_cuda: {name} has {t.shape[0]} points; need 1 to {2**31 // 3}")
 
 
+def target_splits(query, points):
+    """The ranges ``nn_cuda`` cuts the targets into for these inputs on the
+    card that holds them (``nn_expand.n_splits``)."""
+    n_blocks = -(-query.shape[0] // _launcher().nn_bruteforce_queries_per_block())
+    sms = torch.cuda.get_device_properties(query.device).multi_processor_count
+    return n_splits(n_blocks, points.shape[0], sms)
+
+
 def nn_cuda(query, points):
     """For each query point, (index int32, squared distance float32) of its
-    nearest point in ``points``. Launches on the current stream and does not
+    nearest point in ``points``. One search launch (and a merge launch when
+    ``target_splits`` splits the targets) on the current stream; does not
     synchronise."""
     global LAUNCHES
     _check("query", query)
     _check("points", points)
     if query.device != points.device:
         raise ValueError(f"nn_cuda: query on {query.device}, points on {points.device}")
-    launch = _launcher()
+    lib = _launcher()
     n_query, n_points = query.shape[0], points.shape[0]
+    splits = target_splits(query, points)
     idx = torch.empty(n_query, dtype=torch.int32, device=query.device)
     d2 = torch.empty(n_query, dtype=torch.float32, device=query.device)
+    part_idx = part_d2 = None
+    if splits > 1:
+        part_idx = torch.empty((splits, n_query), dtype=torch.int32, device=query.device)
+        part_d2 = torch.empty((splits, n_query), dtype=torch.float32, device=query.device)
     with torch.cuda.device(query.device):
-        err = launch(
+        err = lib.nn_bruteforce_f32(
             query.data_ptr(),
             points.data_ptr(),
             n_query,
             n_points,
+            splits,
+            None if part_idx is None else part_idx.data_ptr(),
+            None if part_d2 is None else part_d2.data_ptr(),
             idx.data_ptr(),
             d2.data_ptr(),
             torch.cuda.current_stream().cuda_stream,

@@ -6,6 +6,7 @@ it has them:
 * ``"cuda"``       — the hand-written Hopper kernel K5
   (``kernels.nn_search.nn_cuda``, the port of ``_nn_vpu_kernel``); CUDA
   tensors only;
+* ``"pallas"``     — the JAX package's name for K5: the same as ``"cuda"``;
 * ``"torch"``      — ``_nn_torch``, its plain PyTorch version;
 * ``"auto"``       — ``"cuda"`` for CUDA tensors, ``"torch"`` for CPU tensors;
 * ``"pallas_mxu"`` — the hand-written Hopper kernel K6
@@ -101,7 +102,7 @@ def nearest_neighbors(query, points, *, backend="auto"):
         if not query.is_cuda:
             return _nn_expand_torch(query, points)
         backend = "pallas_mxu"
-    if backend == "cuda":
+    if backend in ("cuda", "pallas"):
         return nn_cuda(query.to(torch.float32).contiguous(), points.to(torch.float32).contiguous())
     if backend == "torch":
         return _nn_torch(query, points)

@@ -50,8 +50,9 @@ def _icp_config():
 def make_searcher(tgt_cloud, nn_backend, max_corr_dist):
     """Correspondence searcher over a fixed target cloud: warped → (idx, d²).
 
-    nn_backend: "auto", "cuda", "torch", "pallas_mxu" or "xla" (brute force,
-    see ``ops.nn_search.nearest_neighbors``). "grid", and "auto" on a target
+    nn_backend: "auto", "cuda", "pallas" (K5, as "cuda"), "torch",
+    "pallas_mxu" or "xla" (brute force, see
+    ``ops.nn_search.nearest_neighbors``). "grid", and "auto" on a target
     of GRID_AUTO_MIN_TARGETS points or more with a gate, raise
     NotImplementedError until the hash grid is ported.
     """

@@ -199,9 +199,11 @@ def _k6_d2(q, p, fold=False):
     return (qn.double() - 2.0 * cross.double()).float() + pn
 
 
-def _k6_emulated(q, p, run=32, splits=1, fold=False):
-    """(idx, d²) as the kernel finds them, over (..., Q, M)."""
-    d2 = _k6_d2(q, p, fold)
+def emulate_order_of_work(d2, run, splits):
+    """(idx, d²) as K5 and K6 find them in a (..., Q, M) block of d²: runs
+    of targets that keep only their minimum (fminf: a NaN never wins), a
+    strict `<` between runs, the first equal index of the winning run, and
+    target splits merged in ascending order with a strict `<`."""
     M = d2.shape[-1]
     split_len = -(-M // splits)
     inf = torch.full(d2.shape[:-1], torch.inf)
@@ -226,6 +228,11 @@ def _k6_emulated(q, p, run=32, splits=1, fold=False):
         best = torch.where(take, s_d2, best)
         idx = torch.where(take, s_idx, idx)
     return idx.to(torch.int32), best
+
+
+def _k6_emulated(q, p, run=32, splits=1, fold=False):
+    """(idx, d²) as the kernel finds them, over (..., Q, M)."""
+    return emulate_order_of_work(_k6_d2(q, p, fold), run, splits)
 
 
 def _subnormal_products(rng, n):
