@@ -2,14 +2,17 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_ba_cold.py [--tree DIR] [--profile]
+    python3 chip_ba_cold.py [--tree DIR] [--calls N] [--profile]
 
 Imports ``moptimizer_0_tpu_torch`` from DIR (default: this checkout; give
 another tree's root to measure its package), builds that package's Schur
 kernel with nvcc, makes the O=500k, C=200, L=50k instance of
-``chip_smoke.py`` on the card and times ``solve_ba_dense`` twice on the host
-clock: the first call in the process, which loads every CUDA kernel the
-solve uses, and a second call. Where the package caches the S build's plan
+``chip_smoke.py`` on the card and times ``solve_ba_dense`` N times (default
+2) on the host clock: the first call in the process, which loads every CUDA
+kernel the solve uses, and the calls after it. Each call's line gives its
+wall, its trials and outer iterations, and the wall an outer iteration (the
+trial count of the JAX package's schedule varies with roundoff, so compare
+two trees by that). Where the package caches the S build's plan
 (``GroupedBA.schur_plan``), the plan's first build in each solve is timed
 too. With ``--profile`` the first solve's plan build runs under
 ``torch.profiler`` and its operators are listed by host time. Each run of
@@ -33,6 +36,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent),
                         help="root of the tree whose package is measured")
+    parser.add_argument("--calls", type=int, default=2, help="solves in the process")
     parser.add_argument("--profile", action="store_true",
                         help="profile the first plan build and list its operators")
     args = parser.parse_args()
@@ -78,15 +82,17 @@ def main():
     dev = torch.device("cuda", 0)
     prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
-    for call in ("first", "second"):
+    for call in range(1, args.calls + 1):
         t0 = time.perf_counter()
         res = ba_dense.solve_ba_dense(prob, ba_dense.DenseBAConfig(), schur_backend="auto")
         cost = float(res.cost)
         wall_s = time.perf_counter() - t0
         trials = int(res.trace["trials"].sum())
+        outer = int(torch.isfinite(res.trace["cost"]).sum())
         plan = f"; plan's first build {plan_ms[-1]:.2f} ms" if plan_ms else ""
-        print(f"solve_ba_dense O={BA_O} C={BA_C} L={BA_L} float32, {call} call in the process: "
-              f"wall {wall_s:.4f} s (host grouping included), {trials} trials, cost {cost:.6e}{plan}")
+        print(f"solve_ba_dense O={BA_O} C={BA_C} L={BA_L} float32, call {call} in the process: "
+              f"wall {wall_s:.4f} s (host grouping included), {trials} trials, {outer} outer iterations, "
+              f"{wall_s / max(outer, 1) * 1e3:.2f} ms an outer iteration, cost {cost:.6e}{plan}")
         if not torch.isfinite(res.cost):
             raise AssertionError(f"dense BA: cost {cost}")
 

@@ -1,8 +1,8 @@
-"""Profile one pass of the fleet ICP loop, or one ICP request, on one NVIDIA GPU.
+"""Profile one pass of the fleet ICP loop, one ICP request, or one SLAM pair, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_profile.py [--path fleet|icp] [--out DIR]
+    python3 chip_profile.py [--path fleet|icp|pair] [--out DIR]
 
 ``--path fleet`` (the default) builds the expansion kernel K6, makes the
 64-lane fachada fleet of ``chip_smoke.py`` and runs one pass of
@@ -11,7 +11,15 @@ Run from the root of a checkout, on a machine with one CUDA card:
 K5; the step is one whole ICP request of ``chip_smoke.py`` (request A: the
 full fachada scan in float32, ``icp`` with its defaults, K5 searching). The
 step runs once to warm up and five times on the host clock (ending in a
-host read), then once under ``torch.profiler``. Prints the card, those host
+host read), then once under ``torch.profiler``. ``--path pair`` builds no
+kernel; the step is one steady-state pair of the SLAM sequence of
+``chip_smoke.py`` (64 × 32,768 points, float32): ``PairwiseRegistrar``
+with the bench's settings and grid search registers pairs 1 and 2 (the
+first pair's coarse seed and the grid's capacities), and the step registers
+pair 3 seeded with pair 2's pose. Its device time is split between the grid
+query, the linearization, the trial costs and the damped solves (each
+wrapped in a ``torch.profiler.record_function`` range) and the rest of the
+LM loop. Prints the card, those host
 times and the traced one, the device time and busy share, the kernel
 launches and host syncs, the search kernel's share of device time and the
 kernels by device time, and writes the chrome trace to DIR (default
@@ -26,14 +34,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke as cs
+from moptimizer_0_tpu_torch import registration
+from moptimizer_0_tpu_torch.core import solver
 from moptimizer_0_tpu_torch.core.solver import LMConfig
 from moptimizer_0_tpu_torch.kernels import build
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
-from moptimizer_0_tpu_torch.registration import icp, icp_batched
+from moptimizer_0_tpu_torch.ops import grid_nn
+from moptimizer_0_tpu_torch.registration import PairwiseRegistrar, icp, icp_batched
 
 
 def fleet_step(cloud):
@@ -58,10 +69,48 @@ def icp_request(cloud):
     return step
 
 
-# path: (what is traced, its maker, the module of its search kernel)
+def slam_pair(cloud):
+    """One steady-state grid pair of the SLAM sequence (pair 3, seeded)."""
+    scans, _ = cs.make_sequence(cs.SLAM_K, cs.SLAM_N)
+    seq = [sc.to(cloud.device) for sc in scans[:4]]
+    reg = PairwiseRegistrar(config=cs.SLAM_CONFIG, nn_backend="grid", max_corr_dist=cs.SLAM_GATE)
+    x = reg.register(seq[1], seq[0]).x
+    x = reg.register(seq[2], seq[1], x0=x).x
+
+    def step():
+        res, _ = reg.register(seq[3], seq[2], x0=x, defer_overflow=True)
+        return res.x.cpu()
+
+    return step
+
+
+# the pair's stages, each wrapped in a record_function range: (range name,
+# module, attribute)
+STAGES = (
+    ("grid query", registration, "grid_nearest_neighbors"),
+    ("linearization", registration, "fused_point2point_linearizer"),
+    ("trial costs", solver, "compute_cost"),
+    ("damped solves", solver, "_solve_damped"),
+)
+
+
+def _ranged(name, fn):
+    def wrapped(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def _device_us(e):
+    return e.device_time_total
+
+
+# path: (what is traced, its maker, the module of its search kernel or None)
 PATHS = {
     "fleet": ("one fleet pass", fleet_step, k_expand),
     "icp": ("one ICP request", icp_request, k_nn),
+    "pair": ("one SLAM grid pair", slam_pair, None),
 }
 
 
@@ -78,7 +127,11 @@ def main():
     ).stdout.strip().splitlines()
     print(smi[0])
     what, make, kernel = PATHS[args.path]
-    build.build(kernel.NAME, kernel.SOURCES)
+    if kernel is not None:
+        build.build(kernel.NAME, kernel.SOURCES)
+    else:
+        for name, module, attr in STAGES:
+            setattr(module, attr, _ranged(name, getattr(module, attr)))
     cloud = torch.as_tensor(cs.load_txt_cloud(cs.FACHADA), dtype=torch.float32, device="cuda")
     step = make(cloud)
     step()
@@ -91,14 +144,17 @@ def main():
         walls.append((time.perf_counter() - t0) * 1e3)
     print(f"{what}, host clock ending in a host read: {[f'{w:.3f}' for w in walls]} ms")
 
-    kernel.LAUNCHES = 0
+    k_nn.LAUNCHES = k_expand.LAUNCHES = 0
+    reads = grid_nn.HOST_READS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # (a record_function range may also show on the device timeline: not a kernel)
+    ranges = {name for name, _, _ in STAGES}
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     launches = sum(e.name == "cudaLaunchKernel" for e in events)
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for e in events)
@@ -107,18 +163,34 @@ def main():
     for e in device:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-    # the search kernel and its merge: every __global__ function of its source
-    source = (build.CSRC_DIR / kernel.SOURCES[0]).read_text()
-    names = re.findall(r"__global__ void\s+(?:__launch_bounds__\(\w+\)\s*)?(\w+)\(", source)
-    mine = [k for k in by_name if any(f"{n}(" in k for n in names)]
-    mine_ms = sum(by_name[k][0] for k in mine)
     print(
         f"profiled {what}: host {wall_ms:.3f} ms, device time {busy_ms:.3f} ms in {len(device)} device "
-        f"events (busy {busy_ms / wall_ms:.1%} of the host time), {launches} cudaLaunchKernel, "
-        f"{syncs} stream/device syncs, {copies} cudaMemcpyAsync; {kernel.NAME} launches {kernel.LAUNCHES}, "
-        f"{mine_ms:.3f} ms of device time in {sum(by_name[k][1] for k in mine)} kernels "
-        f"({mine_ms / busy_ms:.1%})"
+        f"events (busy {busy_ms / wall_ms:.1%} of the host time, idle {1 - busy_ms / wall_ms:.1%}), "
+        f"{launches} cudaLaunchKernel, {syncs} stream/device syncs, {copies} cudaMemcpyAsync; K5 launches "
+        f"{k_nn.LAUNCHES}, K6 launches {k_expand.LAUNCHES}, grid host reads {grid_nn.HOST_READS - reads}"
     )
+    if kernel is not None:
+        # the search kernel and its merge: every __global__ function of its source
+        source = (build.CSRC_DIR / kernel.SOURCES[0]).read_text()
+        names = re.findall(r"__global__ void\s+(?:__launch_bounds__\(\w+\)\s*)?(\w+)\(", source)
+        mine = [k for k in by_name if any(f"{n}(" in k for n in names)]
+        mine_ms = sum(by_name[k][0] for k in mine)
+        print(f"{kernel.NAME}: {mine_ms:.3f} ms of device time in {sum(by_name[k][1] for k in mine)} kernels "
+              f"({mine_ms / busy_ms:.1%})")
+    else:
+        # ranges nest (a trial cost holds no query, a linearization no solve),
+        # so each stage's device and host time is its own
+        stages = {name: [0.0, 0.0, 0] for name, _, _ in STAGES}
+        for e in events:
+            if e.name in stages and e.device_type == torch.autograd.DeviceType.CPU:
+                stages[e.name][0] += _device_us(e) / 1e3
+                stages[e.name][1] += e.cpu_time_total / 1e3
+                stages[e.name][2] += 1
+        rest = busy_ms - sum(v[0] for v in stages.values())
+        print("device time by stage (ms, share of device time; host ms inside the ranges; calls):")
+        for name, (dev_ms, host_ms, calls) in stages.items():
+            print(f"  {name:14s} {dev_ms:9.3f} ms {dev_ms / busy_ms:6.1%}  host {host_ms:9.3f} ms  {calls} calls")
+        print(f"  {'rest of LM':14s} {rest:9.3f} ms {rest / busy_ms:6.1%}")
     print("device time by kernel (ms, launches, share):")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {t:9.3f} ms {n:6d}  {t / busy_ms:6.1%}  {name[:110]}")

@@ -28,7 +28,26 @@ prints no result):
    float32, each lane with its own shuffled target and known transform to
    be recovered to 2e-3, with one launch of the expansion kernel K6 per
    pass of the batched loop; lanes 0, 1 and 63 are repeated as single
-   ``icp(..., nn_backend="pallas_mxu")`` solves and must agree to 1e-5.
+   ``icp(..., nn_backend="pallas_mxu")`` solves and must agree to 1e-5;
+7. the hash grid (``ops/grid_nn.py``, plain PyTorch) on one 32,768-point
+   scan of the SLAM sequence and on the fachada scan at a 0.5 m cell: the
+   host, device and fixed-capacity builds give equal tables (the fixed one
+   flags overflow with K cut by 16), the cell-major and query-major queries
+   and the default mode (query-major on the card) agree bit for bit, and
+   the gated grid equals K5 wherever K5's d² is
+   under the cell² and gives (−1, +inf) elsewhere; both queries, K5 and
+   each build timed;
+8. the SLAM front end: the JAX package's bench sequence
+   (``benchmarks/slam_sequence_bench.py``: 64 scans × 32,768 points, seed
+   42, float32) through ``scan_odometry`` with the bench's
+   ``PairwiseRegistrar`` settings and a 0.5 m gate, (a) searching the grid
+   (``nn_backend="grid"``, the bench's own) and (b) with
+   ``nn_backend="auto"``, which routes every pair to K5; both must end with
+   ATE < 0.05 m, K6 launched on the first pair (its 8-start coarse seed), K5
+   never in (a) and once per LM outer iteration in (b), no NUMERIC_ERROR,
+   and relative poses that agree to 1e-6.
+
+The dense-BA solve runs twice and must repeat itself bit for bit.
 
 Each kernel's line also carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -56,15 +75,18 @@ import torch
 import moptimizer_0_tpu_torch  # noqa: F401  (sets fp32 matmul precision)
 from moptimizer_0_tpu_torch import ba, ba_dense
 from moptimizer_0_tpu_torch.core.loss import GemanMcClure, TrivialLoss
-from moptimizer_0_tpu_torch.core.solver import Status
+from moptimizer_0_tpu_torch.core.solver import LMConfig, Status
+from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
 from moptimizer_0_tpu_torch.kernels import build
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
-from moptimizer_0_tpu_torch.lie import se3
+from moptimizer_0_tpu_torch.lie import se3, so3
+from moptimizer_0_tpu_torch.odometry import scan_odometry
+from moptimizer_0_tpu_torch.ops import grid_nn
 from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
 from moptimizer_0_tpu_torch.ops.schur import _schur_corr_pairs_torch, _schur_corr_torch, fold_linv, pair_plan
-from moptimizer_0_tpu_torch.registration import icp, icp_batched
+from moptimizer_0_tpu_torch.registration import PairwiseRegistrar, _coarse_subsample, _yaw_starts, icp, icp_batched
 from moptimizer_0_tpu_torch.utils.pointcloud import load_txt_cloud
 
 ROOT = Path(__file__).resolve().parent
@@ -102,6 +124,21 @@ FLEET_T, FLEET_W = 0.4, 0.06
 # roundoff of the noise-floor solve.
 FLEET_X_TOL = 1e-5
 FLEET_SINGLES = (0, 1, 63)
+
+# The SLAM sequence of the JAX package's bench (slam_sequence_bench.py:34-109):
+# 64 scans of a 32,768-point courtyard world, seed 42, 1 cm sensor noise,
+# the bench's LM settings and a 0.5 m gate.
+SLAM_K, SLAM_N, SLAM_SEED = 64, 32_768, 42
+SENSOR_NOISE = 0.01
+SLAM_GATE = 0.5
+SLAM_CONFIG = LMConfig(diff_mode="auto", max_iterations=40, linear_solver="cholesky", rel_cost_tol=1e-6)
+SLAM_ATE_BOUND = 0.05  # the odometry bound of tests/test_slam_sequence.py
+# (a) and (b) make the same correspondence decisions (a gate equal to the
+# cell) and the masked rows add exact zeros, so their poses should be equal;
+# they are held to 1e-6.
+SLAM_REL_TOL = 1e-6
+GRID_CELL = 0.5
+X_SMALL = [0.05, -0.03, 0.02, 0.01, -0.005, 0.01]  # the fachada grid query's transform
 
 # Published peaks of an H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3.
@@ -274,15 +311,30 @@ def _subnormal_cloud(rng, n, dev):
     return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
 
-def check_expand_kernel(cloud, srcs, tgts, rng):
+def _coarse_seed_search(scans, dev):
+    """The SLAM path's first K6 call: the coarse subsamples of scans 1 and
+    0, the source warped by each yaw start of the registrar's multistart,
+    against the target copied into every lane, as ``_icp_fleet_block``
+    searches them."""
+    src_c = _coarse_subsample(scans[1].to(dev))
+    tgt_c = _coarse_subsample(scans[0].to(dev))
+    B = PairwiseRegistrar(max_corr_dist=SLAM_GATE).coarse_multistart
+    T = se3.transform_from_params6(_yaw_starts(src_c, tgt_c, B))
+    warped = src_c @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
+    return warped.contiguous(), tgt_c.expand(B, *tgt_c.shape).contiguous()
+
+
+def check_expand_kernel(cloud, srcs, tgts, coarse, rng):
     """nn_expand_cuda against _nn_expand_torch: equal indices and bit-equal
-    d² at the fleet shape and at one-lane, ragged, tied, NaN, 3-lane and
-    subnormal cases; every case but the fleet has its targets split, and the
-    tie cases have tied targets on both sides of a range's end. Timed at the
-    fleet shape and at one lane."""
+    d² at the fleet shape, at the SLAM coarse seed's shape (``coarse``: 8
+    yaw starts against one shared target) and at one-lane, ragged, tied,
+    NaN, 3-lane and subnormal cases; every case but the fleet has its
+    targets split, and the tie cases have tied targets on both sides of a
+    range's end. Timed at the fleet shape and at one lane."""
     dev = cloud.device
     cases = {
         f"fleet {FLEET_B}x{cloud.shape[0]}x{cloud.shape[0]}": (srcs, tgts),
+        "SLAM coarse seed, {} yaw starts x {} x {}".format(*coarse[0].shape[:2], coarse[1].shape[1]): coarse,
         "one fachada lane": (_transformed(cloud, X_A, rng), cloud),
         **_nn_cases(rng, dev),
     }
@@ -564,16 +616,41 @@ def _dense_panel(segments, C):
     return torch.cat(rows)
 
 
+def _solve_ba(prob):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ba_dense.solve_ba_dense(prob, ba_dense.DenseBAConfig(), schur_backend="auto")
+    cost = float(res.cost)
+    return res, cost, time.perf_counter() - t0
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def ba_repeat(prob, first, first_wall_s):
+    """The solve again: the same trials, and costs, cameras and points equal
+    bit for bit (the camera reductions and K11 sum in one fixed order)."""
+    res, cost, wall_s = _solve_ba(prob)
+    same = (
+        res.trace["trials"].tolist() == first.trace["trials"].tolist()
+        and torch.equal(_bits(res.trace["cost"]), _bits(first.trace["cost"]))
+        and torch.equal(_bits(res.camera_params), _bits(first.camera_params))
+        and torch.equal(_bits(res.points), _bits(first.points))
+        and cost == float(first.cost)
+    )
+    print(f"dense BA solved twice: walls {first_wall_s:.4f}, {wall_s:.4f} s; trials {sum(res.trace['trials'].tolist())} "
+          f"and {sum(first.trace['trials'].tolist())}; trials, cost trace, cameras and points bit-equal: {same}")
+    if not same:
+        raise AssertionError("dense BA: a second solve of the same instance differs from the first")
+
+
 def run_ba(prob):
     """The dense-BA main path: one solve_ba_dense call, as a user makes it
     (host grouping and the S build's plan included); K11 must launch once
     per trial, one S build for all segments."""
     k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = ba_dense.solve_ba_dense(prob, ba_dense.DenseBAConfig(), schur_backend="auto")
-    cost = float(res.cost)
-    wall_s = time.perf_counter() - t0
+    res, cost, wall_s = _solve_ba(prob)
     launches = k_schur.LAUNCHES
     if k_nn.LAUNCHES or k_expand.LAUNCHES:
         raise AssertionError("the BA path launched an nn kernel")
@@ -602,7 +679,7 @@ def run_ba(prob):
         raise AssertionError(f"dense BA: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
     if launches != sum(trials) or launches == 0:
         raise AssertionError(f"the BA path launched the schur kernel {launches} times")
-    return res, launches
+    return res, launches, wall_s
 
 
 def ba_steps(prob, grouped, backend, n=3):
@@ -618,6 +695,235 @@ def ba_steps(prob, grouped, backend, n=3):
         prob = dataclasses.replace(prob, camera_params=cams, points=pts)
     print(f"dense BA steps, schur backend {backend}: wall {[f'{w * 1e3:.2f} ms' for w in walls]}, costs {costs}")
     return costs
+
+
+def make_world(rng, n):
+    """The courtyard world of benchmarks/slam_sequence_bench.py (4 walls and
+    the ground, 32 m across) at n points, in the same rng call order."""
+    per = n // 5
+    s = 16.0
+    u = rng.uniform(-s, s, size=(4, per))
+    v = rng.uniform(0.0, 6.0, size=(4, per))
+    walls = [
+        np.column_stack([u[0], np.full(per, -s), v[0]]),
+        np.column_stack([u[1], np.full(per, s), v[1]]),
+        np.column_stack([np.full(per, -s), u[2], v[2]]),
+        np.column_stack([np.full(per, s), u[3], v[3]]),
+    ]
+    g = rng.uniform(-s, s, size=(n - 4 * per, 2))
+    ground = np.column_stack([g, np.zeros(len(g))])
+    world = np.vstack(walls + [ground])
+    world += 0.005 * rng.normal(size=world.shape)
+    return world
+
+
+def _yaw(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def make_sequence(k_scans, n_points, seed=SLAM_SEED, dtype=torch.float32):
+    """benchmarks/slam_sequence_bench.make_sequence in numpy and the port's
+    lie, in the same rng call order: k scans of the world seen from poses on
+    a circle of 8 m, each with sensor noise, as (n, 3) CPU tensors of dtype,
+    and the ground-truth poses (k, 6) in the frame of scan 0."""
+    rng = np.random.default_rng(seed)
+    world = make_world(rng, n_points)
+    poses = []
+    for k in range(k_scans):
+        th = 2 * np.pi * k / k_scans
+        t = np.array([8.0 * np.cos(th), 8.0 * np.sin(th), 1.5])
+        w = so3.log(torch.as_tensor(_yaw(th + np.pi / 2)))
+        poses.append(np.concatenate([t, w.numpy()]))
+    Ts = [se3.transform_from_params6(torch.as_tensor(p, dtype=dtype)).numpy() for p in poses]
+    scans = []
+    for T in Ts:
+        Tinv = np.linalg.inv(T)
+        local = world @ Tinv[:3, :3].T + Tinv[:3, 3]
+        local = local + SENSOR_NOISE * rng.normal(size=local.shape)
+        scans.append(torch.as_tensor(local, dtype=dtype))
+    T0inv = np.linalg.inv(Ts[0])
+    gt = []
+    for T in Ts:
+        Tr = T0inv @ T
+        w = so3.log(torch.as_tensor(Tr[:3, :3], dtype=dtype))
+        gt.append(np.concatenate([Tr[:3, 3], w.numpy()]))
+    return scans, torch.as_tensor(np.stack(gt), dtype=dtype)
+
+
+def _launches_of(fn):
+    """cudaLaunchKernel calls of one fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.name == "cudaLaunchKernel" for e in prof.events())
+
+
+def _same_tables(a, b):
+    """'slot for slot', 'as sets per slot' or '' (different)."""
+    if torch.equal(a.table_idx, b.table_idx) and torch.equal(a.table_pts, b.table_pts):
+        return "slot for slot"
+    if a.table_idx.shape == b.table_idx.shape and torch.equal(
+        torch.sort(a.table_idx, dim=1).values, torch.sort(b.table_idx, dim=1).values
+    ):
+        return "as sets per slot"
+    return ""
+
+
+def check_grid(cloud, scans, gt, rng):
+    """The hash grid on the card at a 0.5 m cell, on scan 1 of the sequence
+    moved into scan 0's frame by its true pose (against scan 0) and on the
+    fachada scan under a small transform (against itself): the builds, both
+    query modes, the gated grid against K5, and their times."""
+    dev = cloud.device
+    cases = {
+        f"sequence scan 1 onto scan 0, {SLAM_N} points": (
+            se3.apply_transform(se3.transform_from_params6(gt[1].to(dev)), scans[1].to(dev)).contiguous(),
+            scans[0].to(dev),
+        ),
+        f"fachada, {cloud.shape[0]} points": (_transformed(cloud, X_SMALL, rng), cloud),
+    }
+    timing = {}
+    for name, (q, p) in cases.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = grid_nn.build_hash_grid(p, GRID_CELL)
+        torch.cuda.synchronize()
+        host_build_ms = (time.perf_counter() - t0) * 1e3
+        dev_g = grid_nn.build_hash_grid_device(p, GRID_CELL)
+        fixed, overflow = grid_nn.build_hash_grid_fixed(p, GRID_CELL, host.n_slots, host.bucket_size,
+                                                        host.max_cell_occupancy)
+        _, overflow_cut = grid_nn.build_hash_grid_fixed(p, GRID_CELL, host.n_slots, host.bucket_size - 16)
+        same_dev, same_fixed = _same_tables(host, dev_g), _same_tables(host, fixed)
+        print(f"grid {name}: S={host.n_slots} K={host.bucket_size} cell occupancy {host.max_cell_occupancy}; "
+              f"device build equal to the host build {same_dev or 'NO'}; fixed build {same_fixed or 'NO'}, "
+              f"overflow {bool(overflow)}; with K-16 overflow {bool(overflow_cut)}")
+        if not same_dev or not same_fixed or bool(overflow) or not bool(overflow_cut):
+            raise AssertionError(f"grid {name}: the builds disagree or the overflow flag is wrong")
+
+        reads, falls = grid_nn.HOST_READS, grid_nn.FALLBACKS
+        ci, cd = grid_nn.grid_nearest_neighbors(q, host, mode="cell")
+        reads_per_query = grid_nn.HOST_READS - reads
+        if grid_nn.FALLBACKS != falls:
+            raise AssertionError(f"grid {name}: the cell-major query fell back to the query-major path")
+        qi, qd = grid_nn.grid_nearest_neighbors(q, host, mode="query")
+        _check_same(f"grid {name}: cell-major against query-major", (ci, cd), (qi, qd))
+        reads = grid_nn.HOST_READS
+        _check_same(f"grid {name}: the default mode against query-major", grid_nn.grid_nearest_neighbors(q, host),
+                    (qi, qd))
+        if grid_nn.HOST_READS != reads:
+            raise AssertionError(f"grid {name}: the default mode on the card took the cell-major path")
+        ki, kd = k_nn.nn_cuda(q, p)
+        r = torch.full((), GRID_CELL, dtype=torch.float32, device=dev)
+        inside = kd < r * r
+        _check_same(f"grid {name}: gated grid against K5 inside the cell", (ci[inside], cd[inside]),
+                    (ki[inside], kd[inside]))
+        if not bool((ci[~inside] == -1).all()) or not bool(torch.isinf(cd[~inside]).all()):
+            raise AssertionError(f"grid {name}: a query beyond the cell did not give (-1, +inf)")
+
+        reps = 10
+        t = dict(cell=[], query=[], k5=[])
+        fns = dict(cell=lambda: grid_nn.grid_nearest_neighbors(q, host, mode="cell"),
+                   query=lambda: grid_nn.grid_nearest_neighbors(q, host, mode="query"),
+                   k5=lambda: k_nn.nn_cuda(q, p))
+        for key in ("cell", "query", "k5", "k5", "query", "cell"):
+            t[key].append(_time_ms(fns[key], reps))
+        dev_build = _time_ms(lambda: grid_nn.build_hash_grid_device(p, GRID_CELL), 5)
+        fixed_build = _time_ms(lambda: grid_nn.build_hash_grid_fixed(
+            p, GRID_CELL, host.n_slots, host.bucket_size, host.max_cell_occupancy), reps)
+        launches = {key: _launches_of(fns[key]) for key in fns}
+        print(f"grid {name}: {int(inside.sum())} of {q.shape[0]} queries inside the cell; cell-major, "
+              f"query-major and the default mode (query-major on the card) idx equal, d2 bit-equal; against K5 inside the cell idx equal, d2 bit-equal, "
+              f"(-1, +inf) beyond it")
+        print(f"grid {name} time (CUDA events, means of {reps}, order cell-major, query-major, K5, K5, "
+              f"query-major, cell-major; a query's host read included): cell-major {t['cell']} ms, query-major "
+              f"{t['query']} ms, K5 {t['k5']} ms; builds: host (numpy, upload included, host clock) "
+              f"{host_build_ms:.3f} ms, device (two host reads) {dev_build:.3f} ms, fixed {fixed_build:.3f} ms; "
+              f"host reads a query: cell-major {reads_per_query}, query-major 0; kernel launches a query "
+              f"(torch.profiler): cell-major {launches['cell']}, query-major {launches['query']}, K5 {launches['k5']}")
+        timing[name] = {k: sum(v) / len(v) for k, v in t.items()}
+    return timing
+
+
+class _Recorded(PairwiseRegistrar):
+    """A PairwiseRegistrar that keeps, for each registration, its host wall
+    time, its result and the K5 and K6 launches and grid host reads it made
+    (Python counters: nothing is read from the card while it runs)."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.pairs = []
+        self.redos = 0
+
+    def register(self, src, tgt_cloud, x0=None, *, defer_overflow=False):
+        k5, k6, reads = k_nn.LAUNCHES, k_expand.LAUNCHES, grid_nn.HOST_READS
+        t0 = time.perf_counter()
+        out = super().register(src, tgt_cloud, x0, defer_overflow=defer_overflow)
+        self.pairs.append(dict(
+            wall=time.perf_counter() - t0, res=out[0] if defer_overflow else out, deferred=defer_overflow,
+            k5=k_nn.LAUNCHES - k5, k6=k_expand.LAUNCHES - k6, grid_reads=grid_nn.HOST_READS - reads,
+        ))
+        return out
+
+    def _redo_overflow(self, src, tgt_cloud, x0):
+        self.redos += 1
+        return super()._redo_overflow(src, tgt_cloud, x0)
+
+
+def run_slam(scans, gt, nn_backend, dev):
+    """scan_odometry over the sequence through a PairwiseRegistrar
+    with the bench's settings: the front end's wall, the first pair's, the
+    steady ms a pair, the LM work a pair, the launches and the trajectory's
+    error. Returns (relative poses, K5 launches, K6 launches)."""
+    reg = _Recorded(config=SLAM_CONFIG, nn_backend=nn_backend, max_corr_dist=SLAM_GATE)
+    seq = [sc.to(dev) for sc in scans]
+    k_scans = len(seq)
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    grid_nn.HOST_READS = grid_nn.FALLBACKS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses, rels = scan_odometry(seq, registrar=reg)
+    poses = poses.cpu()
+    front_s = time.perf_counter() - t0
+    k5, k6, reads, falls = k_nn.LAUNCHES, k_expand.LAUNCHES, grid_nn.HOST_READS, grid_nn.FALLBACKS
+    if k_schur.LAUNCHES:
+        raise AssertionError("the SLAM path launched the schur kernel")
+
+    pairs = reg.pairs
+    outer = [int(torch.isfinite(pr["res"].trace["cost"]).sum()) for pr in pairs]
+    trials = [int(torch.isfinite(pr["res"].trace["inner"]["cost_new"]).sum()) for pr in pairs]
+    status = [Status(int(pr["res"].status)) for pr in pairs]
+    first_s = pairs[0]["wall"]
+    steady_s = (front_s - first_s) / (k_scans - 2)
+    # one registration's own wall, without the redone ones a flag costs
+    median_ms = float(np.median([p["wall"] for p in pairs[1:] if p["deferred"]])) * 1e3
+    ate = float(ate_rmse(poses.double(), gt.double(), align=False))
+    rpe_t, rpe_r = (float(v) for v in rpe(poses.double(), gt.double()))
+    names = {st.name: status.count(st) for st in set(status)}
+    print(
+        f"SLAM front end, nn_backend={nn_backend!r}, {k_scans} scans x {seq[0].shape[0]} points float32: "
+        f"wall {front_s:.4f} s for {k_scans - 1} pairs; first pair {first_s:.4f} s; steady "
+        f"{steady_s * 1e3:.2f} ms a pair, {1 / steady_s:.2f} pairs/s (redone pairs included; a later pair's "
+        f"own registration median {median_ms:.2f} ms); LM outer iterations a pair mean "
+        f"{np.mean(outer):.2f} max {max(outer)}, trials {sum(trials)}; host reads: LM {sum(outer) + sum(trials)}, "
+        f"grid {reads} ({falls} cell-major fallbacks); registrations {len(pairs)} ({sum(not p['deferred'] for p in pairs)} "
+        f"redone), overflow rebuilds {reg.redos}; K5 launches {k5}, K6 launches {k6} (first pair {pairs[0]['k6']}); "
+        f"statuses {names}; ATE {ate:.6f} m (align=False), RPE {rpe_t:.6f} m / {rpe_r:.6f} rad"
+    )
+    if Status.NUMERIC_ERROR in status or not torch.isfinite(poses).all():
+        raise AssertionError(f"SLAM {nn_backend}: statuses {names}")
+    if not ate < SLAM_ATE_BOUND:
+        raise AssertionError(f"SLAM {nn_backend}: ATE {ate} >= {SLAM_ATE_BOUND}")
+    if pairs[0]["k6"] == 0:
+        raise AssertionError(f"SLAM {nn_backend}: the first pair's coarse multistart did not launch K6")
+    if nn_backend == "grid" and k5:
+        raise AssertionError(f"SLAM grid: K5 launched {k5} times")
+    if nn_backend == "auto" and k5 < sum(outer):
+        raise AssertionError(f"SLAM auto: K5 launched {k5} times for {sum(outer)} outer iterations")
+    return rels.cpu(), k5, k6
 
 
 def main():
@@ -646,8 +952,12 @@ def main():
     rng = np.random.default_rng(SEED)
     cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
     max_abs_err, nn_t, nn_bound, nn_splits = check_nn_kernel(cloud, rng)
+    t0 = time.perf_counter()
+    scans, gt = make_sequence(SLAM_K, SLAM_N)
+    print(f"SLAM sequence {SLAM_K} x {SLAM_N} points made in {time.perf_counter() - t0:.3f} s (host, numpy)")
+    check_grid(cloud, scans, gt, rng)
     srcs, tgts, fleet_x = _fleet_inputs(cloud, np.random.default_rng(SEED + 2))
-    e_err, e_t, e_bound = check_expand_kernel(cloud, srcs, tgts, rng)
+    e_err, e_t, e_bound = check_expand_kernel(cloud, srcs, tgts, _coarse_seed_search(scans, dev), rng)
     ba_prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
     ba_grouped = ba_dense.group_by_landmark(ba_prob, segments="auto")
     s_err, s_t, s_bound = check_schur_kernel(ba_prob, ba_grouped, dev, rng)
@@ -677,7 +987,8 @@ def main():
         raise AssertionError(f"plain search: x differs from the kernel's run by {dx}")
     print(f"request A with the plain search: same iterations, max|dx| {dx:.3e}")
 
-    ba_res, s_launches = run_ba(ba_prob)
+    ba_res, s_launches, ba_wall_s = run_ba(ba_prob)
+    ba_repeat(ba_prob, ba_res, ba_wall_s)
     ba_steps(ba_prob, ba_grouped, "auto")
     plain_costs = ba_steps(ba_prob, ba_grouped, "torch")
     kernel_costs = list(zip(ba_res.trace["cost"][:3].tolist(), ba_res.trace["cost_new"][:3].tolist()))
@@ -690,6 +1001,15 @@ def main():
     fleet, fleet_wall_s, e_launches = run_fleet(srcs, tgts, fleet_x)
     fleet_vs_single(cloud, tgts, fleet, fleet_wall_s)
 
+    rels_grid, k5_grid, k6_grid = run_slam(scans, gt, "grid", dev)
+    rels_auto, k5_auto, k6_auto = run_slam(scans, gt, "auto", dev)
+    d_rel = float((rels_grid - rels_auto).abs().max())
+    bit_equal = torch.equal(rels_grid.view(torch.int32), rels_auto.view(torch.int32))
+    print(f"SLAM relative poses, grid against auto over {SLAM_K - 1} pairs: max|diff| {d_rel:.3e}, bit-equal {bit_equal} "
+          f"(bound {SLAM_REL_TOL:g})")
+    if not d_rel <= SLAM_REL_TOL:
+        raise AssertionError(f"SLAM: the grid and auto runs' relative poses differ by {d_rel}")
+
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=n_launches,
@@ -700,9 +1020,10 @@ def main():
     kernels = [
         entry("nn_bruteforce", "moptimizer_0_tpu_torch/csrc/nn_search.cu",
               "moptimizer_0_tpu/ops/nn_search.py:136", launches, max_abs_err, nn_t, nn_bound,
-              splits=nn_splits),
+              splits=nn_splits, slam_launches=dict(grid=k5_grid, auto=k5_auto)),
         entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
-              "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound),
+              "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound,
+              slam_launches=dict(grid=k6_grid, auto=k6_auto)),
         entry("schur_pairs", "moptimizer_0_tpu_torch/csrc/schur.cu",
               "benchmarks/schur_pallas_ab.py:38", s_launches, s_err, s_t, s_bound),
     ]

@@ -8,8 +8,12 @@ PyTorch counterpart of ``moptimizer_0_tpu.ba_dense`` (single device):
   their own slot widths K_s, so the Poisson-valence padding is not streamed;
 * the per-camera exp map and right Jacobian are computed once per camera
   (``_camera_cache``) and gathered onto the grid by camera id; camera-axis
-  reductions (U, g, the rhs) are ``index_add_`` over the camera ids — never
-  an (L, K, C) one-hot, which is 43 GB at C = 2000;
+  reductions (U, g, the rhs) gather each camera's slots through a plan made
+  once per layout (``camera_plan``) and sum them in chunks of 32, level by
+  level, in one fixed order, so a solve is bitwise repeatable on the card
+  and its gathers follow the observation count — never an
+  (L, K, C) one-hot (43 GB at C = 2000) and never ``index_add_``, whose
+  atomics on CUDA sum in no fixed order;
 * the Schur complement S = U′ − W V′⁻¹ Wᵀ (6C × 6C, in the JAX package's
   permuted i·C + c order) is built explicitly by ``ops.schur``, whose
   correction sum runs in the hand-written CUDA kernel on the card, and the
@@ -92,6 +96,17 @@ class GroupedBA:
     def _schur_plans(self):
         return {}
 
+    @functools.cached_property
+    def _camera_plans(self):
+        return {}
+
+    def camera_plan(self, C):
+        """``_camera_plan`` of this grid's camera ids and mask for C cameras,
+        built on first use and kept (call it on a segment's view)."""
+        if C not in self._camera_plans:
+            self._camera_plans[C] = _camera_plan(self.cam_ids, self.mask, C)
+        return self._camera_plans[C]
+
     def schur_plan(self, C):
         """The S build's camera-pair plan (``ops.schur.pair_plan``) of this
         layout for C cameras: built on first use and kept, as ``views`` is
@@ -103,6 +118,57 @@ class GroupedBA:
 
 def _seg_views(grouped):
     return grouped.views
+
+
+# Items one chunk of the camera reductions sums: a level's gather holds at
+# most n + C·_CAMERA_CHUNK items for n items, whatever one camera's count.
+_CAMERA_CHUNK = 32
+
+
+def _camera_plan(cam_ids, mask, C):
+    """The camera reductions' plan of an (L, K) grid for C cameras:
+    (levels, C), each level an (idx, real) pair of (n_chunks, w) tensors.
+
+    Level 0 gathers each camera's real slots (flat slot indices, in grid
+    order: a stable sort) in chunks of w ≤ _CAMERA_CHUNK; each later level
+    gathers the chunk sums of the level before, camera by camera, until
+    every camera has one chunk. The last level has C rows in camera order (a
+    camera with no slot gets one chunk of padding). Two host reads a level,
+    and max(1, ⌈log₃₂ n_max⌉) levels for n_max the busiest camera's slots."""
+    real = mask.reshape(-1) > 0
+    if C == 0 or real.numel() == 0:
+        return [], C
+    key = torch.where(real, cam_ids.reshape(-1).long(), C)  # padding sorts last
+    items = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=C + 1)[:C]
+    levels = []
+    while True:
+        n_max = int(counts.max())
+        w = max(1, min(_CAMERA_CHUNK, n_max))
+        chunks = torch.clamp((counts + w - 1) // w, min=1)
+        ends = torch.cumsum(chunks, 0)
+        n_chunks = int(ends[-1])
+        cam = torch.repeat_interleave(torch.arange(C, device=key.device), chunks, output_size=n_chunks)
+        rank = torch.arange(n_chunks, device=key.device) - (ends - chunks)[cam]  # chunk within its camera
+        pos = rank[:, None] * w + torch.arange(w, device=key.device)  # item within its camera
+        first = (torch.cumsum(counts, 0) - counts)[cam, None]
+        levels.append((items[(first + pos).clamp(max=items.numel() - 1)], pos < counts[cam, None]))
+        if n_max <= w:
+            return levels, C
+        items, counts = torch.arange(n_chunks, device=key.device), chunks
+
+
+def _camera_sum(plan, vals):
+    """Σ over each camera's real slots of vals (n_slots, q) → (C, q): each
+    level of the plan a gather into (q, n_chunks, w) and a sum along its
+    last, contiguous axis, in one fixed order."""
+    levels, C = plan
+    if not levels:
+        return vals.new_zeros(C, vals.shape[1])
+    x = vals.T
+    for idx, real in levels:
+        x = torch.sum(torch.where(real, x[:, idx], 0.0), dim=-1)
+    return x.T
 
 
 def _plan_segments(counts_sorted_desc, max_segments):
@@ -352,8 +418,9 @@ def _cost_grouped(cams, pts, intr, grouped):
 
 
 def _gn_blocks_grouped(grouped, r, A, B, C, loss):
-    """Gauss-Newton blocks: U (C,6,6) and g (C,6) by ``index_add_`` over the
-    camera ids, V (L,3,3) and h (L,3) by sums over K, W (L,K,6,3) on the grid.
+    """Gauss-Newton blocks: U (C,6,6) and g (C,6) summed per camera through
+    the grid's ``camera_plan``, V (L,3,3) and h (L,3) by sums over K,
+    W (L,K,6,3) on the grid.
     A robust loss weights H and b only, w = loss(‖r‖²) per slot."""
     if loss is not None:
         w = loss.weight(torch.sum(r * r, dim=-1))
@@ -363,11 +430,11 @@ def _gn_blocks_grouped(grouped, r, A, B, C, loss):
         rw = w[..., None] * r
     else:
         Aw, Bw, rw = A, B, r
-    idx = grouped.cam_ids.reshape(-1)
+    plan = grouped.camera_plan(C)
     AtA = ba._outer_rows(Aw, A)  # (L,K,6,6)
     Ar = A[..., 0, :] * rw[..., 0, None] + A[..., 1, :] * rw[..., 1, None]  # (L,K,6)
-    U = torch.zeros((C, 6, 6), dtype=r.dtype, device=r.device).index_add_(0, idx, AtA.reshape(-1, 6, 6))
-    g = torch.zeros((C, 6), dtype=r.dtype, device=r.device).index_add_(0, idx, Ar.reshape(-1, 6))
+    U = _camera_sum(plan, AtA.reshape(-1, 36)).reshape(C, 6, 6)
+    g = _camera_sum(plan, Ar.reshape(-1, 6))
     V = torch.sum(ba._outer_rows(Bw, B), dim=1)
     W = ba._outer_rows(Aw, B)
     h = torch.sum(B[..., 0, :] * rw[..., 0, None] + B[..., 1, :] * rw[..., 1, None], dim=1)
@@ -471,7 +538,7 @@ def _solve_delta_dense(grouped, C, U, V, W, g, h, lam, fixed_mask, chunk, schur_
     red = torch.zeros_like(g)
     for (sl, seg), W_s in zip(views, W_segs):
         Wt = torch.sum(W_s * t[sl][:, None, None, :], dim=-1)  # (L_s,K_s,6)
-        red.index_add_(0, seg.cam_ids.reshape(-1), Wt.reshape(-1, 6))
+        red = red + _camera_sum(seg.camera_plan(C), Wt.reshape(-1, 6))
     rhs = -(g - red)
     # into S's i·C + c order, and the solution back
     rhs = (rhs * fixed_mask[:, None]).T.reshape(-1)

@@ -21,7 +21,9 @@ Derivative modes:
                  J[:, j] = (r(x + h_j e_j) − r(x)) / h_j.
 
 The loss weight and Σ enter H and b only; the cost is the unweighted
-Σ_valid ‖r‖² unless the block sets ``weighted_cost``.
+Σ_valid ‖r‖² unless the block sets ``weighted_cost``. The mask selects
+(``torch.where``) where the JAX code multiplies by the cast mask, as XLA
+does under jit: a masked row with a NaN residual adds 0, not NaN.
 """
 
 import dataclasses
@@ -50,7 +52,7 @@ def _as_dtype(dtype, default):
 def _split_valid(out):
     if isinstance(out, tuple):
         r, valid = out
-        return torch.atleast_1d(r), torch.as_tensor(valid, device=r.device)
+        return torch.atleast_1d(r), torch.as_tensor(valid, device=r.device).bool()
     r = torch.atleast_1d(out)
     return r, torch.ones((), dtype=torch.bool, device=r.device)
 
@@ -94,9 +96,9 @@ def compute_cost(block_or_problem, x, accum_dtype=None):
                     per = torch.einsum("no,oq,nq->n", r, Sg, r)
             else:
                 per = torch.sum(r * r, dim=-1)
-            total = total + torch.sum(valid.to(adt) * per)
+            total = total + torch.sum(torch.where(valid, per, 0.0))
         else:
-            total = total + torch.sum(valid.to(adt) * torch.sum(r * r, dim=-1))
+            total = total + torch.sum(torch.where(valid, torch.sum(r * r, dim=-1), 0.0))
     return total
 
 
@@ -227,7 +229,7 @@ def _accumulate(block, x, r, valid, J, accum_dtype=None):
         r = r.to(adt)
         J = J.to(adt)
     sq_norm = torch.sum(r * r, dim=-1)
-    w = block.loss.weight(sq_norm).to(r.dtype) * valid.to(r.dtype)
+    w = torch.where(valid, block.loss.weight(sq_norm).to(r.dtype), 0.0)
 
     if block.weight_fn is not None:
         Sigma = _per_residual_weights(block, block.prepare_fn(x)).to(r.dtype)
@@ -250,7 +252,7 @@ def _accumulate(block, x, r, valid, J, accum_dtype=None):
     H = A.T @ Bm
     b = A.T @ (w[:, None] * Sr).reshape(N * O)
     if block.weighted_cost:
-        cost = torch.sum(valid.to(r.dtype) * torch.einsum("no,no->n", r, Sr))
+        cost = torch.sum(torch.where(valid, torch.einsum("no,no->n", r, Sr), 0.0))
     else:
-        cost = torch.sum(valid.to(r.dtype) * sq_norm)
+        cost = torch.sum(torch.where(valid, sq_norm, 0.0))
     return cost, H, b

@@ -14,6 +14,7 @@ from moptimizer_0_tpu_torch.ba import BAProblem
 from moptimizer_0_tpu_torch.ba_dense import DenseBAConfig
 from moptimizer_0_tpu_torch.core import loss as _loss
 from moptimizer_0_tpu_torch.core.solver import LMConfig
+from moptimizer_0_tpu_torch.ops.grid_nn import HashGrid
 from moptimizer_0_tpu_torch.utils.device import require
 
 _LOSSES = {
@@ -60,6 +61,21 @@ def ba_problem_from_numpy(camera_params, points, cam_idx, pt_idx, pixels, intrin
         intrinsics=t(intrinsics),
         loss=loss,
         n_fixed_cameras=int(n_fixed_cameras),
+    )
+
+
+def hash_grid_from_numpy(table_idx, table_pts, cell_size, max_cell_occupancy=0, n_points=0,
+                         device="cuda"):
+    """The port's ``ops.grid_nn.HashGrid`` from the numpy arrays of a JAX
+    HashGrid's fields (``np.asarray`` of each), so that both packages query
+    one table. On the card unless ``device`` says otherwise."""
+    device = require(device)
+    return HashGrid(
+        table_idx=torch.as_tensor(np.array(table_idx, dtype=np.int32), device=device),
+        table_pts=torch.as_tensor(np.array(table_pts, dtype=np.float32), device=device),
+        cell_size=torch.full((), float(np.asarray(cell_size)), dtype=torch.float32, device=device),
+        max_cell_occupancy=int(max_cell_occupancy),
+        n_points=int(n_points),
     )
 
 

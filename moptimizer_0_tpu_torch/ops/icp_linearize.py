@@ -9,8 +9,8 @@ with y_i = R s_i, and the weighted Gauss-Newton sums collapse to moments:
     b_t  = Σ wᵢ rᵢ
     b_ω  = J_lᵀ Σ wᵢ (yᵢ × rᵢ)
 
-so the (N, 3, 6) Jacobian is never built. w = loss(‖r‖²)·valid scales H, b
-only; the cost is the unweighted Σ valid ‖r‖².
+so the (N, 3, 6) Jacobian is never built. w = loss(‖r‖²) on valid rows and
+0 elsewhere scales H, b only; the cost is the unweighted Σ valid ‖r‖².
 
 Plain PyTorch here; a fused kernel for the moment pass is queued (ROADMAP K8).
 The batched solver runs it under ``torch.func.vmap``: for a fleet of B lanes
@@ -32,9 +32,10 @@ def icp_moments(src, tgt, R, t, loss, valid=None):
     sq = r[0] * r[0] + r[1] * r[1] + r[2] * r[2]
     w = loss.weight(sq)
     if valid is not None:
-        vf = valid.to(src.dtype)
-        w = w * vf
-        cost = torch.sum(vf * sq)
+        # a select, as XLA makes of the JAX package's product with the cast
+        # mask: a masked row with a NaN residual adds 0, not NaN
+        w = torch.where(valid, w, 0.0)
+        cost = torch.sum(torch.where(valid, sq, 0.0))
     else:
         cost = torch.sum(sq)
 

@@ -85,6 +85,27 @@ def _nn_expand_torch(query, points):
     return torch.cat(idx, dim=-1), torch.cat(dist, dim=-1)
 
 
+def knn(query, points, k, chunk=1024):
+    """The k nearest points of each query, nearest first: (idx (Q, k) int32,
+    d² (Q, k) float32), d² the expansion of ``_nn_expand_torch`` in float32
+    (the JAX package's ``knn`` form), chunked over queries. Plain PyTorch on
+    either device. ``torch.topk`` may order exact ties other than
+    ``lax.top_k``; its one caller here, ``grid_nn.estimate_spacing``, uses
+    only d²."""
+    q = query.to(torch.float32)
+    p = points.to(torch.float32)
+    pn = _sq_norm(p)[None, :]
+    idx, dist = [], []
+    for s in range(0, q.shape[0], chunk):
+        qc = q[s : s + chunk]
+        cross = (qc[:, 0:1] * p[:, 0] + qc[:, 1:2] * p[:, 1]) + qc[:, 2:3] * p[:, 2]
+        d2 = (_sq_norm(qc)[:, None] - 2.0 * cross) + pn
+        neg, i = torch.topk(-d2, k, dim=1)
+        idx.append(i.to(torch.int32))
+        dist.append(-neg)
+    return torch.cat(idx), torch.cat(dist)
+
+
 def nearest_neighbors(query, points, *, backend="auto"):
     """For each query point, the index of (int32) and squared distance to
     (float32) its nearest point in ``points``. Returns (indices, sq_dists)

@@ -7,29 +7,46 @@
 
 ``icp`` solves one pair; ``icp_batched`` solves a fleet of B same-shape pairs
 in one batched LM loop, whose ``batch_update_fn`` searches every lane's
-correspondences with one launch of the expansion kernel K6. Inputs that are
-not tensors go to the card (``utils.device``). Only brute-force search is
-ported; the hash-grid searcher comes with the SLAM front-end slice
-(ROADMAP.md).
+correspondences with one launch of the expansion kernel K6.
+``PairwiseRegistrar`` registers the pairs of a scan stream (the SLAM front
+end), searching through the hash grid (``ops.grid_nn``) or brute force.
+Inputs that are not tensors go to the card (``utils.device``).
 """
+
+import math
 
 import torch
 
 from moptimizer_0_tpu_torch.core.residual import make_block, problem
 from moptimizer_0_tpu_torch.core.solver import (
     LMConfig,
+    Status,
     levenberg_marquardt,
     levenberg_marquardt_batched,
 )
 from moptimizer_0_tpu_torch.lie import se3
+from moptimizer_0_tpu_torch.ops.grid_nn import (
+    build_hash_grid,
+    build_hash_grid_device,
+    build_hash_grid_fixed,
+    estimate_spacing,
+    grid_nearest_neighbors,
+)
 from moptimizer_0_tpu_torch.ops.icp_linearize import fused_point2point_linearizer
 from moptimizer_0_tpu_torch.ops.nn_search import nearest_neighbors
 from moptimizer_0_tpu_torch.utils.device import as_input
+from moptimizer_0_tpu_torch.utils.stats import median as _median
 
-# Target-cloud size from which nn_backend="auto" with a gate would route to
-# the hash grid (the JAX package's threshold); until the grid is ported such
-# a search raises instead of silently running brute force.
+# Target-cloud size from which nn_backend="auto" with a gate routes to the
+# hash grid (the JAX package's brute-vs-grid crossover).
 GRID_AUTO_MIN_TARGETS = 50_000
+
+# Target-cloud size from which a grid is built on the device (the host build
+# ships the whole (S, K) table to the card).
+GRID_DEVICE_BUILD_MIN_TARGETS = 100_000
+
+# Points a cloud keeps for a coarse seeding pass (a deterministic stride).
+COARSE_MAX_POINTS = 4096
 
 
 def default_pipeline_config():
@@ -47,23 +64,45 @@ def _icp_config():
     return LMConfig(diff_mode="auto", max_iterations=30, linear_solver="cholesky")
 
 
+def _coarse_subsample(cloud, cap=COARSE_MAX_POINTS):
+    """Deterministic stride subsample for coarse seeding passes."""
+    n = cloud.shape[0]
+    if n <= cap:
+        return cloud
+    return cloud[:: -(-n // cap)]
+
+
+def _grid_cell(tgt_cloud, max_corr_dist):
+    """The grid's voxel edge: the gate, or without one 5× the estimated point
+    spacing (matches farther than that are no useful correspondences)."""
+    if max_corr_dist is not None:
+        return float(max_corr_dist)
+    return 5.0 * estimate_spacing(tgt_cloud)
+
+
 def make_searcher(tgt_cloud, nn_backend, max_corr_dist):
     """Correspondence searcher over a fixed target cloud: warped → (idx, d²).
 
     nn_backend: "auto", "cuda", "pallas" (K5, as "cuda"), "torch",
     "pallas_mxu" or "xla" (brute force, see
-    ``ops.nn_search.nearest_neighbors``). "grid", and "auto" on a target
-    of GRID_AUTO_MIN_TARGETS points or more with a gate, raise
-    NotImplementedError until the hash grid is ported.
+    ``ops.nn_search.nearest_neighbors``), or "grid": a voxel hash grid built
+    once here with cell = max_corr_dist (or 5× the estimated spacing) and
+    queried per iteration; it gives (−1, +inf) beyond the cell.
+
+    "auto" routes to the grid on a target of GRID_AUTO_MIN_TARGETS points or
+    more when a gate is set: with cell = max_corr_dist the gated grid makes
+    the correspondence decisions of gated brute force. Ungated searches stay
+    brute force.
     """
     if nn_backend == "auto":
         if tgt_cloud.shape[0] >= GRID_AUTO_MIN_TARGETS and max_corr_dist is not None:
             nn_backend = "grid"
-    if nn_backend == "grid":
-        raise NotImplementedError(
-            "the hash-grid searcher (ops/grid_nn.py) is not ported yet; see ROADMAP.md"
-        )
-    return lambda warped: nearest_neighbors(warped, tgt_cloud, backend=nn_backend)
+    if nn_backend != "grid":
+        return lambda warped: nearest_neighbors(warped, tgt_cloud, backend=nn_backend)
+    big = tgt_cloud.shape[0] >= GRID_DEVICE_BUILD_MIN_TARGETS
+    build = build_hash_grid_device if big else build_hash_grid
+    grid = build(tgt_cloud, _grid_cell(tgt_cloud, max_corr_dist))
+    return lambda warped: grid_nearest_neighbors(warped, grid)
 
 
 def _prepare(x):
@@ -81,6 +120,15 @@ def _gate(d2, max_corr_dist):
         return torch.isfinite(d2)
     # filled on the device: a host copy would synchronise on every update
     return d2 < torch.full((), max_corr_dist, dtype=d2.dtype, device=d2.device) ** 2
+
+
+def _take(cloud, idx):
+    """cloud[..., idx, :] with the JAX package's indexing: the grid's idx −1
+    ("nothing within the cell") wraps to the last point, a row that the gate
+    marks invalid. cloud (..., M, 3), idx (..., N)."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + cloud.shape[-2], idx)
+    return torch.gather(cloud, -2, idx[..., None].expand(*idx.shape, 3))
 
 
 def _placeholder(src, tgt_cloud):
@@ -106,8 +154,7 @@ def _icp_block_with_searcher(
         T = se3.transform_from_params6(x)
         warped = data["src"] @ T[:3, :3].T + T[:3, 3]
         idx, d2 = searcher(warped)
-        matched = tgt_cloud.index_select(0, idx)
-        return dict(data, matched=matched, valid=_gate(d2, max_corr_dist))
+        return dict(data, matched=_take(tgt_cloud, idx), valid=_gate(d2, max_corr_dist))
 
     return make_block(
         _residual,
@@ -133,7 +180,9 @@ def icp_block(src, tgt_cloud, *, loss=None, max_corr_dist=None, nn_backend="auto
 
 
 def _icp_fleet_block(srcs, tgt_clouds, *, loss=None, max_corr_dist=None):
-    """The ICP block of B lanes: srcs (B, N, 3), tgt_clouds (B, M, 3).
+    """The ICP block of B lanes: srcs (B, N, 3) and tgt_clouds (B, M, 3), or
+    one src (N, 3) and target (M, 3) shared by the lanes of a multistart
+    (solved with ``batch_data=False``).
 
     Its ``batch_update_fn`` warps every lane's source with that lane's
     estimate and searches all lanes together with the expansion ("xla":
@@ -142,9 +191,9 @@ def _icp_fleet_block(srcs, tgt_clouds, *, loss=None, max_corr_dist=None):
     def batch_update_fn(x, data):
         T = se3.transform_from_params6(x)  # (B, 4, 4)
         warped = data["src"] @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
-        idx, d2 = nearest_neighbors(warped, tgt_clouds, backend="xla")
-        matched = torch.gather(tgt_clouds, 1, idx.long()[..., None].expand(-1, -1, 3))
-        return dict(data, matched=matched, valid=_gate(d2, max_corr_dist))
+        tgts = tgt_clouds.expand(x.shape[0], *tgt_clouds.shape[-2:])
+        idx, d2 = nearest_neighbors(warped, tgts, backend="xla")
+        return dict(data, matched=_take(tgts, idx), valid=_gate(d2, max_corr_dist))
 
     return make_block(
         _residual,
@@ -157,12 +206,197 @@ def _icp_fleet_block(srcs, tgt_clouds, *, loss=None, max_corr_dist=None):
     )
 
 
-def _median(a, dim=0):
-    """Median along ``dim``, averaging the two middle values on an even count
-    (``torch.median`` returns the lower one)."""
-    s = torch.sort(a, dim=dim).values
-    n = s.shape[dim]
-    return (s.select(dim, (n - 1) // 2) + s.select(dim, n // 2)) * 0.5
+def _yaw_starts(src, tgt_cloud, B):
+    """The coarse multistart's B seeds (B, 6): yaw θ = 2πb/B about the source
+    centroid, then the centroid offset: t = t0 + c − R c, ω = (0, 0, θ)."""
+    dt = src.dtype
+    c_src = _median(src)
+    t0 = _median(tgt_cloud.to(dt)) - c_src
+    ang = 2.0 * math.pi * torch.arange(B, dtype=dt, device=src.device) / B
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    Rc = torch.stack(
+        [ca * c_src[0] - sa * c_src[1], sa * c_src[0] + ca * c_src[1], c_src[2].expand(B)], dim=1
+    )
+    zero = torch.zeros_like(ang)
+    return torch.cat([t0[None, :] + c_src[None, :] - Rc, torch.stack([zero, zero, ang], dim=1)], dim=1)
+
+
+def _check_ported(method):
+    """Raise for the JAX package's registration methods that are not ported."""
+    if method in ("point2plane", "gicp"):
+        raise NotImplementedError(
+            f"method={method!r} needs ops/surface.py and knn normals, not ported yet; see ROADMAP.md"
+        )
+
+
+class PairwiseRegistrar:
+    """Pairwise ICP for scan streams: the SLAM front end.
+
+    The JAX package's registrar exists to trace its solve once per stream;
+    eager PyTorch has nothing to compile, and the registrar keeps the rest
+    of its contract:
+
+    * an unseeded pair with a gate is seeded by a coarse ungated pass on
+      clouds stride-subsampled to COARSE_MAX_POINTS: ``coarse_multistart``
+      yaw starts (8 with "auto" when a gate is set) solved batched, all B
+      starts searched against the shared target in one expansion search per
+      pass (K6 on the card), the lowest cost not in NUMERIC_ERROR kept; or,
+      with ``coarse_multistart=0``, one start;
+    * grid search (``nn_backend="grid"``, or "auto" on a gated target of
+      GRID_AUTO_MIN_TARGETS points or more), with a capacity policy: the
+      first pair's adaptive build learns (S, K, cell occupancy), and later
+      pairs build at those capacities with no host read
+      (``build_hash_grid_fixed``); an overflow rebuilds adaptively with the
+      old capacities as floors, so the policy only grows;
+    * brute force otherwise: K5 for CUDA tensors, the expansion's plain
+      version for CPU tensors (the JAX package's "pallas" on a TPU, "xla"
+      elsewhere).
+
+    Only ``method="icp"`` is ported; "point2plane" and "gicp" need
+    ``ops/surface.py`` (ROADMAP.md).
+
+    Usage::
+
+        reg = PairwiseRegistrar(max_corr_dist=0.5)
+        for k in range(1, len(scans)):
+            res = reg.register(scans[k], scans[k-1], x0=prev)
+    """
+
+    def __init__(self, *, config=None, loss=None, max_corr_dist=None, nn_backend="auto",
+                 method="icp", coarse_multistart="auto"):
+        _check_ported(method)
+        if method != "icp":
+            raise ValueError(f"unknown method {method!r}")
+        self.config = default_pipeline_config() if config is None else config
+        self.loss = loss
+        self.max_corr_dist = max_corr_dist
+        self.nn_backend = nn_backend
+        self.method = method
+        if coarse_multistart == "auto":
+            coarse_multistart = 8 if max_corr_dist is not None else 0
+        self.coarse_multistart = int(coarse_multistart)
+        self._coarse = None  # the ungated single-start registrar, made on first use
+        # running maxima of (n_slots, bucket K, cell occupancy) over the stream
+        self._grid_policy = None
+        self._grid_overflow = None
+
+    def _use_grid(self, m):
+        if self.nn_backend == "grid":
+            return True
+        if self.nn_backend == "auto":
+            return m >= GRID_AUTO_MIN_TARGETS and self.max_corr_dist is not None
+        return False
+
+    def _solve(self, src, tgt_cloud, searcher, x0):
+        blk = _icp_block_with_searcher(src, tgt_cloud, searcher, loss=self.loss,
+                                       max_corr_dist=self.max_corr_dist)
+        return levenberg_marquardt(problem(blk), x0, self.config)
+
+    def _solve_grid(self, src, tgt_cloud, grid, x0):
+        return self._solve(src, tgt_cloud, lambda warped: grid_nearest_neighbors(warped, grid), x0)
+
+    def _solve_grid_fused(self, src, tgt_cloud, x0, S, K, occ):
+        """Build at fixed capacities and solve, with no host read for the
+        build: (result, device overflow flag)."""
+        grid, overflow = build_hash_grid_fixed(tgt_cloud, self.max_corr_dist, S, K, occ)
+        return self._solve_grid(src, tgt_cloud, grid, x0), overflow
+
+    def _solve_brute(self, src, tgt_cloud, x0):
+        backend = "pallas" if tgt_cloud.is_cuda else "xla"
+        return self._solve(
+            src, tgt_cloud, lambda warped: nearest_neighbors(warped, tgt_cloud, backend=backend), x0
+        )
+
+    def register(self, src, tgt_cloud, x0=None, *, defer_overflow=False):
+        """Align src onto tgt_cloud; returns the LMResult.
+
+        x0=None seeds with the median-centroid offset and, when a gate is
+        set, runs the coarse ungated pass first (a gate tighter than the
+        initial misalignment would reject every correspondence).
+
+        defer_overflow=True returns ``(result, overflow)`` with no host read
+        of the flag: ``overflow`` is the fixed-capacity build's device bool
+        (None on paths that resolve capacity themselves). The caller reads
+        it later and calls :meth:`redo_overflow` on a True."""
+        src = as_input(src)
+        tgt_cloud = as_input(tgt_cloud)
+        if x0 is None:
+            x0 = torch.zeros(6, dtype=src.dtype, device=src.device)
+            x0[0:3] = _median(tgt_cloud.to(src.dtype)) - _median(src)
+            if self.max_corr_dist is not None:
+                src_c = _coarse_subsample(src)
+                tgt_c = _coarse_subsample(tgt_cloud)
+                if self.coarse_multistart > 0:
+                    x0 = self._coarse_multistart_seed(src_c, tgt_c)
+                else:
+                    if self._coarse is None:
+                        self._coarse = PairwiseRegistrar(
+                            config=self.config, loss=self.loss, max_corr_dist=None,
+                            nn_backend=self.nn_backend, method=self.method,
+                        )
+                    x0 = self._coarse.register(src_c, tgt_c, x0).x
+        else:
+            x0 = as_input(x0, src.device)
+        if self._use_grid(tgt_cloud.shape[0]):
+            if self._grid_policy is None and self.max_corr_dist is not None:
+                # the stream's first pair: one adaptive build learns the
+                # capacities, and the solve runs as every later pair's does
+                self._build_grid(tgt_cloud)
+            if self._grid_policy is not None and self.max_corr_dist is not None:
+                res, overflow = self._solve_grid_fused(src, tgt_cloud, x0, *self._grid_policy)
+                if defer_overflow:
+                    return res, overflow
+                if not bool(overflow):
+                    return res
+                # a denser scan outgrew the capacities
+                return self._redo_overflow(src, tgt_cloud, x0)
+            grid = self._build_grid(tgt_cloud)
+            res = self._solve_grid(src, tgt_cloud, grid, x0)
+            if self._grid_overflow is not None and bool(self._grid_overflow):
+                grid = self._build_grid(tgt_cloud, force_adaptive=True)
+                res = self._solve_grid(src, tgt_cloud, grid, x0)
+            return (res, None) if defer_overflow else res
+        res = self._solve_brute(src, tgt_cloud, x0)
+        return (res, None) if defer_overflow else res
+
+    def redo_overflow(self, src, tgt_cloud, x0):
+        """Redo a registration whose deferred overflow flag came back True:
+        an adaptive rebuild (the old capacities as floors) and a solve.
+        Returns the LMResult."""
+        src = as_input(src)
+        tgt_cloud = as_input(tgt_cloud)
+        return self._redo_overflow(src, tgt_cloud, as_input(x0, src.device))
+
+    def _redo_overflow(self, src, tgt_cloud, x0):
+        grid = self._build_grid(tgt_cloud, force_adaptive=True)
+        return self._solve_grid(src, tgt_cloud, grid, x0)
+
+    def _coarse_multistart_seed(self, src, tgt_cloud):
+        """Best of B yaw starts about the source centroid, solved ungated in
+        one batched loop; the lowest final cost not in NUMERIC_ERROR wins.
+        Always point-to-point."""
+        x0s = _yaw_starts(src, tgt_cloud, self.coarse_multistart)
+        blk = _icp_fleet_block(src, tgt_cloud)
+        res = levenberg_marquardt_batched(problem(blk), x0s, self.config, batch_data=False)
+        cost = torch.where(res.status == int(Status.NUMERIC_ERROR), torch.inf, res.cost)
+        return res.x[torch.argmin(cost)]
+
+    def _build_grid(self, tgt_cloud, force_adaptive=False):
+        cell = _grid_cell(tgt_cloud, self.max_corr_dist)
+        M = tgt_cloud.shape[0]
+        if self._grid_policy is not None and not force_adaptive:
+            grid, self._grid_overflow = build_hash_grid_fixed(tgt_cloud, cell, *self._grid_policy)
+            return grid
+        self._grid_overflow = None
+        floors = {}
+        if self._grid_policy is not None:  # monotonic growth on overflow
+            S0, K0, occ0 = self._grid_policy
+            floors = dict(min_slots=S0, min_bucket=K0 + 16, min_cell_occupancy=occ0)
+        use_device = M >= GRID_DEVICE_BUILD_MIN_TARGETS or (M >= 20_000 and tgt_cloud.is_cuda)
+        build = build_hash_grid_device if use_device else build_hash_grid
+        grid = build(tgt_cloud, cell, **floors)
+        self._grid_policy = (grid.n_slots, grid.bucket_size, grid.max_cell_occupancy)
+        return grid
 
 
 def icp(

@@ -136,13 +136,19 @@ def test_nn_backend_routing_and_errors():
         nearest_neighbors(q[:0], p)
 
 
-def test_grid_searcher_is_not_ported_yet():
-    p = torch.zeros(GRID_AUTO_MIN_TARGETS, 3)
-    with pytest.raises(NotImplementedError, match="grid"):
-        make_searcher(p[:100], "grid", 1.0)
-    with pytest.raises(NotImplementedError, match="grid"):
-        make_searcher(p, "auto", 1.0)  # large gated target: the JAX package routes to the grid
-    make_searcher(p, "auto", None)  # ungated stays brute force
+def test_grid_searcher_routes_grid_and_gated_auto():
+    """"grid", and "auto" with a gate on GRID_AUTO_MIN_TARGETS targets or
+    more, search the hash grid, whose radius semantics give a far query
+    (−1, +inf); ungated "auto", and gated "auto" on fewer targets, stay
+    brute force and find the far nearest point."""
+    p = torch.as_tensor(np.random.default_rng(9).uniform(0, 100, (GRID_AUTO_MIN_TARGETS, 3)), dtype=torch.float32)
+    far = torch.tensor([[500.0, 500.0, 500.0]])
+    for backend, targets in (("grid", p[:100]), ("auto", p)):
+        idx, d2 = make_searcher(targets, backend, 1.0)(far)
+        assert int(idx[0]) == -1 and float(d2[0]) == np.inf
+    for targets, gate in ((p, None), (p[:-1], 1.0)):
+        idx, d2 = make_searcher(targets, "auto", gate)(far)
+        assert int(idx[0]) >= 0 and np.isfinite(float(d2[0]))
 
 
 def test_pallas_names_k5_and_refuses_cpu_tensors_before_building():

@@ -21,7 +21,9 @@ def test_import_leaves_jax_out():
         "moptimizer_0_tpu_torch.ops.block_cholesky, moptimizer_0_tpu_torch.kernels.schur, "
         "moptimizer_0_tpu_torch.kernels.nn_expand, moptimizer_0_tpu_torch.ops.small_solve, "
         "moptimizer_0_tpu_torch.models.curve_fitting, moptimizer_0_tpu_torch.models.powell, "
-        "moptimizer_0_tpu_torch.models.rational, moptimizer_0_tpu_torch.utils.device; "
+        "moptimizer_0_tpu_torch.models.rational, moptimizer_0_tpu_torch.utils.device, "
+        "moptimizer_0_tpu_torch.ops.grid_nn, moptimizer_0_tpu_torch.odometry, "
+        "moptimizer_0_tpu_torch.evaluation, moptimizer_0_tpu_torch.utils.stats; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'moptimizer_0_tpu.'))"
         " or m == 'moptimizer_0_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
