@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_profile.py [--path fleet|icp|pair] [--out DIR]
+    python3 chip_profile.py [--path fleet|icp|pair|gicp|pgo] [--out DIR]
 
 ``--path fleet`` (the default) builds the expansion kernel K6, makes the
 64-lane fachada fleet of ``chip_smoke.py`` and runs one pass of
@@ -19,8 +19,17 @@ first pair's coarse seed and the grid's capacities), and the step registers
 pair 3 seeded with pair 2's pose. Its device time is split between the grid
 query, the linearization, the trial costs and the damped solves (each
 wrapped in a ``torch.profiler.record_function`` range) and the rest of the
-LM loop. Prints the card, those host
-times and the traced one, the device time and busy share, the kernel
+LM loop. ``--path gicp`` builds K5; the step is one steady-state GICP pair
+of the same sequence (``method="gicp"``, ``nn_backend="auto"``: K5 at
+32,768 targets), pair 3 seeded with pair 2's pose, split between the two
+covariance builds (knn + PCA, K9), the K5 searches, the linearization, the
+trial costs and the damped solves, with the weight inverse (Ω = (C_q + R C_s
+Rᵀ)⁻¹, inside the linearization and the trial costs) shown on its own.
+``--path pgo`` builds no kernel; the step is the first five outer
+iterations of the dense ``solve_pgo`` of ``chip_smoke.py``'s 2,000-pose ring
+graph in float32, split between the edge plans, the per-edge linearization,
+the 12,000² assembly, the costs and the damped Cholesky solves.
+Prints the card, those host times and the traced one, the device time and busy share, the kernel
 launches and host syncs, the search kernel's share of device time and the
 kernels by device time, and writes the chrome trace to DIR (default
 ``build/profile``).
@@ -37,7 +46,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke as cs
-from moptimizer_0_tpu_torch import registration
+from moptimizer_0_tpu_torch import pose_graph, registration
+from moptimizer_0_tpu_torch.core import linearize as core_linearize
 from moptimizer_0_tpu_torch.core import solver
 from moptimizer_0_tpu_torch.core.solver import LMConfig
 from moptimizer_0_tpu_torch.kernels import build
@@ -69,11 +79,13 @@ def icp_request(cloud):
     return step
 
 
-def slam_pair(cloud):
-    """One steady-state grid pair of the SLAM sequence (pair 3, seeded)."""
+def _steady_pair(cloud, **kw):
+    """Pair 3 of the SLAM sequence, seeded with pair 2's pose, through a
+    registrar with the bench's settings that registered pairs 1 and 2 (the
+    first pair's coarse seed, the grid's capacities)."""
     scans, _ = cs.make_sequence(cs.SLAM_K, cs.SLAM_N)
     seq = [sc.to(cloud.device) for sc in scans[:4]]
-    reg = PairwiseRegistrar(config=cs.SLAM_CONFIG, nn_backend="grid", max_corr_dist=cs.SLAM_GATE)
+    reg = PairwiseRegistrar(config=cs.SLAM_CONFIG, max_corr_dist=cs.SLAM_GATE, **kw)
     x = reg.register(seq[1], seq[0]).x
     x = reg.register(seq[2], seq[1], x0=x).x
 
@@ -84,14 +96,58 @@ def slam_pair(cloud):
     return step
 
 
-# the pair's stages, each wrapped in a record_function range: (range name,
-# module, attribute)
+def slam_pair(cloud):
+    """One steady-state grid pair of the SLAM sequence (pair 3, seeded)."""
+    return _steady_pair(cloud, nn_backend="grid")
+
+
+def gicp_pair(cloud):
+    """One steady-state GICP pair of the SLAM sequence, searched by K5."""
+    return _steady_pair(cloud, method="gicp")
+
+
+def pgo_solve(cloud):
+    """The first PGO_ITERATIONS outer iterations of the dense solve of
+    chip_smoke.py's 2,000-pose ring graph, float32."""
+    graph, _ = cs.make_ring_graph(max(cs.RING_BOUNDS), cs.RING_SEED, cs.RING_DRIFT, dtype=torch.float32,
+                                  device=cloud.device)
+    config = pose_graph.PGOConfig(max_iterations=PGO_ITERATIONS)
+
+    def step():
+        return pose_graph.solve_pgo(graph, config).poses.cpu()
+
+    return step
+
+
+PGO_ITERATIONS = 5
+
+
+# a pair's stages, each wrapped in a record_function range: (range name,
+# module, attribute); the ranges of a path do not nest, but for the GICP
+# path's weight inverse, which runs inside the linearization and the trial
+# costs and is shown on its own
 STAGES = (
     ("grid query", registration, "grid_nearest_neighbors"),
     ("linearization", registration, "fused_point2point_linearizer"),
     ("trial costs", solver, "compute_cost"),
     ("damped solves", solver, "_solve_damped"),
 )
+GICP_STAGES = (
+    ("covariances", registration, "gicp_covariances"),
+    ("K5 search", registration, "nearest_neighbors"),
+    ("linearization", solver, "linearize"),
+    ("trial costs", solver, "compute_cost"),
+    ("damped solves", solver, "_solve_damped"),
+    ("weight inverse", core_linearize, "_per_residual_weights"),
+)
+PGO_STAGES = (
+    ("edge plans", pose_graph, "_EdgePlan"),
+    ("linearization", pose_graph, "_linearize"),
+    ("assembly", pose_graph, "_assemble"),
+    ("costs", pose_graph, "compute_cost"),
+    ("damped solves", pose_graph, "_dense_step"),
+)
+NESTED = {"weight inverse"}
 
 
 def _ranged(name, fn):
@@ -106,11 +162,14 @@ def _device_us(e):
     return e.device_time_total
 
 
-# path: (what is traced, its maker, the module of its search kernel or None)
+# path: (what is traced, its maker, the module of its search kernel or None,
+# its stages or None)
 PATHS = {
-    "fleet": ("one fleet pass", fleet_step, k_expand),
-    "icp": ("one ICP request", icp_request, k_nn),
-    "pair": ("one SLAM grid pair", slam_pair, None),
+    "fleet": ("one fleet pass", fleet_step, k_expand, None),
+    "icp": ("one ICP request", icp_request, k_nn, None),
+    "pair": ("one SLAM grid pair", slam_pair, None, STAGES),
+    "gicp": ("one SLAM GICP pair", gicp_pair, k_nn, GICP_STAGES),
+    "pgo": (f"{PGO_ITERATIONS} outer iterations of the 2,000-pose ring's dense PGO", pgo_solve, None, PGO_STAGES),
 }
 
 
@@ -126,12 +185,11 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     print(smi[0])
-    what, make, kernel = PATHS[args.path]
+    what, make, kernel, stages = PATHS[args.path]
     if kernel is not None:
         build.build(kernel.NAME, kernel.SOURCES)
-    else:
-        for name, module, attr in STAGES:
-            setattr(module, attr, _ranged(name, getattr(module, attr)))
+    for name, module, attr in stages or ():
+        setattr(module, attr, _ranged(name, getattr(module, attr)))
     cloud = torch.as_tensor(cs.load_txt_cloud(cs.FACHADA), dtype=torch.float32, device="cuda")
     step = make(cloud)
     step()
@@ -153,7 +211,7 @@ def main():
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     # (a record_function range may also show on the device timeline: not a kernel)
-    ranges = {name for name, _, _ in STAGES}
+    ranges = {name for name, _, _ in stages or ()}
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     launches = sum(e.name == "cudaLaunchKernel" for e in events)
@@ -177,19 +235,21 @@ def main():
         mine_ms = sum(by_name[k][0] for k in mine)
         print(f"{kernel.NAME}: {mine_ms:.3f} ms of device time in {sum(by_name[k][1] for k in mine)} kernels "
               f"({mine_ms / busy_ms:.1%})")
-    else:
-        # ranges nest (a trial cost holds no query, a linearization no solve),
-        # so each stage's device and host time is its own
-        stages = {name: [0.0, 0.0, 0] for name, _, _ in STAGES}
+    if stages:
+        # the ranges do not nest (a trial cost holds no query, a linearization
+        # no solve), so each stage's device and host time is its own; a
+        # NESTED stage's time is inside the others'
+        times = {name: [0.0, 0.0, 0] for name, _, _ in stages}
         for e in events:
-            if e.name in stages and e.device_type == torch.autograd.DeviceType.CPU:
-                stages[e.name][0] += _device_us(e) / 1e3
-                stages[e.name][1] += e.cpu_time_total / 1e3
-                stages[e.name][2] += 1
-        rest = busy_ms - sum(v[0] for v in stages.values())
+            if e.name in times and e.device_type == torch.autograd.DeviceType.CPU:
+                times[e.name][0] += _device_us(e) / 1e3
+                times[e.name][1] += e.cpu_time_total / 1e3
+                times[e.name][2] += 1
+        rest = busy_ms - sum(v[0] for k, v in times.items() if k not in NESTED)
         print("device time by stage (ms, share of device time; host ms inside the ranges; calls):")
-        for name, (dev_ms, host_ms, calls) in stages.items():
-            print(f"  {name:14s} {dev_ms:9.3f} ms {dev_ms / busy_ms:6.1%}  host {host_ms:9.3f} ms  {calls} calls")
+        for name, (dev_ms, host_ms, calls) in times.items():
+            inside = " (inside the linearization and trial costs)" if name in NESTED else ""
+            print(f"  {name:14s} {dev_ms:9.3f} ms {dev_ms / busy_ms:6.1%}  host {host_ms:9.3f} ms  {calls} calls{inside}")
         print(f"  {'rest of LM':14s} {rest:9.3f} ms {rest / busy_ms:6.1%}")
     print("device time by kernel (ms, launches, share):")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:

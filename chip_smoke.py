@@ -45,7 +45,22 @@ prints no result):
    ``nn_backend="auto"``, which routes every pair to K5; both must end with
    ATE < 0.05 m, K6 launched on the first pair (its 8-start coarse seed), K5
    never in (a) and once per LM outer iteration in (b), no NUMERIC_ERROR,
-   and relative poses that agree to 1e-6.
+   and relative poses that agree to 1e-6;
+9. the SLAM pipeline on the same sequence through ``scan_slam`` with
+   ``nn_backend="auto"`` (K5), loop closures (0, 63) and (0, 62) and
+   information 1/σ², for ``method="icp"``, ``"point2plane"`` and ``"gicp"``:
+   the front end's, the closures' and the PGO's walls, frames/s as the
+   bench computes it, ATE < 0.05 m for the odometry and < 0.01 m after PGO
+   (and below the odometry's for icp and point2plane), no NUMERIC_ERROR, K5
+   once per outer iteration and K6 on the first pair; the ICP graph's PGO is
+   solved again (bit-equal) and by CG (within 1e-4 of the dense poses);
+10. K9 (``gicp_covariances``, ``estimate_normals``) at 32,768 points and the
+    host reads of one GICP pair;
+11. ``scan_slam_fixed_lag`` (window 8, icp) on the first 24 scans: ATE <
+    0.05 m, poses (24, 6), one marginalization a scan past the window;
+12. the pose graph of ``tests/test_pose_graph.py`` rebuilt at 300 and 2,000
+    poses in float32, solved by CG and by the dense Cholesky, each below its
+    cost bound (``RING_BOUNDS``).
 
 The dense-BA solve runs twice and must repeat itself bit for bit.
 
@@ -61,6 +76,7 @@ before the last is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -73,7 +89,7 @@ import numpy as np
 import torch
 
 import moptimizer_0_tpu_torch  # noqa: F401  (sets fp32 matmul precision)
-from moptimizer_0_tpu_torch import ba, ba_dense
+from moptimizer_0_tpu_torch import ba, ba_dense, odometry, pose_graph
 from moptimizer_0_tpu_torch.core.loss import GemanMcClure, TrivialLoss
 from moptimizer_0_tpu_torch.core.solver import LMConfig, Status
 from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
@@ -83,7 +99,7 @@ from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
 from moptimizer_0_tpu_torch.lie import se3, so3
 from moptimizer_0_tpu_torch.odometry import scan_odometry
-from moptimizer_0_tpu_torch.ops import grid_nn
+from moptimizer_0_tpu_torch.ops import grid_nn, surface
 from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
 from moptimizer_0_tpu_torch.ops.schur import _schur_corr_pairs_torch, _schur_corr_torch, fold_linv, pair_plan
 from moptimizer_0_tpu_torch.registration import PairwiseRegistrar, _coarse_subsample, _yaw_starts, icp, icp_batched
@@ -138,7 +154,46 @@ SLAM_ATE_BOUND = 0.05  # the odometry bound of tests/test_slam_sequence.py
 # they are held to 1e-6.
 SLAM_REL_TOL = 1e-6
 GRID_CELL = 0.5
-X_SMALL = [0.05, -0.03, 0.02, 0.01, -0.005, 0.01]  # the fachada grid query's transform
+# The back end on the same sequence: the bench's two loop closures, the SLAM
+# bound of tests/test_slam_sequence.py, and the fixed-lag run of
+# tests/test_pgo_marginalization.py (its first 24 scans, window 8; the JAX
+# test's window is 6, the function's default 8).
+SLAM_LOOPS = ((0, SLAM_K - 1), (0, SLAM_K - 2))
+SLAM_ATE_SLAM_BOUND = 0.01
+# Every edge's information is 1/σ² of the 1 cm sensor noise. With the
+# default unit information the loop closures' residuals (~3e-4 m) make a
+# start cost below 8ε of float32 (9.5e-7), where the solver's absolute test
+# stops at 0 iterations (CONVERGED): the SLAM poses would be the odometry's.
+# The unit-information solve of the ICP graph is shown once, beside.
+SLAM_INFORMATION = 1.0 / SENSOR_NOISE**2
+# The methods whose SLAM ATE must also lie below their odometry's (the
+# contract of tests/test_slam_sequence.py for ICP). GICP's loop closures on
+# this sequence measure the rotation 2–3× worse than its odometry
+# accumulates over their span (5e-5 against 2e-5 rad on an H100, printed per
+# closure), though the translation twice better; one information for all
+# six components carries that rotation into the trajectory over the 8 m
+# lever arm, and its SLAM ATE ends above the odometry's. GICP is held to
+# SLAM_ATE_SLAM_BOUND only.
+SLAM_BEATS_ODOMETRY = ("icp", "point2plane")
+FIXED_LAG_SCANS, FIXED_LAG_WINDOW = 24, 8
+# PGO on tests/test_pose_graph.py's ring graph (drift 0.005, seed 10, as its
+# slow CG test), float32, solved by CG (400 CG iterations a step, 40 outer
+# iterations, as that test) and by the dense Cholesky of the 6N × 6N H:
+# * at that test's 300 poses each must end below its bound, 1e-3 × the start
+#   cost;
+# * at 2,000 poses, a graph size users solve, the drift accumulates to
+#   ~0.22 rad, and from that start LM descends slowly whatever the linear
+#   solver: on an H100 dense and CG both end their 40 iterations at 2.2e-2
+#   of the start, at the same cost. Each must end below 5e-2 × the start.
+RING_DRIFT, RING_SEED = 0.005, 10
+RING_BOUNDS = {300: 1e-3, 2000: 5e-2}
+RING_CONFIGS = dict(
+    cg=pose_graph.PGOConfig(max_iterations=40, solver="cg", cg_iterations=400),
+    dense=pose_graph.PGOConfig(max_iterations=40),
+)
+# CG against dense on the 64-pose SLAM graph: the same optimum, to 1e-4.
+PGO_CG_GAP = 1e-4
+X_SMALL =[0.05, -0.03, 0.02, 0.01, -0.005, 0.01]  # the fachada grid query's transform
 
 # Published peaks of an H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3.
@@ -868,9 +923,9 @@ class _Recorded(PairwiseRegistrar):
         ))
         return out
 
-    def _redo_overflow(self, src, tgt_cloud, x0):
+    def _redo_overflow(self, src, tgt_cloud, x0, covs):
         self.redos += 1
-        return super()._redo_overflow(src, tgt_cloud, x0)
+        return super()._redo_overflow(src, tgt_cloud, x0, covs)
 
 
 def run_slam(scans, gt, nn_backend, dev):
@@ -924,6 +979,293 @@ def run_slam(scans, gt, nn_backend, dev):
     if nn_backend == "auto" and k5 < sum(outer):
         raise AssertionError(f"SLAM auto: K5 launched {k5} times for {sum(outer)} outer iterations")
     return rels.cpu(), k5, k6
+
+
+@contextlib.contextmanager
+def _slam_stages():
+    """Records what the SLAM entry points do, from outside: every
+    registrar odometry makes is a ``_Recorded``, and the front end
+    (``scan_odometry``), the loop closures (``register_pair``), the PGO
+    solves (``solve_pgo``, with their graphs) and ``marginalize_oldest`` are
+    each timed between two synchronisations. Yields (walls, registrars,
+    solves)."""
+    walls = dict(front=[], loops=[], pgo=[], marg=[])
+    regs, solves = [], []
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            if name == "pgo":
+                solves.append((args[0], args[1] if len(args) > 1 else kwargs.get("config"), out))
+            return out
+
+        return wrapped
+
+    def registrar(**kwargs):
+        regs.append(_Recorded(**kwargs))
+        return regs[-1]
+
+    saved = dict(scan_odometry=odometry.scan_odometry, register_pair=odometry.register_pair,
+                 PairwiseRegistrar=odometry.PairwiseRegistrar, solve_pgo=pose_graph.solve_pgo,
+                 marginalize_oldest=pose_graph.marginalize_oldest)
+    odometry.scan_odometry = timed("front", saved["scan_odometry"])
+    odometry.register_pair = timed("loops", saved["register_pair"])
+    odometry.PairwiseRegistrar = registrar
+    pose_graph.solve_pgo = timed("pgo", saved["solve_pgo"])
+    pose_graph.marginalize_oldest = timed("marg", saved["marginalize_oldest"])
+    try:
+        yield walls, regs, solves
+    finally:
+        for name in ("scan_odometry", "register_pair", "PairwiseRegistrar"):
+            setattr(odometry, name, saved[name])
+        pose_graph.solve_pgo = saved["solve_pgo"]
+        pose_graph.marginalize_oldest = saved["marginalize_oldest"]
+
+
+def _registrations(regs):
+    """(outer iterations, trials, statuses) over every registration."""
+    pairs = [p for r in regs for p in r.pairs]
+    outer = [int(torch.isfinite(p["res"].trace["cost"]).sum()) for p in pairs]
+    trials = [int(torch.isfinite(p["res"].trace["inner"]["cost_new"]).sum()) for p in pairs]
+    return pairs, outer, trials, [Status(int(p["res"].status)) for p in pairs]
+
+
+def _syncs_of(fn):
+    """cudaStreamSynchronize and cudaDeviceSynchronize calls of one fn()
+    under torch.profiler: the host reads it makes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    return sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for e in prof.events())
+
+
+def run_scan_slam(scans, gt, method, dev):
+    """The SLAM pipeline through its entry point, as the bench runs it:
+    ``scan_slam`` over the sequence with the bench's settings, nn_backend
+    "auto" (K5 at 32,768 targets), loop closures (0, K−1) and (0, K−2), the
+    default PGO, and information 1/σ² (SLAM_INFORMATION). Returns (the
+    PGOResult, the PGO's graph and config, a record of the run)."""
+    seq = [sc.to(dev) for sc in scans]
+    k_scans = len(seq)
+    with _slam_stages() as (walls, regs, solves):
+        k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+        reads = pose_graph.HOST_READS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, poses_odo = odometry.scan_slam(seq, method=method, loop_closures=SLAM_LOOPS, config=SLAM_CONFIG,
+                                               information_scale=SLAM_INFORMATION,
+                                               loop_information_scale=SLAM_INFORMATION,
+                                               nn_backend="auto", max_corr_dist=SLAM_GATE)
+        poses = result.poses.cpu()
+        wall_s = time.perf_counter() - t0
+        k5, k6 = k_nn.LAUNCHES, k_expand.LAUNCHES
+        pgo_reads = pose_graph.HOST_READS - reads
+    if k_schur.LAUNCHES:
+        raise AssertionError(f"SLAM {method}: the schur kernel launched")
+    (reg,) = regs
+    pairs, outer, trials, status = _registrations(regs)
+    front_s, (pgo_s,) = walls["front"][0], walls["pgo"]
+    loops_s = sum(walls["loops"])
+    first_s = pairs[0]["wall"]
+    steady_s = (front_s - first_s) / (k_scans - 2)
+    fps = k_scans / ((k_scans - 1) * steady_s + loops_s + pgo_s)
+    ate_odo = float(ate_rmse(poses_odo.cpu().double(), gt.double(), align=False))
+    ate = float(ate_rmse(poses.double(), gt.double(), align=False))
+    pgo_status = Status(int(result.status))
+    names = {st.name: status.count(st) for st in set(status)}
+    graph, config, _ = solves[0]
+    closure_err = _closure_errors(graph, poses_odo, gt)
+    print(
+        f"scan_slam method={method!r}, nn_backend='auto', {k_scans} scans x {seq[0].shape[0]} points float32, "
+        f"loop closures {list(SLAM_LOOPS)}: wall {wall_s:.4f} s; front end {front_s:.4f} s (first pair "
+        f"{first_s:.4f} s, steady {steady_s * 1e3:.2f} ms a pair), loop closures {loops_s:.4f} s "
+        f"({[f'{w:.4f}' for w in walls['loops']]}), PGO {pgo_s:.4f} s; frames/s (the bench's: K / ((K-1)·steady + "
+        f"loops + PGO)) {fps:.2f}; registrations {len(pairs)} ({reg.redos} overflow rebuilds), LM outer "
+        f"iterations mean {np.mean(outer):.2f} max {max(outer)}, trials {sum(trials)}, statuses {names}; PGO "
+        f"{pgo_status.name}, iterations {int(result.iterations)}, host reads {pgo_reads}; K5 launches {k5}, K6 "
+        f"launches {k6} (first pair {pairs[0]['k6']}); ATE odometry {ate_odo:.6f} m, SLAM {ate:.6f} m (align=False); "
+        f"loop closures' error against the ground truth (m, rad), the odometry's over the same span: {closure_err}"
+    )
+    if Status.NUMERIC_ERROR in status or pgo_status == Status.NUMERIC_ERROR or not torch.isfinite(poses).all():
+        raise AssertionError(f"scan_slam {method}: registrations {names}, PGO {pgo_status.name}")
+    if poses.shape != (k_scans, 6):
+        raise AssertionError(f"scan_slam {method}: poses of shape {tuple(poses.shape)}")
+    if not ate_odo < SLAM_ATE_BOUND or not ate < SLAM_ATE_SLAM_BOUND or (method in SLAM_BEATS_ODOMETRY
+                                                                       and not ate < ate_odo):
+        raise AssertionError(f"scan_slam {method}: ATE odometry {ate_odo}, SLAM {ate}")
+    if k5 < sum(outer) or pairs[0]["k6"] == 0:
+        raise AssertionError(f"scan_slam {method}: K5 {k5} for {sum(outer)} outer iterations, first pair K6 "
+                             f"{pairs[0]['k6']}")
+    run = dict(wall_s=wall_s, front_s=front_s, steady_ms=steady_s * 1e3, loops_s=loops_s, pgo_s=pgo_s, fps=fps,
+               ate_odo=ate_odo, ate=ate, k5=k5, k6=k6, pgo_reads=pgo_reads, reg=reg)
+    return result, graph, config, run
+
+
+def _closure_errors(graph, poses_odo, gt):
+    """For each loop-closure edge (i, j): the (translation, rotation) norms
+    of its measurement's error against the ground truth, and of the
+    odometry's relative pose P_i⁻¹P_j over the same span."""
+    out = []
+    gt = gt.double()
+    odo = poses_odo.cpu().double()
+    for e in range(graph.poses.shape[0] - 1, graph.edge_i.shape[0]):
+        i, j = int(graph.edge_i[e]), int(graph.edge_j[e])
+        z = graph.measurements[e].cpu().double()
+        z_odo = odometry._params6_of(torch.linalg.inv(se3.transform_from_params6(odo[i]))
+                                     @ se3.transform_from_params6(odo[j]))
+        errs = [pose_graph._edge_residual(gt[i], gt[j], m) for m in (z, z_odo)]
+        out.append(((i, j), [(round(float(r[:3].norm()), 7), round(float(r[3:].norm()), 8)) for r in errs]))
+    return out
+
+
+def pgo_repeat_and_cg(graph, config, first):
+    """The SLAM graph's PGO again (bit-equal poses, equal iterations and
+    status), with solver="cg" (poses within PGO_CG_GAP of the dense), and
+    with unit information (shown, not checked)."""
+    unit = pose_graph.solve_pgo(dataclasses.replace(graph, information=graph.information / SLAM_INFORMATION), config)
+    print(f"PGO of the SLAM graph with unit information: {Status(int(unit.status)).name}, iterations "
+          f"{int(unit.iterations)}, start cost {float(unit.trace['cost'][0]):.3e} (8ε of {graph.poses.dtype} is "
+          f"{8 * torch.finfo(graph.poses.dtype).eps:.3e}), max|poses - odometry| "
+          f"{float((unit.poses - graph.poses).abs().max()):.3e}")
+    again = pose_graph.solve_pgo(graph, config)
+    same = (torch.equal(_bits(again.poses), _bits(first.poses)) and int(again.iterations) == int(first.iterations)
+            and int(again.status) == int(first.status))
+    reads = pose_graph.HOST_READS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg = pose_graph.solve_pgo(graph, dataclasses.replace(config, solver="cg"))
+    gap = float((cg.poses - first.poses).abs().max())
+    cg_s = time.perf_counter() - t0
+    print(f"PGO of the SLAM graph ({graph.poses.shape[0]} poses, {graph.edge_i.shape[0]} edges) again: poses bit-equal, "
+          f"iterations and status equal: {same}; solver='cg': {cg_s:.4f} s, {Status(int(cg.status)).name}, iterations "
+          f"{int(cg.iterations)}, host reads {pose_graph.HOST_READS - reads}, max|poses - dense| {gap:.3e} "
+          f"(bound {PGO_CG_GAP:g})")
+    if not same:
+        raise AssertionError("PGO: a second solve of the SLAM graph differs from the first")
+    if not gap <= PGO_CG_GAP:
+        raise AssertionError(f"PGO: the CG solve is {gap} from the dense one")
+
+
+def surface_times(scans, dev):
+    """K9 on the card: gicp_covariances and estimate_normals of one
+    32,768-point scan (CUDA events, means of 5 after one warm-up), and the
+    host reads of one steady GICP registration (scan 3 onto scan 2, seeded
+    with the true relative pose)."""
+    cloud = scans[2].to(dev)
+    out = {}
+    for name, fn in (("gicp_covariances", lambda: surface.gicp_covariances(cloud)),
+                     ("estimate_normals", lambda: surface.estimate_normals(cloud))):
+        fn()
+        out[name] = _time_ms(fn, 5)
+    reg = PairwiseRegistrar(config=SLAM_CONFIG, max_corr_dist=SLAM_GATE, method="gicp")
+    x0 = reg.register(scans[2].to(dev), scans[1].to(dev)).x
+    syncs = _syncs_of(lambda: reg.register(scans[3].to(dev), scans[2].to(dev), x0=x0).x.cpu())
+    print(f"K9 at {cloud.shape[0]} points (knn k=10 + PCA, plain PyTorch; CUDA events, mean of 5): gicp_covariances "
+          f"{out['gicp_covariances']:.3f} ms, estimate_normals {out['estimate_normals']:.3f} ms; one steady GICP pair "
+          f"(two covariance builds, the solve): {syncs} host reads (stream syncs, torch.profiler)")
+    out["gicp_pair_syncs"] = syncs
+    return out
+
+
+def run_fixed_lag(scans, gt, dev):
+    """scan_slam_fixed_lag over the first FIXED_LAG_SCANS scans (window
+    FIXED_LAG_WINDOW, icp, the bench's registrar settings)."""
+    seq = [sc.to(dev) for sc in scans[:FIXED_LAG_SCANS]]
+    with _slam_stages() as (walls, regs, solves):
+        k_nn.LAUNCHES = k_expand.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses = odometry.scan_slam_fixed_lag(seq, window=FIXED_LAG_WINDOW, method="icp", config=SLAM_CONFIG,
+                                             nn_backend="auto", max_corr_dist=SLAM_GATE).cpu()
+        wall_s = time.perf_counter() - t0
+        k5, k6 = k_nn.LAUNCHES, k_expand.LAUNCHES
+    pairs, outer, _, status = _registrations(regs)
+    pgo_status = [Status(int(out.status)) for _, _, out in solves]
+    ate = float(ate_rmse(poses.double(), gt[:FIXED_LAG_SCANS].double(), align=False))
+    print(f"scan_slam_fixed_lag, window {FIXED_LAG_WINDOW}, {len(seq)} scans: wall {wall_s:.4f} s, "
+          f"{wall_s / len(seq) * 1e3:.2f} ms a scan; {len(pairs)} registrations; PGO solves {len(solves)} "
+          f"({sum(walls['pgo']):.4f} s, statuses {sorted({s.name for s in pgo_status})}), marginalizations "
+          f"{len(walls['marg'])} ({sum(walls['marg']):.4f} s); K5 {k5}, K6 {k6}; ATE {ate:.6f} m (align=False)")
+    if poses.shape != (FIXED_LAG_SCANS, 6) or not torch.isfinite(poses).all():
+        raise AssertionError(f"fixed-lag SLAM: poses {tuple(poses.shape)}")
+    if Status.NUMERIC_ERROR in status + pgo_status or not ate < SLAM_ATE_BOUND:
+        raise AssertionError(f"fixed-lag SLAM: ATE {ate}, statuses {set(status)}, {set(pgo_status)}")
+    if len(walls["marg"]) != FIXED_LAG_SCANS - FIXED_LAG_WINDOW or k5 < sum(outer):
+        raise AssertionError(f"fixed-lag SLAM: {len(walls['marg'])} marginalizations, K5 {k5}")
+    return dict(wall_s=wall_s, ate=ate, k5=k5, k6=k6)
+
+
+def _relative(a, b):
+    """params6 of T_a⁻¹ T_b (float64 CPU tensors)."""
+    E = torch.linalg.inv(se3.transform_from_params6(a)) @ se3.transform_from_params6(b)
+    return torch.cat([E[:3, 3], so3.log(E[:3, :3])])
+
+
+def _compose(a, b):
+    T = se3.transform_from_params6(a) @ se3.transform_from_params6(b)
+    return torch.cat([T[:3, 3], so3.log(T[:3, :3])])
+
+
+def make_ring_graph(n, seed=0, drift=0.03, dtype=torch.float64, device="cpu"):
+    """tests/test_pose_graph.make_ring_graph in numpy and the port's lie, in
+    the same rng call order: poses on a ring, the odometry chain and two
+    loop closures (n−1 → 0, 0 → n/2) with exact measurements, and an
+    initial guess integrating the odometry with noise. Returns (PoseGraph,
+    ground-truth poses)."""
+    rng = np.random.default_rng(seed)
+    step = torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0, 2 * np.pi / n], dtype=torch.float64)
+    gt = [torch.zeros(6, dtype=torch.float64)]
+    for _ in range(n - 1):
+        gt.append(_compose(gt[-1], step))
+    edge_i = list(range(n - 1)) + [n - 1, 0]
+    edge_j = list(range(1, n)) + [0, n // 2]
+    meas = [_relative(gt[i], gt[j]) for i, j in zip(edge_i, edge_j)]
+    init = [gt[0]]
+    for k in range(n - 1):
+        init.append(_compose(init[-1], meas[k] + drift * torch.as_tensor(rng.normal(size=6))))
+    e = len(edge_i)
+    graph = pose_graph.PoseGraph(
+        poses=torch.stack(init).to(dtype=dtype, device=device),
+        edge_i=torch.tensor(edge_i, device=device),
+        edge_j=torch.tensor(edge_j, device=device),
+        measurements=torch.stack(meas).to(dtype=dtype, device=device),
+        information=torch.eye(6, dtype=dtype, device=device).expand(e, 6, 6).contiguous(),
+        n_fixed=1,
+    )
+    return graph, torch.stack(gt)
+
+
+def run_ring(dev, n, bound):
+    """The n-pose ring graph in float32, by CG and by the dense Cholesky;
+    each must end below bound × its start cost."""
+    graph, _ = make_ring_graph(n, RING_SEED, RING_DRIFT, dtype=torch.float32, device=dev)
+    start = float(pose_graph.compute_cost(graph))
+    out = {}
+    for name, config in RING_CONFIGS.items():
+        reads = pose_graph.HOST_READS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pose_graph.solve_pgo(graph, config)
+        cost = float(res.cost)
+        wall_s = time.perf_counter() - t0
+        out[name] = dict(wall_s=wall_s, iterations=int(res.iterations), reads=pose_graph.HOST_READS - reads,
+                         ratio=cost / start)
+        print(f"PGO ring, {n} poses, {graph.edge_i.shape[0]} edges, float32, solver={name!r}"
+              f"{f' ({6 * n}² H)' if name == 'dense' else f', {config.cg_iterations} CG iterations a step'}: wall "
+              f"{wall_s:.4f} s, {Status(int(res.status)).name}, iterations {int(res.iterations)}, host reads "
+              f"{out[name]['reads']}, cost {start:.6e} -> {cost:.6e} ({cost / start:.3e} of the start; bound {bound:g})")
+        if not np.isfinite(cost) or not cost < bound * start or int(res.status) == Status.NUMERIC_ERROR:
+            raise AssertionError(f"PGO ring {n} {name}: cost {start} -> {cost}, {Status(int(res.status)).name}")
+        out[name]["poses"] = res.poses
+    out["max_gap"] = float((out["cg"].pop("poses") - out["dense"].pop("poses")).abs().max())
+    print(f"PGO ring, {n} poses: max|poses cg - poses dense| {out['max_gap']:.3e}")
+    return out
 
 
 def main():
@@ -1010,6 +1352,15 @@ def main():
     if not d_rel <= SLAM_REL_TOL:
         raise AssertionError(f"SLAM: the grid and auto runs' relative poses differ by {d_rel}")
 
+    slam = {}
+    for method in ("icp", "point2plane", "gicp"):
+        result, graph, config, slam[method] = run_scan_slam(scans, gt, method, dev)
+        if method == "icp":
+            pgo_repeat_and_cg(graph, config, result)
+    k9 = surface_times(scans, dev)
+    lag = run_fixed_lag(scans, gt, dev)
+    ring = {n: run_ring(dev, n, bound) for n, bound in RING_BOUNDS.items()}
+
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=n_launches,
@@ -1020,13 +1371,18 @@ def main():
     kernels = [
         entry("nn_bruteforce", "moptimizer_0_tpu_torch/csrc/nn_search.cu",
               "moptimizer_0_tpu/ops/nn_search.py:136", launches, max_abs_err, nn_t, nn_bound,
-              splits=nn_splits, slam_launches=dict(grid=k5_grid, auto=k5_auto)),
+              splits=nn_splits, slam_launches=dict(grid=k5_grid, auto=k5_auto),
+              scan_slam_launches={m: r["k5"] for m, r in slam.items()}, fixed_lag_launches=lag["k5"]),
         entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
               "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound,
-              slam_launches=dict(grid=k6_grid, auto=k6_auto)),
+              slam_launches=dict(grid=k6_grid, auto=k6_auto),
+              scan_slam_launches={m: r["k6"] for m, r in slam.items()}, fixed_lag_launches=lag["k6"]),
         entry("schur_pairs", "moptimizer_0_tpu_torch/csrc/schur.cu",
               "benchmarks/schur_pallas_ab.py:38", s_launches, s_err, s_t, s_bound),
     ]
+    print(json.dumps({"slam": {
+        m: {k: v for k, v in r.items() if k != "reg"} for m, r in slam.items()
+    } | {"k9_ms": k9, "fixed_lag": lag, "ring": ring}}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

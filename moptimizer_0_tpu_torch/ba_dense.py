@@ -36,7 +36,7 @@ from moptimizer_0_tpu_torch import ba
 from moptimizer_0_tpu_torch.core.solver import Status
 from moptimizer_0_tpu_torch.lie import so3
 from moptimizer_0_tpu_torch.ops import block_cholesky
-from moptimizer_0_tpu_torch.ops import schur
+from moptimizer_0_tpu_torch.ops import schur, segment_sum
 
 
 def _np(t):
@@ -101,10 +101,11 @@ class GroupedBA:
         return {}
 
     def camera_plan(self, C):
-        """``_camera_plan`` of this grid's camera ids and mask for C cameras,
-        built on first use and kept (call it on a segment's view)."""
+        """The camera reductions' plan (``ops.segment_sum.segment_plan``) of
+        this grid's camera ids and mask for C cameras, built on first use and
+        kept (call it on a segment's view)."""
         if C not in self._camera_plans:
-            self._camera_plans[C] = _camera_plan(self.cam_ids, self.mask, C)
+            self._camera_plans[C] = segment_sum.segment_plan(self.cam_ids, self.mask, C)
         return self._camera_plans[C]
 
     def schur_plan(self, C):
@@ -118,57 +119,6 @@ class GroupedBA:
 
 def _seg_views(grouped):
     return grouped.views
-
-
-# Items one chunk of the camera reductions sums: a level's gather holds at
-# most n + C·_CAMERA_CHUNK items for n items, whatever one camera's count.
-_CAMERA_CHUNK = 32
-
-
-def _camera_plan(cam_ids, mask, C):
-    """The camera reductions' plan of an (L, K) grid for C cameras:
-    (levels, C), each level an (idx, real) pair of (n_chunks, w) tensors.
-
-    Level 0 gathers each camera's real slots (flat slot indices, in grid
-    order: a stable sort) in chunks of w ≤ _CAMERA_CHUNK; each later level
-    gathers the chunk sums of the level before, camera by camera, until
-    every camera has one chunk. The last level has C rows in camera order (a
-    camera with no slot gets one chunk of padding). Two host reads a level,
-    and max(1, ⌈log₃₂ n_max⌉) levels for n_max the busiest camera's slots."""
-    real = mask.reshape(-1) > 0
-    if C == 0 or real.numel() == 0:
-        return [], C
-    key = torch.where(real, cam_ids.reshape(-1).long(), C)  # padding sorts last
-    items = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=C + 1)[:C]
-    levels = []
-    while True:
-        n_max = int(counts.max())
-        w = max(1, min(_CAMERA_CHUNK, n_max))
-        chunks = torch.clamp((counts + w - 1) // w, min=1)
-        ends = torch.cumsum(chunks, 0)
-        n_chunks = int(ends[-1])
-        cam = torch.repeat_interleave(torch.arange(C, device=key.device), chunks, output_size=n_chunks)
-        rank = torch.arange(n_chunks, device=key.device) - (ends - chunks)[cam]  # chunk within its camera
-        pos = rank[:, None] * w + torch.arange(w, device=key.device)  # item within its camera
-        first = (torch.cumsum(counts, 0) - counts)[cam, None]
-        levels.append((items[(first + pos).clamp(max=items.numel() - 1)], pos < counts[cam, None]))
-        if n_max <= w:
-            return levels, C
-        items, counts = torch.arange(n_chunks, device=key.device), chunks
-
-
-def _camera_sum(plan, vals):
-    """Σ over each camera's real slots of vals (n_slots, q) → (C, q): each
-    level of the plan a gather into (q, n_chunks, w) and a sum along its
-    last, contiguous axis, in one fixed order."""
-    levels, C = plan
-    if not levels:
-        return vals.new_zeros(C, vals.shape[1])
-    x = vals.T
-    for idx, real in levels:
-        x = torch.sum(torch.where(real, x[:, idx], 0.0), dim=-1)
-    return x.T
 
 
 def _plan_segments(counts_sorted_desc, max_segments):
@@ -433,8 +383,8 @@ def _gn_blocks_grouped(grouped, r, A, B, C, loss):
     plan = grouped.camera_plan(C)
     AtA = ba._outer_rows(Aw, A)  # (L,K,6,6)
     Ar = A[..., 0, :] * rw[..., 0, None] + A[..., 1, :] * rw[..., 1, None]  # (L,K,6)
-    U = _camera_sum(plan, AtA.reshape(-1, 36)).reshape(C, 6, 6)
-    g = _camera_sum(plan, Ar.reshape(-1, 6))
+    U = segment_sum.segment_sum(plan, AtA.reshape(-1, 36)).reshape(C, 6, 6)
+    g = segment_sum.segment_sum(plan, Ar.reshape(-1, 6))
     V = torch.sum(ba._outer_rows(Bw, B), dim=1)
     W = ba._outer_rows(Aw, B)
     h = torch.sum(B[..., 0, :] * rw[..., 0, None] + B[..., 1, :] * rw[..., 1, None], dim=1)
@@ -538,7 +488,7 @@ def _solve_delta_dense(grouped, C, U, V, W, g, h, lam, fixed_mask, chunk, schur_
     red = torch.zeros_like(g)
     for (sl, seg), W_s in zip(views, W_segs):
         Wt = torch.sum(W_s * t[sl][:, None, None, :], dim=-1)  # (L_s,K_s,6)
-        red = red + _camera_sum(seg.camera_plan(C), Wt.reshape(-1, 6))
+        red = red + segment_sum.segment_sum(seg.camera_plan(C), Wt.reshape(-1, 6))
     rhs = -(g - red)
     # into S's i·C + c order, and the solution back
     rhs = (rhs * fixed_mask[:, None]).T.reshape(-1)

@@ -110,7 +110,7 @@ def compute_block_costs(block_or_problem, x, accum_dtype=None):
 def _jacobian_fd(block, x, r0):
     """Forward differences, h_j = √ε·|x_j| floored at √ε; one full
     prepare_fn + residual_fn evaluation per column. (N, O, P)."""
-    eps = torch.tensor(torch.finfo(x.dtype).eps, dtype=x.dtype, device=x.device)
+    eps = torch.full((), torch.finfo(x.dtype).eps, dtype=x.dtype, device=x.device)
     min_step = torch.sqrt(eps)
     h = min_step * torch.abs(x)
     h = torch.where(h == 0.0, min_step, h)

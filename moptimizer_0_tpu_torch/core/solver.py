@@ -117,6 +117,11 @@ def _nan(shape, dtype, device):
     return torch.full(shape, torch.nan, dtype=dtype, device=device)
 
 
+def _full(value, dtype, device):
+    """A 0-dim tensor of value filled on the device, with no host copy."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def _outer_iteration(problem, x, lam, config, manifold=None):
     """One outer LM iteration.
 
@@ -127,8 +132,10 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
     dtype = _trace_dtype(config, x)
     dev = x.device
     eps = torch.finfo(dtype).eps
-    sqrt_eps = torch.sqrt(torch.tensor(eps, dtype=dtype, device=dev))
-    eight_eps = 8 * torch.tensor(eps, dtype=dtype, device=dev)
+    # constants filled on the device: torch.tensor(scalar, device=cuda)
+    # copies from pageable host memory and synchronises
+    sqrt_eps = torch.sqrt(_full(eps, dtype, dev))
+    eight_eps = 8 * _full(eps, dtype, dev)
 
     problem = problem.update(x)
     y0, H, b = linearize(problem, x, mode=config.diff_mode, accum_dtype=config.accum_dtype)
@@ -142,9 +149,9 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
 
     n_inner = config.inner_iterations
     inner_trace = _trial_rows((n_inner,), dtype, dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    nu = _full(2.0, dtype, dev)
     y = y0
-    rho = torch.tensor(torch.nan, dtype=dtype, device=dev)
+    rho = _full(torch.nan, dtype, dev)
     status = Status.MAXIMUM_ITERATIONS_REACHED
     terminal = converged0
     accepted = False
@@ -197,9 +204,7 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
 
         if accept:
             x_out = xi
-            gain = torch.maximum(
-                torch.tensor(1.0 / 3.0, dtype=dtype, device=dev), 1.0 - (2.0 * rho - 1.0) ** 3
-            )
+            gain = torch.maximum(_full(1.0 / 3.0, dtype, dev), 1.0 - (2.0 * rho - 1.0) ** 3)
             lam = lam * gain
         elif retry:
             lam = nu * lam
@@ -218,7 +223,7 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
         rho=rho,
         lam=lam,
         nu=nu,
-        accepted=torch.tensor(accepted, device=dev),
+        accepted=_full(accepted, torch.bool, dev),
         inner=inner_trace,
     )
     if config.trace_block_costs:
@@ -276,7 +281,7 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
     n_it = config.max_iterations
     trace = _new_trace((), config, len(problem.blocks), dtype, dev)
 
-    lam = torch.tensor(-1.0, dtype=dtype, device=dev)
+    lam = _full(-1.0, dtype, dev)
     status = Status.MAXIMUM_ITERATIONS_REACHED
     it = 0
     while it < n_it:
@@ -291,8 +296,8 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
 
     return LMResult(
         x=x,
-        status=torch.tensor(int(status), dtype=torch.int32, device=dev),
-        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        status=_full(int(status), torch.int32, dev),
+        iterations=_full(it, torch.int32, dev),
         cost=compute_cost(problem, x, accum_dtype=config.accum_dtype),
         lam=lam,
         trace=trace,

@@ -15,6 +15,7 @@ from moptimizer_0_tpu_torch.ba_dense import DenseBAConfig
 from moptimizer_0_tpu_torch.core import loss as _loss
 from moptimizer_0_tpu_torch.core.solver import LMConfig
 from moptimizer_0_tpu_torch.ops.grid_nn import HashGrid
+from moptimizer_0_tpu_torch.pose_graph import PGOConfig, PGOPrior, PoseGraph
 from moptimizer_0_tpu_torch.utils.device import require
 
 _LOSSES = {
@@ -84,6 +85,38 @@ def dense_config_from_fields(fields):
     return DenseBAConfig(**fields)
 
 
+def pose_graph_from_numpy(poses, edge_i, edge_j, measurements, information, n_fixed=1, prior=None,
+                          loss=None, device="cuda"):
+    """The port's PoseGraph from the numpy arrays of a JAX PoseGraph's fields
+    (``np.asarray`` of each); edge indices become int64, floats keep their
+    dtype. ``prior``: a dict of the PGOPrior's arrays (x_ref, sqrt_info,
+    offset, idx) or None; ``loss`` a port loss or None. On the card unless
+    ``device`` says otherwise."""
+    device = require(device)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    if prior is not None:
+        prior = PGOPrior(x_ref=t(prior["x_ref"]), sqrt_info=t(prior["sqrt_info"]), offset=t(prior["offset"]),
+                         idx=t(prior["idx"], torch.int64))
+    return PoseGraph(
+        poses=t(poses),
+        edge_i=t(edge_i, torch.int64),
+        edge_j=t(edge_j, torch.int64),
+        measurements=t(measurements),
+        information=t(information),
+        loss=loss,
+        prior=prior,
+        n_fixed=int(n_fixed),
+    )
+
+
+def pgo_config_from_fields(fields):
+    """The port's PGOConfig from ``dataclasses.asdict`` of the JAX one."""
+    return PGOConfig(**fields)
+
+
 def _to_numpy(value):
     if isinstance(value, dict):
         return {k: _to_numpy(v) for k, v in value.items()}
@@ -91,6 +124,6 @@ def _to_numpy(value):
 
 
 def result_to_numpy(result):
-    """An LMResult or a BAResult as a dict of numpy arrays, one per field,
-    the (nested) trace as a dict of them."""
+    """An LMResult, a BAResult or a PGOResult as a dict of numpy arrays, one
+    per field, the (nested) trace as a dict of them."""
     return {f.name: _to_numpy(getattr(result, f.name)) for f in dataclasses.fields(result)}

@@ -91,24 +91,26 @@ def log(R):
     4w², 4x², 4y², 4z²), then w = θ·axis with θ = 2·atan2(‖q_v‖, q_w): well
     conditioned at θ ≈ 0 and at θ ≈ π, where θ/(2 sin θ)·vee(R − Rᵀ) is 0/0.
     """
-    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
-    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
-    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    # every entry as (..., 1), never 0-dim (see _theta_sq): jacfwd of a
+    # float32 log then stays float32
+    m00, m01, m02 = R[..., 0, 0:1], R[..., 0, 1:2], R[..., 0, 2:3]
+    m10, m11, m12 = R[..., 1, 0:1], R[..., 1, 1:2], R[..., 1, 2:3]
+    m20, m21, m22 = R[..., 2, 0:1], R[..., 2, 1:2], R[..., 2, 2:3]
     qw2 = 1.0 + m00 + m11 + m22
     qx2 = 1.0 + m00 - m11 - m22
     qy2 = 1.0 - m00 + m11 - m22
     qz2 = 1.0 - m00 - m11 + m22
-    cands = torch.stack([qw2, qx2, qy2, qz2], dim=-1)
+    cands = torch.cat([qw2, qx2, qy2, qz2], dim=-1)
     pivot = torch.argmax(cands, dim=-1)
     # the candidates sum to 4, so the largest is ≥ 1 and s is nonzero
-    s = torch.sqrt(torch.clamp_min(torch.amax(cands, dim=-1), 1.0))  # 2·|pivot component|
+    s = torch.sqrt(torch.clamp_min(torch.amax(cands, dim=-1, keepdim=True), 1.0))  # 2·|pivot component|
     d = 0.5 / s
     q_by_pivot = torch.stack(
         [
-            torch.stack([0.5 * s, (m21 - m12) * d, (m02 - m20) * d, (m10 - m01) * d], dim=-1),
-            torch.stack([(m21 - m12) * d, 0.5 * s, (m10 + m01) * d, (m02 + m20) * d], dim=-1),
-            torch.stack([(m02 - m20) * d, (m10 + m01) * d, 0.5 * s, (m21 + m12) * d], dim=-1),
-            torch.stack([(m10 - m01) * d, (m02 + m20) * d, (m21 + m12) * d, 0.5 * s], dim=-1),
+            torch.cat([0.5 * s, (m21 - m12) * d, (m02 - m20) * d, (m10 - m01) * d], dim=-1),
+            torch.cat([(m21 - m12) * d, 0.5 * s, (m10 + m01) * d, (m02 + m20) * d], dim=-1),
+            torch.cat([(m02 - m20) * d, (m10 + m01) * d, 0.5 * s, (m21 + m12) * d], dim=-1),
+            torch.cat([(m10 - m01) * d, (m02 + m20) * d, (m21 + m12) * d, 0.5 * s], dim=-1),
         ],
         dim=-2,
     )

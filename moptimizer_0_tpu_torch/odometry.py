@@ -1,25 +1,38 @@
-"""Scan odometry: the sequential registration front end.
+"""Scan odometry and mini-SLAM: the sequential registration front end and the
+pose-graph back end.
 
-PyTorch counterpart of the front-end half of ``moptimizer_0_tpu.odometry``:
-consecutive scans are registered with ICP (one ``PairwiseRegistrar`` for the
-whole stream) and the relative transforms are chained into a trajectory.
-The pose-graph back end (``scan_slam``, ``scan_slam_fixed_lag``) comes with
-the ``pose_graph`` slice (ROADMAP.md); this module does not need it.
+PyTorch counterpart of ``moptimizer_0_tpu.odometry``: consecutive scans are
+registered with ICP, point-to-plane ICP or GICP (one ``PairwiseRegistrar``
+for the whole stream), the relative transforms are chained into a
+trajectory, and loop-closure registrations feed a pose-graph optimization
+(``pose_graph``) that redistributes the drift; ``scan_slam_fixed_lag`` keeps
+a sliding window and marginalizes the oldest pose out of it.
 
 Conventions: world pose of scan k is P_k (params6) with P_0 = I. Registering
-scan j onto scan i returns T_ij with p_i ≈ T_ij · p_j.
+scan j onto scan i returns T_ij with p_i ≈ T_ij · p_j, the pose-graph
+measurement of the edge i → j.
 """
+
+import dataclasses
 
 import torch
 
+from moptimizer_0_tpu_torch import pose_graph as pgo
 from moptimizer_0_tpu_torch.lie import se3, so3
 from moptimizer_0_tpu_torch.registration import (
+    METHODS,
     PairwiseRegistrar,
-    _check_ported,
     default_pipeline_config,
+    gicp,
     icp,
+    point2plane,
 )
 from moptimizer_0_tpu_torch.utils.device import as_input
+
+_NO_KWARGS = (
+    "registrar=... carries its own search settings; extra kwargs {} would be "
+    "silently ignored — bake them into the PairwiseRegistrar instead"
+)
 
 
 def _params6_of(T):
@@ -50,17 +63,12 @@ def register_pair(src, tgt, *, x0=None, method="icp", config=None, registrar=Non
     x0 seeds the solve. Without a seed and with a gate (max_corr_dist), a
     coarse ungated pass runs first. ``registrar``: a PairwiseRegistrar to
     reuse; it carries its own settings, so extra kwargs or another config
-    beside it raise."""
-    _check_ported(method)
+    beside it raise. ``method``: "icp", "point2plane" or "gicp"."""
     if registrar is not None:
         if registrar.method != method:
             raise ValueError(f"registrar was built for method={registrar.method!r}, got {method!r}")
         if kwargs:
-            raise ValueError(
-                "registrar=... carries its own search settings; extra kwargs "
-                f"{sorted(kwargs)} would be silently ignored — bake them into "
-                "the PairwiseRegistrar instead"
-            )
+            raise ValueError(_NO_KWARGS.format(sorted(kwargs)))
         if config is not None and config != registrar.config:
             raise ValueError(
                 "registrar=... was built with a different LMConfig than the "
@@ -68,21 +76,22 @@ def register_pair(src, tgt, *, x0=None, method="icp", config=None, registrar=Non
             )
         res = registrar.register(src, tgt, x0=x0)
         return res.x, res
-    if method != "icp":
+    if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
+    solver = dict(icp=icp, gicp=gicp, point2plane=point2plane)[method]
     if config is None:
         config = default_pipeline_config()
     if x0 is None and kwargs.get("max_corr_dist") is not None:
         coarse = dict(kwargs, max_corr_dist=None)
-        x0 = icp(src, tgt, config=config, **coarse).x
-    res = icp(src, tgt, x0, config=config, **kwargs)
+        x0 = solver(src, tgt, config=config, **coarse).x
+    res = solver(src, tgt, x0, config=config, **kwargs)
     return res.x, res
 
 
 def make_registrar(method, config, **kwargs):
-    """PairwiseRegistrar for scan streams, or None when not applicable."""
-    if method != "icp":
-        _check_ported(method)
+    """PairwiseRegistrar for scan streams, or None for a method it does not
+    know (``register_pair`` then raises)."""
+    if method not in METHODS:
         return None
     if config is None:
         config = default_pipeline_config()
@@ -102,15 +111,10 @@ def scan_odometry(scans, *, method="icp", config=None, seed_motion=True, registr
     flag the first flagged pair and every later one (their seeds chained
     through it) are registered again synchronously.
     """
-    _check_ported(method)
     if registrar is None:
         registrar = make_registrar(method, config, **kwargs)
     elif kwargs:
-        raise ValueError(
-            "registrar=... carries its own search settings; extra kwargs "
-            f"{sorted(kwargs)} would be silently ignored — bake them into "
-            "the PairwiseRegistrar instead"
-        )
+        raise ValueError(_NO_KWARGS.format(sorted(kwargs)))
     first = as_input(scans[0])
     K = len(scans)
     if K <= 1:
@@ -162,3 +166,111 @@ def scan_odometry(scans, *, method="icp", config=None, seed_motion=True, registr
             prev_rel = rel
     rels = torch.stack(rels)
     return chain_poses(rels), rels
+
+
+def scan_slam(
+    scans,
+    *,
+    method="icp",
+    loop_closures=(),
+    config=None,
+    pgo_config=None,
+    information_scale=1.0,
+    loop_information_scale=1.0,
+    **kwargs,
+):
+    """Odometry, loop-closure registrations and pose-graph optimization.
+
+    loop_closures: (i, j) scan-index pairs to register directly (scan j onto
+    scan i), each seeded with the odometry's P_i⁻¹ · P_j. One registrar
+    serves the front end and the closures; kwargs go into it and nowhere
+    else. Returns (PGOResult, the odometry's poses (K, 6))."""
+    registrar = make_registrar(method, config, **kwargs)
+    rest = {} if registrar else kwargs
+    poses_odo, rels = scan_odometry(scans, method=method, config=config, registrar=registrar, **rest)
+    K = len(scans)
+    dtype, dev = poses_odo.dtype, poses_odo.device
+
+    edge_i = list(range(K - 1))
+    edge_j = list(range(1, K))
+    meas = [rels[k] for k in range(K - 1)]
+    scales = [information_scale] * (K - 1)
+    for i, j in loop_closures:
+        Ti = se3.transform_from_params6(poses_odo[i])
+        Tj = se3.transform_from_params6(poses_odo[j])
+        z0 = _params6_of(torch.linalg.inv_ex(Ti)[0] @ Tj)
+        z, _ = register_pair(scans[j], scans[i], x0=z0, method=method, config=config, registrar=registrar, **rest)
+        edge_i.append(i)
+        edge_j.append(j)
+        meas.append(z)
+        scales.append(loop_information_scale)
+
+    eye = torch.eye(6, dtype=torch.float64)
+    graph = pgo.PoseGraph(
+        poses=poses_odo,
+        edge_i=torch.as_tensor(edge_i, device=dev),
+        edge_j=torch.as_tensor(edge_j, device=dev),
+        measurements=torch.stack(meas),
+        information=torch.stack([s * eye for s in scales]).to(dtype=dtype, device=dev),
+        n_fixed=1,
+    )
+    if pgo_config is None:
+        pgo_config = pgo.PGOConfig(max_iterations=30)
+    return pgo.solve_pgo(graph, pgo_config), poses_odo
+
+
+def scan_slam_fixed_lag(
+    scans,
+    *,
+    window=8,
+    method="icp",
+    config=None,
+    pgo_config=None,
+    information_scale=1.0,
+    **kwargs,
+):
+    """Streaming fixed-lag SLAM: bounded state, information kept.
+
+    Per scan: register it against the previous scan (one registrar for the
+    stream), append the odometry edge to a sliding window of poses, refine
+    the window with PGO, and once the window holds more than ``window``
+    poses marginalize the oldest out (``pose_graph.marginalize_oldest``): its
+    pose is final and its information becomes a prior on the poses that
+    stay. Returns the poses (K, 6): the finalized ones, then the window's."""
+    registrar = make_registrar(method, config, **kwargs)
+    rest = {} if registrar else kwargs
+    if pgo_config is None:
+        pgo_config = pgo.PGOConfig(max_iterations=15)
+    first = as_input(scans[0])
+    dtype, dev = first.dtype, first.device
+
+    finalized = []
+    graph = pgo.PoseGraph(
+        poses=first.new_zeros((1, 6)),
+        edge_i=torch.zeros(0, dtype=torch.int64, device=dev),
+        edge_j=torch.zeros(0, dtype=torch.int64, device=dev),
+        measurements=first.new_zeros((0, 6)),
+        information=first.new_zeros((0, 6, 6)),
+        n_fixed=1,
+    )
+    info = information_scale * torch.eye(6, dtype=dtype, device=dev)
+    prev_rel = None
+    for k in range(1, len(scans)):
+        rel, _ = register_pair(scans[k], scans[k - 1], x0=prev_rel, method=method, config=config,
+                               registrar=registrar, **rest)
+        prev_rel = rel
+        W = graph.poses.shape[0]
+        ends = torch.arange(W - 1, W + 1, device=dev)
+        graph = dataclasses.replace(
+            graph,
+            poses=torch.cat([graph.poses, _compose(graph.poses[-1], rel)[None]]),
+            edge_i=torch.cat([graph.edge_i, ends[:1]]),
+            edge_j=torch.cat([graph.edge_j, ends[1:]]),
+            measurements=torch.cat([graph.measurements, rel[None]]),
+            information=torch.cat([graph.information, info[None]]),
+        )
+        graph = dataclasses.replace(graph, poses=pgo.solve_pgo(graph, pgo_config).poses)
+        if graph.poses.shape[0] > window:
+            finalized.append(graph.poses[0])
+            graph = pgo.marginalize_oldest(graph, 1)
+    return torch.stack(finalized + list(graph.poses))

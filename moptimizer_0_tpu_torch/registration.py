@@ -1,16 +1,19 @@
-"""ICP registration: correspondence search wired into the LM loop.
+"""Registration: correspondence search wired into the LM loop.
 
 * per outer iteration (``update_fn``): warp the source cloud with the current
   estimate, find each warped point's nearest target, gather the matches, and
   mask those beyond ``max_corr_dist``;
 * per evaluation (``prepare_fn``): params6 → 4×4 transform.
 
-``icp`` solves one pair; ``icp_batched`` solves a fleet of B same-shape pairs
-in one batched LM loop, whose ``batch_update_fn`` searches every lane's
+``icp`` solves one pair point to point; ``point2plane`` and ``gicp`` solve it
+against the surface statistics of ``ops.surface`` (target normals; both
+clouds' GICP covariances). ``icp_batched`` solves a fleet of B same-shape
+pairs in one batched LM loop, whose ``batch_update_fn`` searches every lane's
 correspondences with one launch of the expansion kernel K6.
 ``PairwiseRegistrar`` registers the pairs of a scan stream (the SLAM front
-end), searching through the hash grid (``ops.grid_nn``) or brute force.
-Inputs that are not tensors go to the card (``utils.device``).
+end) with any of the three methods, searching through the hash grid
+(``ops.grid_nn``) or brute force. Inputs that are not tensors go to the card
+(``utils.device``).
 """
 
 import math
@@ -25,6 +28,7 @@ from moptimizer_0_tpu_torch.core.solver import (
     levenberg_marquardt_batched,
 )
 from moptimizer_0_tpu_torch.lie import se3
+from moptimizer_0_tpu_torch.models.gicp import gicp_block
 from moptimizer_0_tpu_torch.ops.grid_nn import (
     build_hash_grid,
     build_hash_grid_device,
@@ -34,6 +38,7 @@ from moptimizer_0_tpu_torch.ops.grid_nn import (
 )
 from moptimizer_0_tpu_torch.ops.icp_linearize import fused_point2point_linearizer
 from moptimizer_0_tpu_torch.ops.nn_search import nearest_neighbors
+from moptimizer_0_tpu_torch.ops.surface import estimate_normals, gicp_covariances
 from moptimizer_0_tpu_torch.utils.device import as_input
 from moptimizer_0_tpu_torch.utils.stats import median as _median
 
@@ -47,6 +52,9 @@ GRID_DEVICE_BUILD_MIN_TARGETS = 100_000
 
 # Points a cloud keeps for a coarse seeding pass (a deterministic stride).
 COARSE_MAX_POINTS = 4096
+
+# The registration methods of PairwiseRegistrar and the odometry entry points.
+METHODS = ("icp", "gicp", "point2plane")
 
 
 def default_pipeline_config():
@@ -114,6 +122,12 @@ def _residual(T, d):
     return warped - d["matched"], d["valid"]
 
 
+def _warp(x, src):
+    """src (N, 3) under the transform of params6 x."""
+    T = se3.transform_from_params6(x)
+    return src @ T[:3, :3].T + T[:3, 3]
+
+
 def _gate(d2, max_corr_dist):
     """Valid matches: within max_corr_dist, or with a finite d² without one."""
     if max_corr_dist is None:
@@ -122,12 +136,18 @@ def _gate(d2, max_corr_dist):
     return d2 < torch.full((), max_corr_dist, dtype=d2.dtype, device=d2.device) ** 2
 
 
-def _take(cloud, idx):
-    """cloud[..., idx, :] with the JAX package's indexing: the grid's idx −1
-    ("nothing within the cell") wraps to the last point, a row that the gate
-    marks invalid. cloud (..., M, 3), idx (..., N)."""
+def _wrap(idx, m):
+    """idx as int64 with the JAX package's indexing: the grid's idx −1
+    ("nothing within the cell") wraps to the last of m rows, a row that the
+    gate marks invalid."""
     idx = idx.long()
-    idx = torch.where(idx < 0, idx + cloud.shape[-2], idx)
+    return torch.where(idx < 0, idx + m, idx)
+
+
+def _take(cloud, idx):
+    """cloud[..., idx, :] with idx −1 wrapped to the last point (``_wrap``).
+    cloud (..., M, 3), idx (..., N)."""
+    idx = _wrap(idx, cloud.shape[-2])
     return torch.gather(cloud, -2, idx[..., None].expand(*idx.shape, 3))
 
 
@@ -151,9 +171,7 @@ def _icp_block_with_searcher(
     tgt_cloud = torch.as_tensor(tgt_cloud)
 
     def update_fn(x, data):
-        T = se3.transform_from_params6(x)
-        warped = data["src"] @ T[:3, :3].T + T[:3, 3]
-        idx, d2 = searcher(warped)
+        idx, d2 = searcher(_warp(x, data["src"]))
         return dict(data, matched=_take(tgt_cloud, idx), valid=_gate(d2, max_corr_dist))
 
     return make_block(
@@ -176,6 +194,55 @@ def icp_block(src, tgt_cloud, *, loss=None, max_corr_dist=None, nn_backend="auto
     searcher = make_searcher(tgt_cloud, nn_backend, max_corr_dist)
     return _icp_block_with_searcher(
         src, tgt_cloud, searcher, loss=loss, max_corr_dist=max_corr_dist, weight_matrix=weight_matrix
+    )
+
+
+def _point2plane_residual(T, d):
+    warped = T[:3, :3] @ d["src"] + T[:3, 3]
+    return torch.dot(d["normal"], warped - d["matched"])[None], d["valid"]
+
+
+def _point2plane_block_with_searcher(src, tgt_cloud, tgt_normals, searcher, *, loss=None, max_corr_dist=None):
+    """Point-to-plane ICP block, r = n·(T·s − q): the matched target point q
+    and its normal n gathered again at every outer iteration."""
+    src = torch.as_tensor(src)
+    tgt_cloud = torch.as_tensor(tgt_cloud)
+    tgt_normals = torch.as_tensor(tgt_normals).to(src.dtype)
+    n = src.shape[0]
+
+    def update_fn(x, data):
+        idx, d2 = searcher(_warp(x, data["src"]))
+        return dict(data, matched=_take(tgt_cloud, idx), normal=_take(tgt_normals, idx),
+                    valid=_gate(d2, max_corr_dist))
+
+    data = _placeholder(src, tgt_cloud)
+    data["normal"] = tgt_normals[:n] if tgt_cloud.shape[0] >= n else tgt_normals[:1].expand(n, 3)
+    return make_block(
+        _point2plane_residual, data=data, prepare_fn=_prepare, update_fn=update_fn, loss=loss, name="point2plane"
+    )
+
+
+def _gicp_block_with_searcher(src, tgt_cloud, src_cov, tgt_cov, searcher, *, loss=None, max_corr_dist=None):
+    """GICP block (``models.gicp``) whose matches, and the matches'
+    covariances, are gathered again at every outer iteration."""
+    src = torch.as_tensor(src)
+    tgt_cloud = torch.as_tensor(tgt_cloud)
+    n = src.shape[0]
+
+    def update_fn(x, data):
+        idx, d2 = searcher(_warp(x, data["src"]))
+        return dict(data, matched=_take(tgt_cloud, idx), matched_cov=tgt_cov[_wrap(idx, tgt_cov.shape[0])],
+                    valid=_gate(d2, max_corr_dist))
+
+    big = tgt_cloud.shape[0] >= n
+    return gicp_block(
+        src,
+        tgt_cloud[:n] if big else src,
+        src_cov,
+        tgt_cov[:n] if big else src_cov,
+        loss=loss,
+        update_fn=update_fn,
+        valid=torch.ones(n, dtype=torch.bool, device=src.device),
     )
 
 
@@ -221,16 +288,8 @@ def _yaw_starts(src, tgt_cloud, B):
     return torch.cat([t0[None, :] + c_src[None, :] - Rc, torch.stack([zero, zero, ang], dim=1)], dim=1)
 
 
-def _check_ported(method):
-    """Raise for the JAX package's registration methods that are not ported."""
-    if method in ("point2plane", "gicp"):
-        raise NotImplementedError(
-            f"method={method!r} needs ops/surface.py and knn normals, not ported yet; see ROADMAP.md"
-        )
-
-
 class PairwiseRegistrar:
-    """Pairwise ICP for scan streams: the SLAM front end.
+    """Pairwise registration for scan streams: the SLAM front end.
 
     The JAX package's registrar exists to trace its solve once per stream;
     eager PyTorch has nothing to compile, and the registrar keeps the rest
@@ -252,8 +311,10 @@ class PairwiseRegistrar:
       version for CPU tensors (the JAX package's "pallas" on a TPU, "xla"
       elsewhere).
 
-    Only ``method="icp"`` is ported; "point2plane" and "gicp" need
-    ``ops/surface.py`` (ROADMAP.md).
+    ``method``: "icp" (point-to-point), "point2plane" (the target's normals
+    from ``k``-NN PCA, made once a pair) or "gicp" (both clouds' GICP
+    covariances with ``epsilon``, made once a pair). The coarse multistart is
+    point-to-point for every method.
 
     Usage::
 
@@ -263,15 +324,16 @@ class PairwiseRegistrar:
     """
 
     def __init__(self, *, config=None, loss=None, max_corr_dist=None, nn_backend="auto",
-                 method="icp", coarse_multistart="auto"):
-        _check_ported(method)
-        if method != "icp":
+                 method="icp", k=10, epsilon=1e-3, coarse_multistart="auto"):
+        if method not in METHODS:
             raise ValueError(f"unknown method {method!r}")
         self.config = default_pipeline_config() if config is None else config
         self.loss = loss
         self.max_corr_dist = max_corr_dist
         self.nn_backend = nn_backend
         self.method = method
+        self.k = k
+        self.epsilon = epsilon
         if coarse_multistart == "auto":
             coarse_multistart = 8 if max_corr_dist is not None else 0
         self.coarse_multistart = int(coarse_multistart)
@@ -287,25 +349,41 @@ class PairwiseRegistrar:
             return m >= GRID_AUTO_MIN_TARGETS and self.max_corr_dist is not None
         return False
 
-    def _solve(self, src, tgt_cloud, searcher, x0):
-        blk = _icp_block_with_searcher(src, tgt_cloud, searcher, loss=self.loss,
-                                       max_corr_dist=self.max_corr_dist)
+    def _solve(self, src, tgt_cloud, searcher, x0, covs):
+        """The method's block around ``searcher``, solved from x0. ``covs``:
+        ``_covs_for``'s surface statistics of the pair."""
+        kw = dict(loss=self.loss, max_corr_dist=self.max_corr_dist)
+        if self.method == "icp":
+            blk = _icp_block_with_searcher(src, tgt_cloud, searcher, **kw)
+        elif self.method == "point2plane":
+            blk = _point2plane_block_with_searcher(src, tgt_cloud, covs, searcher, **kw)
+        else:
+            blk = _gicp_block_with_searcher(src, tgt_cloud, *covs, searcher, **kw)
         return levenberg_marquardt(problem(blk), x0, self.config)
 
-    def _solve_grid(self, src, tgt_cloud, grid, x0):
-        return self._solve(src, tgt_cloud, lambda warped: grid_nearest_neighbors(warped, grid), x0)
+    def _solve_grid(self, src, tgt_cloud, grid, x0, covs):
+        return self._solve(src, tgt_cloud, lambda warped: grid_nearest_neighbors(warped, grid), x0, covs)
 
-    def _solve_grid_fused(self, src, tgt_cloud, x0, S, K, occ):
+    def _solve_grid_fused(self, src, tgt_cloud, x0, covs, S, K, occ):
         """Build at fixed capacities and solve, with no host read for the
         build: (result, device overflow flag)."""
         grid, overflow = build_hash_grid_fixed(tgt_cloud, self.max_corr_dist, S, K, occ)
-        return self._solve_grid(src, tgt_cloud, grid, x0), overflow
+        return self._solve_grid(src, tgt_cloud, grid, x0, covs), overflow
 
-    def _solve_brute(self, src, tgt_cloud, x0):
+    def _solve_brute(self, src, tgt_cloud, x0, covs):
         backend = "pallas" if tgt_cloud.is_cuda else "xla"
         return self._solve(
-            src, tgt_cloud, lambda warped: nearest_neighbors(warped, tgt_cloud, backend=backend), x0
+            src, tgt_cloud, lambda warped: nearest_neighbors(warped, tgt_cloud, backend=backend), x0, covs
         )
+
+    def _covs_for(self, src, tgt_cloud):
+        """The pair's surface statistics: (source, target) GICP covariances,
+        the target's normals, or None for "icp"."""
+        if self.method == "gicp":
+            return tuple(gicp_covariances(c, k=self.k, epsilon=self.epsilon).to(src.dtype) for c in (src, tgt_cloud))
+        if self.method == "point2plane":
+            return estimate_normals(tgt_cloud, k=self.k).to(src.dtype)
+        return None
 
     def register(self, src, tgt_cloud, x0=None, *, defer_overflow=False):
         """Align src onto tgt_cloud; returns the LMResult.
@@ -321,8 +399,7 @@ class PairwiseRegistrar:
         src = as_input(src)
         tgt_cloud = as_input(tgt_cloud)
         if x0 is None:
-            x0 = torch.zeros(6, dtype=src.dtype, device=src.device)
-            x0[0:3] = _median(tgt_cloud.to(src.dtype)) - _median(src)
+            x0 = _centroid_seed(src, tgt_cloud)
             if self.max_corr_dist is not None:
                 src_c = _coarse_subsample(src)
                 tgt_c = _coarse_subsample(tgt_cloud)
@@ -332,31 +409,32 @@ class PairwiseRegistrar:
                     if self._coarse is None:
                         self._coarse = PairwiseRegistrar(
                             config=self.config, loss=self.loss, max_corr_dist=None,
-                            nn_backend=self.nn_backend, method=self.method,
+                            nn_backend=self.nn_backend, method=self.method, k=self.k, epsilon=self.epsilon,
                         )
                     x0 = self._coarse.register(src_c, tgt_c, x0).x
         else:
             x0 = as_input(x0, src.device)
+        covs = self._covs_for(src, tgt_cloud)
         if self._use_grid(tgt_cloud.shape[0]):
             if self._grid_policy is None and self.max_corr_dist is not None:
                 # the stream's first pair: one adaptive build learns the
                 # capacities, and the solve runs as every later pair's does
                 self._build_grid(tgt_cloud)
             if self._grid_policy is not None and self.max_corr_dist is not None:
-                res, overflow = self._solve_grid_fused(src, tgt_cloud, x0, *self._grid_policy)
+                res, overflow = self._solve_grid_fused(src, tgt_cloud, x0, covs, *self._grid_policy)
                 if defer_overflow:
                     return res, overflow
                 if not bool(overflow):
                     return res
                 # a denser scan outgrew the capacities
-                return self._redo_overflow(src, tgt_cloud, x0)
+                return self._redo_overflow(src, tgt_cloud, x0, covs)
             grid = self._build_grid(tgt_cloud)
-            res = self._solve_grid(src, tgt_cloud, grid, x0)
+            res = self._solve_grid(src, tgt_cloud, grid, x0, covs)
             if self._grid_overflow is not None and bool(self._grid_overflow):
                 grid = self._build_grid(tgt_cloud, force_adaptive=True)
-                res = self._solve_grid(src, tgt_cloud, grid, x0)
+                res = self._solve_grid(src, tgt_cloud, grid, x0, covs)
             return (res, None) if defer_overflow else res
-        res = self._solve_brute(src, tgt_cloud, x0)
+        res = self._solve_brute(src, tgt_cloud, x0, covs)
         return (res, None) if defer_overflow else res
 
     def redo_overflow(self, src, tgt_cloud, x0):
@@ -365,11 +443,11 @@ class PairwiseRegistrar:
         Returns the LMResult."""
         src = as_input(src)
         tgt_cloud = as_input(tgt_cloud)
-        return self._redo_overflow(src, tgt_cloud, as_input(x0, src.device))
+        return self._redo_overflow(src, tgt_cloud, as_input(x0, src.device), self._covs_for(src, tgt_cloud))
 
-    def _redo_overflow(self, src, tgt_cloud, x0):
+    def _redo_overflow(self, src, tgt_cloud, x0, covs):
         grid = self._build_grid(tgt_cloud, force_adaptive=True)
-        return self._solve_grid(src, tgt_cloud, grid, x0)
+        return self._solve_grid(src, tgt_cloud, grid, x0, covs)
 
     def _coarse_multistart_seed(self, src, tgt_cloud):
         """Best of B yaw starts about the source centroid, solved ungated in
@@ -420,9 +498,7 @@ def icp(
     src = as_input(src)
     tgt_cloud = as_input(tgt_cloud)
     if x0 is None:
-        x0 = torch.zeros(6, dtype=src.dtype, device=src.device)
-        if init == "centroid":
-            x0[0:3] = _median(tgt_cloud.to(src.dtype)) - _median(src)
+        x0 = _centroid_seed(src, tgt_cloud) if init == "centroid" else src.new_zeros(6)
     else:
         x0 = as_input(x0, src.device)
     if config is None:
@@ -469,3 +545,44 @@ def icp_batched(
         x0s = as_input(x0s, srcs.device)
     blk = _icp_fleet_block(srcs, tgt_clouds, loss=loss, max_corr_dist=max_corr_dist)
     return levenberg_marquardt_batched(problem(blk), x0s, config)
+
+
+def _centroid_seed(src, tgt_cloud):
+    """x0 = [median(tgt) − median(src), 0]."""
+    x0 = torch.zeros(6, dtype=src.dtype, device=src.device)
+    x0[0:3] = _median(tgt_cloud.to(src.dtype)) - _median(src)
+    return x0
+
+
+def point2plane(src, tgt_cloud, x0=None, *, k=10, config=None, loss=None, max_corr_dist=None, nn_backend="auto"):
+    """Point-to-plane ICP: r = n·(T·s − q) with the target's normals from
+    k-NN PCA (``ops.surface.estimate_normals``), the match and its normal
+    found again at every outer iteration. Returns the LMResult; x0=None
+    seeds with the median-centroid offset."""
+    src = as_input(src)
+    tgt_cloud = as_input(tgt_cloud)
+    x0 = _centroid_seed(src, tgt_cloud) if x0 is None else as_input(x0, src.device)
+    if config is None:
+        config = _icp_config()
+    normals = estimate_normals(tgt_cloud, k=k).to(src.dtype)
+    searcher = make_searcher(tgt_cloud, nn_backend, max_corr_dist)
+    blk = _point2plane_block_with_searcher(src, tgt_cloud, normals, searcher, loss=loss, max_corr_dist=max_corr_dist)
+    return levenberg_marquardt(problem(blk), x0, config)
+
+
+def gicp(src, tgt_cloud, x0=None, *, k=10, epsilon=1e-3, config=None, loss=None, max_corr_dist=None,
+         nn_backend="auto"):
+    """Generalized (plane-to-plane) ICP: per-point GICP covariances from
+    k-NN PCA, the match found again at every outer iteration, and the
+    state-dependent information Ω = (C_q + R C_s Rᵀ)⁻¹ per match. Returns
+    the LMResult; x0=None seeds with the median-centroid offset."""
+    src = as_input(src)
+    tgt_cloud = as_input(tgt_cloud)
+    x0 = _centroid_seed(src, tgt_cloud) if x0 is None else as_input(x0, src.device)
+    if config is None:
+        config = _icp_config()
+    src_cov = gicp_covariances(src, k=k, epsilon=epsilon).to(src.dtype)
+    tgt_cov = gicp_covariances(tgt_cloud, k=k, epsilon=epsilon).to(src.dtype)
+    searcher = make_searcher(tgt_cloud, nn_backend, max_corr_dist)
+    blk = _gicp_block_with_searcher(src, tgt_cloud, src_cov, tgt_cov, searcher, loss=loss, max_corr_dist=max_corr_dist)
+    return levenberg_marquardt(problem(blk), x0, config)

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from moptimizer_0_tpu_torch import ba, interop
-from moptimizer_0_tpu_torch.registration import icp, icp_batched
+from moptimizer_0_tpu_torch.odometry import scan_slam
+from moptimizer_0_tpu_torch.registration import gicp, icp, icp_batched, point2plane
 from moptimizer_0_tpu_torch.utils.device import as_input, require
 
 
@@ -71,3 +72,21 @@ def test_device_helpers():
     assert as_input(np.ones(2), "cpu").device.type == "cpu"
     assert require("cpu") == torch.device("cpu")
     _on_the_card_or_raises(lambda: as_input(np.ones(2)), lambda r: r.device)
+
+
+@pytest.mark.parametrize("entry", [point2plane, gicp], ids=["point2plane", "gicp"])
+def test_surface_registrations_put_numpy_inputs_on_the_card(entry):
+    src, tgt = _pair()
+    res = entry(torch.as_tensor(src), torch.as_tensor(tgt), k=8)
+    assert res.x.device.type == "cpu"
+    _on_the_card_or_raises(lambda: entry(src, tgt, k=8), lambda r: r.x.device)
+
+
+def test_pose_graph_from_numpy_and_scan_slam_default_to_the_card():
+    arrays = dict(poses=np.zeros((3, 6)), edge_i=np.array([0, 1]), edge_j=np.array([1, 2]),
+                  measurements=np.zeros((2, 6)), information=np.broadcast_to(np.eye(6), (2, 6, 6)))
+    cpu = interop.pose_graph_from_numpy(**arrays, device="cpu")
+    assert cpu.poses.device.type == "cpu" and cpu.edge_i.dtype == torch.int64
+    _on_the_card_or_raises(lambda: interop.pose_graph_from_numpy(**arrays), lambda g: g.poses.device)
+    scans = [_pair(n=60, seed=s)[0] for s in (5, 6)]
+    _on_the_card_or_raises(lambda: scan_slam(scans, nn_backend="xla"), lambda r: r[0].poses.device)

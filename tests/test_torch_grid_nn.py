@@ -335,8 +335,12 @@ def test_registrar_brute_route_and_methods_not_ported():
                                  defer_overflow=True)
     assert overflow is None and reg._grid_policy is None
     np.testing.assert_allclose(res.x.numpy(), x_true, atol=1e-8)
-    for method in ("point2plane", "gicp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PairwiseRegistrar(method=method)
+    for method in ("point2plane", "gicp"):  # ported: the same pair, brute force, as JAX's registrar
+        jres = JRegistrar(max_corr_dist=2.0, method=method).register(jnp.asarray(src), jnp.asarray(tgt),
+                                                                     x0=jnp.zeros(6))
+        res = PairwiseRegistrar(max_corr_dist=2.0, method=method).register(
+            torch.as_tensor(src), torch.as_tensor(tgt), x0=torch.zeros(6, dtype=torch.float64))
+        assert int(res.status) == int(jres.status) and int(res.iterations) == int(jres.iterations)
+        np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x), rtol=0, atol=1e-9)
     with pytest.raises(ValueError):
         PairwiseRegistrar(method="bogus")

@@ -1,8 +1,8 @@
 """The port's scan odometry (``odometry.py``) against the JAX package's,
 float64 on ``tests/test_odometry.py``'s scene: chain_poses, register_pair
-and scan_odometry through brute force ("xla") and through the grid, poses to
-1e-9; the lag-W overflow window; and an import that pulls in neither jax nor
-a pose_graph module."""
+(with each method) and scan_odometry through brute force ("xla") and through
+the grid, poses to 1e-9; the lag-W overflow window; and an import that pulls
+in the port's pose_graph and no jax."""
 
 import subprocess
 import sys
@@ -80,11 +80,21 @@ def test_register_pair_checks_its_registrar_and_methods(scene):
         P.register_pair(scans[1], scans[0], registrar=reg, config=LMConfig(max_iterations=3))
     with pytest.raises(ValueError, match="method"):
         P.register_pair(scans[1], scans[0], registrar=reg, method="bogus")
-    for method in ("gicp", "point2plane"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.register_pair(scans[1], scans[0], method=method)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.scan_odometry(scans, method=method)
+    with pytest.raises(ValueError, match="method"):
+        P.register_pair(scans[1], scans[0], method="bogus")
+    assert P.make_registrar("bogus", None) is None
+    for method in ("gicp", "point2plane"):  # ported: register_pair and scan_odometry take them, as JAX's do
+        jx, jr = J.register_pair(jnp.asarray(scene[0][1]), jnp.asarray(scene[0][0]), x0=jnp.zeros(6),
+                                 method=method, nn_backend="xla")
+        tx, tr = P.register_pair(scans[1], scans[0], x0=torch.zeros(6, dtype=torch.float64), method=method,
+                                 nn_backend="xla")
+        assert int(tr.status) == int(jr.status) and int(tr.iterations) == int(jr.iterations)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=0, atol=POSE_ATOL)
+        mreg = P.make_registrar(method, None, nn_backend="xla")
+        assert isinstance(mreg, PairwiseRegistrar) and mreg.method == method
+        poses, rels = P.scan_odometry(scans, method=method, registrar=mreg)
+        np.testing.assert_allclose(rels[0].numpy(), scene[1][1], rtol=0, atol=1e-9)  # the seeded pose of scan 1
+        assert poses.shape == (2, 6)
     assert isinstance(P.make_registrar("icp", None, nn_backend="xla"), PairwiseRegistrar)
     x, res = P.register_pair(scans[1], scans[0], x0=torch.zeros(6, dtype=torch.float64), registrar=reg)
     assert x is res.x
@@ -153,11 +163,14 @@ def test_overflow_window_redoes_the_flagged_pair_and_every_later_one(bad):
 
 
 def test_odometry_import_leaves_jax_and_pose_graph_out():
+    """The back end now lives in the module: importing it pulls in the
+    port's pose_graph, and neither jax nor the JAX package's pose_graph."""
     code = (
         "import sys, moptimizer_0_tpu_torch.odometry, moptimizer_0_tpu_torch.evaluation; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m.startswith('moptimizer_0_tpu.') or m == 'moptimizer_0_tpu' or 'pose_graph' in m); "
-        "print(bad); sys.exit(1 if bad else 0)"
+        "or m.startswith('moptimizer_0_tpu.') or m == 'moptimizer_0_tpu'); "
+        "ok = 'moptimizer_0_tpu_torch.pose_graph' in sys.modules; "
+        "print(bad, ok); sys.exit(1 if bad or not ok else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

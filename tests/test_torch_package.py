@@ -23,7 +23,10 @@ def test_import_leaves_jax_out():
         "moptimizer_0_tpu_torch.models.curve_fitting, moptimizer_0_tpu_torch.models.powell, "
         "moptimizer_0_tpu_torch.models.rational, moptimizer_0_tpu_torch.utils.device, "
         "moptimizer_0_tpu_torch.ops.grid_nn, moptimizer_0_tpu_torch.odometry, "
-        "moptimizer_0_tpu_torch.evaluation, moptimizer_0_tpu_torch.utils.stats; "
+        "moptimizer_0_tpu_torch.evaluation, moptimizer_0_tpu_torch.utils.stats, "
+        "moptimizer_0_tpu_torch.pose_graph, moptimizer_0_tpu_torch.core.prior, moptimizer_0_tpu_torch.ops.surface, "
+        "moptimizer_0_tpu_torch.ops.segment_sum, moptimizer_0_tpu_torch.models.point2plane, "
+        "moptimizer_0_tpu_torch.models.gicp; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'moptimizer_0_tpu.'))"
         " or m == 'moptimizer_0_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )

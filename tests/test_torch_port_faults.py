@@ -35,6 +35,7 @@ from moptimizer_0_tpu_torch import ba_dense as tbd
 from moptimizer_0_tpu_torch.core import linearize as tlin
 from moptimizer_0_tpu_torch.core import residual as tres
 from moptimizer_0_tpu_torch.core import solver as tsol
+from moptimizer_0_tpu_torch.ops import segment_sum
 from moptimizer_0_tpu_torch.ops.nn_search import nearest_neighbors
 from moptimizer_0_tpu_torch.registration import (
     _icp_block_with_searcher,
@@ -159,21 +160,21 @@ def test_f3_camera_sum_equals_the_per_camera_sum(L, K, C, keep, skew):
     """The plan sums every real slot of each camera once (duplicate cameras
     in a row, cameras with no slot, empty and all-padding grids, and one
     camera holding most slots); each level gathers at most
-    n + C·_CAMERA_CHUNK items, however busy the busiest camera."""
+    n + C·CHUNK items, however busy the busiest camera."""
     cam, mask = _grid_layout(L + K + C, L, K, C, keep, skew)
     vals = torch.as_tensor(np.random.default_rng(5).normal(size=(L * K, 6)))
     want = np.zeros((C, 6))
     for s, (c, m) in enumerate(zip(cam.reshape(-1).tolist(), mask.reshape(-1).tolist())):
         if m > 0:
             want[c] += vals[s].numpy()
-    plan = tbd._camera_plan(cam, mask, C)
-    got = tbd._camera_sum(plan, vals)
+    plan = segment_sum.segment_plan(cam, mask, C)
+    got = segment_sum.segment_sum(plan, vals)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
-    again = tbd._camera_sum(tbd._camera_plan(cam, mask, C), vals)
+    again = segment_sum.segment_sum(segment_sum.segment_plan(cam, mask, C), vals)
     assert torch.equal(got, again)
     n = int((mask > 0).sum())
     for idx, _ in plan[0]:
-        assert idx.numel() <= n + C * tbd._CAMERA_CHUNK
+        assert idx.numel() <= n + C * segment_sum.CHUNK
         n = idx.shape[0]
     if skew:
         assert len(plan[0]) == 3  # the busy camera's ~1,900 slots: chunks of 32, of 32, then one

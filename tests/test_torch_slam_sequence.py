@@ -1,4 +1,4 @@
-"""The SLAM front end as a whole: the port against the JAX package on a short
+"""The SLAM pipeline as a whole: the port against the JAX package on a short
 sequence of ``tests/test_slam_sequence.py``'s world, and the chip smoke's
 numpy copy of the bench's sequence.
 
@@ -6,7 +6,12 @@ numpy copy of the bench's sequence.
   test's 24-scan loop, 15° and 2.1 m apart, 1 cm sensor noise), float64,
   through ``scan_odometry`` with the bench's settings (grid search, a 0.5 m
   gate, the noise-floor stopping rule): relative poses to 1e-6 of JAX's,
-  and the trajectory within the test's odometry bound.
+  and the trajectory within the test's odometry bound;
+* the same sequence through ``scan_slam`` with loop closures (0, 7) and
+  (0, 6), for ICP and GICP: odometry and PGO poses to 1e-5 of JAX's (the
+  PGO stops at its noise floor, where roundoff picks the iteration), ATE to
+  rtol 1e-4 and within the test's SLAM bound; and through
+  ``scan_slam_fixed_lag`` with a window of 4.
 * ``chip_smoke.make_sequence`` gives ``benchmarks.slam_sequence_bench``'s
   scans and ground truth to 1e-12 in float64; ``chip_smoke`` imports no jax
   and builds nothing on import.
@@ -15,6 +20,7 @@ numpy copy of the bench's sequence.
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,11 +30,15 @@ from benchmarks import slam_sequence_bench as bench
 from moptimizer_0_tpu.core.solver import LMConfig as JLMConfig
 from moptimizer_0_tpu.evaluation import ate_rmse as j_ate
 from moptimizer_0_tpu.lie import se3 as jse3
+from moptimizer_0_tpu import odometry as JO
+from moptimizer_0_tpu import pose_graph as JP
 from moptimizer_0_tpu.odometry import scan_odometry as j_scan_odometry
+from moptimizer_0_tpu_torch import odometry as PO
 from moptimizer_0_tpu_torch.core.solver import LMConfig
+from moptimizer_0_tpu_torch.core.solver import Status as P_STATUS
 from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
 from moptimizer_0_tpu_torch.odometry import scan_odometry
-from test_slam_sequence import ATE_ODOMETRY_BOUND, SENSOR_NOISE, loop_poses, make_world
+from test_slam_sequence import ATE_ODOMETRY_BOUND, ATE_SLAM_BOUND, SENSOR_NOISE, loop_poses, make_world
 
 K, N = 8, 2048
 REL_ATOL = 1e-6
@@ -63,6 +73,44 @@ def test_sequence_front_end_matches_jax(sequence):
     np.testing.assert_allclose(ate, float(j_ate(jp, jnp.asarray(gt), align=False)), rtol=1e-4)
     assert 1e-5 < ate < ATE_ODOMETRY_BOUND  # noise drifts the trajectory, within the bound
     assert float(rpe(tp, torch.as_tensor(gt))[0]) < 10 * SENSOR_NOISE
+
+
+@pytest.mark.parametrize("method", ["icp", "gicp"])
+def test_scan_slam_matches_jax(sequence, method):
+    scans, gt = sequence
+    kw = dict(method=method, loop_closures=[(0, K - 1), (0, K - 2)], nn_backend="grid", max_corr_dist=0.5)
+    jres, jodo = JO.scan_slam([jnp.asarray(s) for s in scans], config=JLMConfig(**CFG), **kw)
+    tres, todo = PO.scan_slam([torch.as_tensor(s) for s in scans], config=LMConfig(**CFG), **kw)
+    np.testing.assert_allclose(todo.numpy(), np.asarray(jodo), rtol=0, atol=10 * REL_ATOL)
+    np.testing.assert_allclose(tres.poses.numpy(), np.asarray(jres.poses), rtol=0, atol=10 * REL_ATOL)
+    assert int(tres.status) == int(jres.status) != int(P_STATUS.NUMERIC_ERROR)
+    ate_odo = float(ate_rmse(todo, torch.as_tensor(gt), align=False))
+    ate = float(ate_rmse(tres.poses, torch.as_tensor(gt), align=False))
+    np.testing.assert_allclose(ate, float(j_ate(jres.poses, jnp.asarray(gt), align=False)), rtol=1e-4)
+    assert ate < ATE_SLAM_BOUND and ate_odo < ATE_ODOMETRY_BOUND
+
+
+@pytest.fixture(scope="module")
+def _jitted_jax_linearization():
+    """The JAX package's marginalize_oldest runs eagerly, and its eager
+    vmap(jacfwd) compiles each operation on first use: its _linearize and
+    _assemble run jitted here, the same operations in one program."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JP, "_linearize", jax.jit(JP._linearize))
+        mp.setattr(JP, "_assemble", jax.jit(JP._assemble))
+        yield
+
+
+def test_scan_slam_fixed_lag_matches_jax(sequence, _jitted_jax_linearization):
+    scans, gt = sequence
+    kw = dict(window=4, method="icp", nn_backend="grid", max_corr_dist=0.5)
+    jp = JO.scan_slam_fixed_lag([jnp.asarray(s) for s in scans], config=JLMConfig(**CFG), **kw)
+    tp = PO.scan_slam_fixed_lag([torch.as_tensor(s) for s in scans], config=LMConfig(**CFG), **kw)
+    assert tp.shape == (K, 6)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=10 * REL_ATOL)
+    ate = float(ate_rmse(tp, torch.as_tensor(gt), align=False))
+    np.testing.assert_allclose(ate, float(j_ate(jp, jnp.asarray(gt), align=False)), rtol=1e-4)
+    assert ate < ATE_ODOMETRY_BOUND
 
 
 def test_chip_smoke_sequence_is_the_bench_sequence():
