@@ -23,7 +23,18 @@ prints no result):
    instance of the JAX package's bench in float32, which must end in the χ²
    band around its noise floor with the fixed cameras unmoved, with one K11
    launch per S build; its first three outer iterations are repeated with
-   the plain S build and must give the same costs;
+   the plain S build and must give the same costs; then (a) the same
+   instance through ``solve_ba(engine="cg")``, the matrix-free Schur-CG
+   engine, which must end in the same band with the fixed cameras unmoved, a
+   non-increasing cost trace, no K11 launch and a second solve bit-equal,
+   its matvec and damped solve timed and their launches counted; (b)
+   ``engine="auto"``, which must route the instance to the dense engine and
+   equal its solve bit for bit, and route the O=1M, C=4,000, L=100k instance
+   (past ``DENSE_MAX_CAMERAS``) to CG, which must end below its start with a
+   non-increasing trace, no K11 launch and a repeat bit-equal; (c)
+   ``solve_ba_selfcal`` from intrinsics off by [+8, −6, +3, −2], which must
+   end within ±1% of its χ² floor (4 unknowns more) while plain
+   ``solve_ba`` from the same intrinsics ends above that band;
 6. the fleet path: ``icp_batched`` on 64 lanes of the full fachada scan in
    float32, each lane with its own shuffled target and known transform to
    be recovered to 2e-3, with one launch of the expansion kernel K6 per
@@ -60,7 +71,13 @@ prints no result):
     0.05 m, poses (24, 6), one marginalization a scan past the window;
 12. the pose graph of ``tests/test_pose_graph.py`` rebuilt at 300 and 2,000
     poses in float32, solved by CG and by the dense Cholesky, each below its
-    cost bound (``RING_BOUNDS``).
+    cost bound (``RING_BOUNDS``);
+13. the reference's problem set in float32 on the card: the 9 problems of
+    ``tests/trace_problems.py`` (curve near and far, Powell, rational,
+    camera good and bad, accelerometer, the 15-DoF state through the
+    Product(SO3, Euclidean(12)) manifold, point-to-point on fachada) and the
+    Sphere(4) quaternion fit, each held to its ``tests/test_f32_envelope.py``
+    bound.
 
 The dense-BA solve runs twice and must repeat itself bit for bit.
 
@@ -89,15 +106,20 @@ import numpy as np
 import torch
 
 import moptimizer_0_tpu_torch  # noqa: F401  (sets fp32 matmul precision)
-from moptimizer_0_tpu_torch import ba, ba_dense, odometry, pose_graph
+from moptimizer_0_tpu_torch import ba, ba_dense, ba_intrinsics, odometry, pose_graph
+from moptimizer_0_tpu_torch.core import manifold
 from moptimizer_0_tpu_torch.core.loss import GemanMcClure, TrivialLoss
-from moptimizer_0_tpu_torch.core.solver import LMConfig, Status
+from moptimizer_0_tpu_torch.core.residual import make_block
+from moptimizer_0_tpu_torch.core.solver import LMConfig, Status, levenberg_marquardt
 from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
 from moptimizer_0_tpu_torch.kernels import build
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
 from moptimizer_0_tpu_torch.lie import se3, so3
+from moptimizer_0_tpu_torch.models import accelerometer, camera, curve_fitting, powell, rational
+from moptimizer_0_tpu_torch.models.point2point import point2point_block
+from moptimizer_0_tpu_torch.models.state import product_state_block
 from moptimizer_0_tpu_torch.odometry import scan_odometry
 from moptimizer_0_tpu_torch.ops import grid_nn, surface
 from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
@@ -129,6 +151,12 @@ S_BOUND = 1e-5
 # The plain-S repeat: the steps differ only by that roundoff, so the costs
 # of the first three outer iterations agree to 1e-5 relative.
 BA_COST_RTOL = 1e-5
+# The CG engine past DENSE_MAX_CAMERAS, at the headline's ten observations a
+# landmark: engine="auto" must route it to "cg".
+BA_CG_O, BA_CG_C, BA_CG_L = 1_000_000, 4_000, 100_000
+# Self-calibrating BA starts from intrinsics off by tests/test_ba_intrinsics.py's
+# perturbation; its χ² floor has 4 unknowns more.
+SELFCAL_WRONG = (8.0, -6.0, 3.0, -2.0)
 
 # The fleet of the JAX package's batch-64 ICP bench (bench.py:104-152): 64
 # lanes of the full fachada scan. Lanes 0 and 1 use X_A and X_B, the others
@@ -194,6 +222,26 @@ RING_CONFIGS = dict(
 # CG against dense on the 64-pose SLAM graph: the same optimum, to 1e-4.
 PGO_CG_GAP = 1e-4
 X_SMALL =[0.05, -0.03, 0.02, 0.01, -0.005, 0.01]  # the fachada grid query's transform
+
+# The reference's problem set in float32 (tests/trace_problems.py and
+# tests/test_f32_envelope.py): the curve minimum, the Ceres solution of the
+# float32 camera fixture, and the camera fixture itself.
+CURVE_MINIMUM = [0.291861, 0.131439]
+F32_CAMERA_CERES = [-0.010075, 0.020714, -0.058274, 0.018369, -0.001367, 0.027415]
+CAMERA_POINTS = [
+    [2.055643, 0.065643, 0.684357, 1.0],
+    [1.963083, -0.765833, 0.653833, 1.0],
+    [2.927500, 0.707000, 0.125250, 1.0],
+    [2.957833, 0.384667, 0.123667, 1.0],
+    [2.756000, 0.712000, -0.298000, 1.0],
+]
+CAMERA_PIXELS = [[621, 67], [878, 76], [491, 279], [559, 282], [481, 388]]
+# tests/test_f32_envelope.py pins no float32 bound for these two: the state
+# (rotation matrix and linear part) and the unit quaternion (norm and
+# entries, up to sign) are held to 1e-5, a few hundred float32 ε at unit
+# scale.
+STATE_F32_BOUND = 1e-5
+SPHERE_F32_BOUND = 1e-5
 
 # Published peaks of an H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3.
@@ -686,14 +734,8 @@ def _bits(t):
 def ba_repeat(prob, first, first_wall_s):
     """The solve again: the same trials, and costs, cameras and points equal
     bit for bit (the camera reductions and K11 sum in one fixed order)."""
-    res, cost, wall_s = _solve_ba(prob)
-    same = (
-        res.trace["trials"].tolist() == first.trace["trials"].tolist()
-        and torch.equal(_bits(res.trace["cost"]), _bits(first.trace["cost"]))
-        and torch.equal(_bits(res.camera_params), _bits(first.camera_params))
-        and torch.equal(_bits(res.points), _bits(first.points))
-        and cost == float(first.cost)
-    )
+    res, _, wall_s = _solve_ba(prob)
+    same = _same_bits(res, first)
     print(f"dense BA solved twice: walls {first_wall_s:.4f}, {wall_s:.4f} s; trials {sum(res.trace['trials'].tolist())} "
           f"and {sum(first.trace['trials'].tolist())}; trials, cost trace, cameras and points bit-equal: {same}")
     if not same:
@@ -737,6 +779,233 @@ def run_ba(prob):
     return res, launches, wall_s
 
 
+def _chi2_floor(O, C, L, extra=0):
+    """σ²·(2O − 6(C − 2) − 3L − extra): the expected optimum of the
+    instance (two cameras fixed)."""
+    return BA_SIGMA**2 * (2 * O - 6 * (C - 2) - 3 * L - extra)
+
+
+def _same_bits(a, b):
+    """The same trials, cost trace, cameras, points and final cost, bit for bit."""
+    return (
+        a.trace["trials"].tolist() == b.trace["trials"].tolist()
+        and torch.equal(_bits(a.trace["cost"]), _bits(b.trace["cost"]))
+        and torch.equal(_bits(a.camera_params), _bits(b.camera_params))
+        and torch.equal(_bits(a.points), _bits(b.points))
+        and torch.equal(_bits(a.cost), _bits(b.cost))
+    )
+
+
+def _solve_cg(prob, engine="cg"):
+    """solve_ba through its entry point: (result, cost, wall s, host reads),
+    with every kernel count set to 0 before it; no nn kernel may launch."""
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    reads = ba.HOST_READS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ba.solve_ba(prob, ba.BAConfig(), engine=engine)
+    cost = float(res.cost)
+    wall_s = time.perf_counter() - t0
+    if k_nn.LAUNCHES or k_expand.LAUNCHES:
+        raise AssertionError("the BA path launched an nn kernel")
+    return res, cost, wall_s, ba.HOST_READS - reads
+
+
+def _check_descent(what, prob, res, cost):
+    """No NUMERIC_ERROR, a finite cost, the fixed cameras unmoved and an
+    accepted cost that never rises: returns the cost trace."""
+    run = int(torch.isfinite(res.trace["cost"]).sum())
+    costs = res.trace["cost"][:run].tolist() + [cost]
+    status = Status(int(res.status))
+    if status == Status.NUMERIC_ERROR or not np.isfinite(cost):
+        raise AssertionError(f"{what}: status {status.name}, cost {cost}")
+    if not torch.equal(res.camera_params[: prob.n_fixed_cameras], prob.camera_params[: prob.n_fixed_cameras]):
+        raise AssertionError(f"{what}: a fixed camera moved")
+    if any(b > a for a, b in zip(costs, costs[1:])):
+        raise AssertionError(f"{what}: the accepted cost rose: {costs}")
+    return costs
+
+
+def _cg_stage_times(prob):
+    """The CG engine's stages at the start of a solve: ms (CUDA events over
+    back-to-back calls, so the host's launch rate when it is the slower),
+    device ms and launches (torch.profiler) of one ``_schur_matvec`` (a PCG
+    iteration's matvec) and of one damped solve (``_solve_delta``,
+    cg_iterations PCG iterations)."""
+    cfg = ba.BAConfig()
+    plans = ba._plans(prob)
+    r, A, B = ba._linearize(prob)
+    U, V, W, g, h = ba._gn_blocks(prob, r, A, B, plans)
+    lam = ba._seed_lambda(torch.full((), -1.0, dtype=r.dtype, device=r.device), U, V, cfg.init_lambda_factor)
+    U_d = ba._damp_blocks(U, lam)
+    Vinv = ba._inv3x3(ba._damp_blocks(V, lam) + 1e-12 * torch.eye(3, dtype=r.dtype, device=r.device))
+    mask = ba._cam_mask(prob)
+    u = torch.randn_like(g)
+
+    def matvec():
+        return ba._schur_matvec(u, U_d, W, Vinv, prob.cam_idx, prob.pt_idx, plans, mask)
+
+    def solve():
+        return ba._solve_delta(prob, U, V, W, g, h, lam, cfg, plans)
+
+    solve()
+    out = dict(matvec_ms=_time_ms(matvec, 20), solve_ms=_time_ms(solve, 3),
+               linearize_ms=_time_ms(lambda: ba._gn_blocks(prob, *ba._linearize(prob), plans), 5))
+    out["matvec_launches"], out["matvec_device_ms"] = _device_profile(matvec)
+    out["solve_launches"], out["solve_device_ms"] = _device_profile(solve)
+    n = cfg.cg_iterations
+    out.update(pcg_iteration_ms=out["solve_ms"] / n, pcg_iteration_device_ms=out["solve_device_ms"] / n,
+               pcg_iteration_launches=out["solve_launches"] / n)
+    return out
+
+
+def run_ba_cg(prob, dense_res):
+    """(a) the CG engine on the headline instance: within the dense phase's
+    χ² band, fixed cameras unmoved, a non-increasing cost trace, no K11
+    launch, and a second solve bit-equal."""
+    res, cost, wall_s, reads = _solve_cg(prob)
+    k11 = k_schur.LAUNCHES
+    if k11:
+        raise AssertionError(f"the CG engine launched the schur kernel {k11} times")
+    costs = _check_descent("CG BA", prob, res, cost)
+    floor = _chi2_floor(BA_O, BA_C, BA_L)
+    run = len(costs) - 1
+    trials = res.trace["trials"].tolist()
+    print(
+        f"CG BA O={BA_O} C={BA_C} L={BA_L} float32: wall {wall_s:.4f} s, outer iterations run {run} "
+        f"(iterations {int(res.iterations)}), trials {sum(trials)} {trials[:run]}, "
+        f"{wall_s / max(run, 1) * 1e3:.2f} ms per outer iteration, host reads {reads}, status "
+        f"{Status(int(res.status)).name}, final cost {cost:.6e} vs chi2 floor {floor:.6e} "
+        f"({(cost / floor - 1) * 100:+.4f}%; dense {(float(dense_res.cost) / floor - 1) * 100:+.4f}%)"
+    )
+    print(f"  cost trace {costs}")
+    again, cost2, wall2_s, _ = _solve_cg(prob)
+    same = _same_bits(res, again)
+    print(f"CG BA solved twice: walls {wall_s:.4f}, {wall2_s:.4f} s; bit-equal: {same}; schur kernel launches 0")
+    if abs(cost / floor - 1) > BA_BAND:
+        raise AssertionError(f"CG BA: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
+    if not same:
+        raise AssertionError("CG BA: a second solve of the same instance differs from the first")
+    stages = _cg_stage_times(prob)
+    print("CG BA stages at the start (CUDA events, launches by torch.profiler): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items()))
+    return dict(wall_s=[wall_s, wall2_s], outer=run, trials=sum(trials), reads=reads, cost=cost,
+                vs_floor=cost / floor - 1, ms_per_outer=wall_s / max(run, 1) * 1e3, k11=k11, **stages)
+
+
+def run_ba_routing(prob, dense_res):
+    """(b) engine="auto": the headline routes to "dense" and equals the
+    dense phase's solve bit for bit; the O=1M, C=4,000 instance routes to
+    "cg", ends below its start with a non-increasing trace, launches no K11
+    and repeats itself bit for bit."""
+    route = ba.select_engine(prob)
+    res, _, wall_s, _ = _solve_cg(prob, engine="auto")
+    same = _same_bits(res, dense_res)
+    print(f"auto routing, headline: {route}; solve_ba(engine='auto') wall {wall_s:.4f} s, K11 launches "
+          f"{k_schur.LAUNCHES}, bit-equal to solve_ba_dense: {same}")
+    if route != "dense" or not same or k_schur.LAUNCHES != sum(res.trace["trials"].tolist()):
+        raise AssertionError("auto routing: the headline did not run the dense engine's solve")
+
+    t0 = time.perf_counter()
+    big = ba.make_ba_problem(BA_CG_O, BA_CG_C, BA_CG_L, seed=SEED, dtype=torch.float32, device=prob.points.device)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    route = ba.select_engine(big)
+    route_s = time.perf_counter() - t0
+    if route != "cg":
+        raise AssertionError(f"auto routing: C={BA_CG_C} routed to {route}")
+    res, cost, wall_s, reads = _solve_cg(big, engine="auto")
+    k11 = k_schur.LAUNCHES
+    if k11:
+        raise AssertionError("the CG route launched the schur kernel")
+    costs = _check_descent("CG BA (routed)", big, res, cost)
+    if not cost < costs[0]:
+        raise AssertionError(f"CG BA (routed): final cost {cost} is not below the start {costs[0]}")
+    floor = _chi2_floor(BA_CG_O, BA_CG_C, BA_CG_L)
+    again, _, wall2_s, _ = _solve_cg(big, engine="auto")
+    same = _same_bits(res, again)
+    run = len(costs) - 1
+    print(
+        f"auto routing, O={BA_CG_O} C={BA_CG_C} L={BA_CG_L} float32 (made in {made_s:.3f} s, routed in "
+        f"{route_s:.3f} s): {route}; walls {wall_s:.4f}, {wall2_s:.4f} s, outer iterations {run}, trials "
+        f"{sum(res.trace['trials'].tolist())}, {wall_s / max(run, 1) * 1e3:.2f} ms per outer iteration, "
+        f"host reads {reads}, status {Status(int(res.status)).name}, cost {costs[0]:.6e} -> {cost:.6e}, chi2 "
+        f"floor {floor:.6e} ({(cost / floor - 1) * 100:+.4f}%), bit-equal: {same}"
+    )
+    print(f"  cost trace {costs}")
+    if not same:
+        raise AssertionError("CG BA (routed): a second solve differs from the first")
+    stages = _cg_stage_times(big)
+    print("  stages at the start: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items()))
+    return dict(wall_s=[wall_s, wall2_s], outer=run, reads=reads, start=costs[0], cost=cost,
+                vs_floor=cost / floor - 1, k11=k11, **stages)
+
+
+def run_selfcal(prob):
+    """(c) solve_ba_selfcal from intrinsics off by SELFCAL_WRONG: within
+    ±1% of its χ² floor (4 unknowns more), no K11 launch; plain solve_ba
+    from the same wrong intrinsics ends above that band."""
+    wrong = dataclasses.replace(
+        prob, intrinsics=prob.intrinsics + torch.tensor(SELFCAL_WRONG, dtype=prob.intrinsics.dtype).to(prob.intrinsics.device)
+    )
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    reads = ba.HOST_READS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, intr = ba_intrinsics.solve_ba_selfcal(wrong, ba.BAConfig())
+    cost = float(res.cost)
+    wall_s = time.perf_counter() - t0
+    reads = ba.HOST_READS - reads
+    k11 = k_schur.LAUNCHES
+    if k11 or k_nn.LAUNCHES or k_expand.LAUNCHES:
+        raise AssertionError("self-calibrating BA launched a kernel of another path")
+    floor = _chi2_floor(BA_O, BA_C, BA_L, extra=4)
+    err = (intr - prob.intrinsics).abs().max().item()
+    status = Status(int(res.status))
+    # outer iterations run: the terminal one is not counted in `iterations`
+    run = int(res.iterations) + (status != Status.MAXIMUM_ITERATIONS_REACHED)
+    _, plain_cost, plain_wall_s, _ = _solve_cg(wrong)
+    print(
+        f"self-calibrating BA O={BA_O} C={BA_C} L={BA_L} float32 from intrinsics {SELFCAL_WRONG} off: wall "
+        f"{wall_s:.4f} s, iterations {int(res.iterations)}, host reads {reads}, "
+        f"{wall_s / max(run, 1) * 1e3:.2f} ms per outer iteration, status {status.name}, "
+        f"cost {cost:.6e} vs chi2 floor {floor:.6e} ({(cost / floor - 1) * 100:+.4f}%), intrinsics "
+        f"{intr.tolist()}, max|error| {err:.4e} px; plain solve_ba from them: cost {plain_cost:.6e} "
+        f"({(plain_cost / floor - 1) * 100:+.4f}%), wall {plain_wall_s:.4f} s"
+    )
+    if status == Status.NUMERIC_ERROR or not np.isfinite(cost):
+        raise AssertionError(f"self-cal BA: status {status.name}, cost {cost}")
+    if not torch.equal(res.camera_params[:2], prob.camera_params[:2]):
+        raise AssertionError("self-cal BA: a fixed camera moved")
+    if abs(cost / floor - 1) > BA_BAND:
+        raise AssertionError(f"self-cal BA: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
+    if not plain_cost > floor * (1 + BA_BAND):
+        raise AssertionError(f"plain BA from the wrong intrinsics ended inside the band: {plain_cost}")
+
+    cfg = ba.BAConfig()
+    plans = ba._plans(wrong)
+    lin = ba_intrinsics._linearize_full(wrong)
+    blocks = ba_intrinsics._gn_blocks_full(wrong, *lin, plans)
+    lam = ba._seed_lambda(torch.full((), -1.0, dtype=wrong.points.dtype, device=wrong.points.device),
+                          blocks[0], blocks[1], cfg.init_lambda_factor)
+
+    def solve():
+        return ba_intrinsics._solve_delta_full(wrong, blocks, lam, cfg, plans)
+
+    solve()
+    solve_ms = _time_ms(solve, 3)
+    launches, device_ms = _device_profile(solve)
+    n = cfg.cg_iterations
+    print(f"  self-cal stages at the start: damped solve {solve_ms:.4f} ms ({solve_ms / n:.4f} ms a PCG "
+          f"iteration), device {device_ms:.4f} ms ({device_ms / n:.4f} a PCG iteration), {launches} launches "
+          f"({launches / n:.1f} a PCG iteration)")
+    return dict(wall_s=wall_s, iterations=int(res.iterations), ms_per_outer=wall_s / max(run, 1) * 1e3, reads=reads,
+                cost=cost, vs_floor=cost / floor - 1, k11=k11, intrinsics_err=err,
+                plain_vs_floor=plain_cost / floor - 1, solve_ms=solve_ms, pcg_iteration_ms=solve_ms / n,
+                pcg_iteration_device_ms=device_ms / n, pcg_iteration_launches=launches / n)
+
+
 def ba_steps(prob, grouped, backend, n=3):
     """The first n outer iterations through ba_step_dense: (cost, cost_new)
     pairs and the wall time of each step (host clock, ending in a host read)."""
@@ -750,6 +1019,102 @@ def ba_steps(prob, grouped, backend, n=3):
         prob = dataclasses.replace(prob, camera_params=cams, points=pts)
     print(f"dense BA steps, schur backend {backend}: wall {[f'{w * 1e3:.2f} ms' for w in walls]}, costs {costs}")
     return costs
+
+
+def _quat_rot(q):
+    w, x, y, z = q[0], q[1], q[2], q[3]
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def reference_problems(dev):
+    """The reference's problem set in float32 on ``dev``: the 9 problems of
+    tests/trace_problems.py from their starts, and the Sphere(4) quaternion
+    fit of tests/test_state_model.py. Each entry: (name, block, x0, LMConfig
+    fields beyond auto/cholesky, manifold, check(x, cost) → (error, bound))."""
+    f32 = torch.float32
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    def x_err(ref, bound):
+        return lambda x, cost: (float((x.cpu() - torch.as_tensor(ref, dtype=f32)).abs().max()), bound)
+
+    curve = curve_fitting.exponential_curve_block(t(curve_fitting.CERES_CURVE_DATA), dtype=f32)
+    cam_block = camera.camera_reprojection_block(t(CAMERA_POINTS), t(CAMERA_PIXELS))
+    m = so3.exp(t([0.15, -0.1, 0.2])) @ t(accelerometer.GRAVITY)
+    anchor_rot, anchor_lin = t([0.1, 0.2, 0.3]), t(np.concatenate([[-0.4, 0.11, -0.9], np.zeros(9)]))
+    R_anchor = so3.exp(anchor_rot)
+    src = torch.as_tensor(load_txt_cloud(FACHADA), dtype=f32, device=dev)
+    x_p2p = [10.5, 10.2, 0.1, 0.3, 0.4, 0.5]
+    T = se3.transform_from_params6(t(x_p2p))
+    rng = np.random.default_rng(4)
+    q_true = rng.normal(size=4)
+    q_true /= np.linalg.norm(q_true)
+    vs = t(rng.normal(size=(12, 3)))
+    sphere = make_block(lambda q, d: d["m"] - _quat_rot(q) @ d["v"],
+                        data=dict(v=vs, m=vs @ _quat_rot(t(q_true)).T))
+
+    def state_err(x, cost):
+        e_rot = float((so3.exp(x[:3]) - R_anchor).abs().max())
+        return max(e_rot, float((x[3:] - anchor_lin).abs().max())), STATE_F32_BOUND
+
+    def sphere_err(x, cost):
+        q = x.cpu().double().numpy()
+        q = -q if q @ q_true < 0 else q
+        return max(abs(np.linalg.norm(q) - 1.0), float(np.abs(q - q_true).max())), SPHERE_F32_BOUND
+
+    state = product_state_block(anchor_rot, anchor_lin)
+    product = manifold.Product(parts=(manifold.SO3(), manifold.Euclidean(12)))
+    ceres = F32_CAMERA_CERES
+    return [
+        ("curve_near", curve, [0.0, 0.0], {}, None, x_err(CURVE_MINIMUM, 5e-5)),
+        ("curve_far", curve, [1.2, 2.0], dict(max_iterations=50), None, x_err(CURVE_MINIMUM, 1e-4)),
+        ("powell", powell.powell_block(analytic=True), [3.0, -1.0, 0.0, 4.0], dict(max_iterations=25), None,
+         x_err(np.zeros(4), 1e-2)),
+        ("simple_rational", rational.rational_block(t(rational.SIMPLE_X), t(rational.SIMPLE_Y), analytic=True,
+                                                    dtype=f32), [0.9, 0.2], {}, None, x_err([0.362, 0.556], 0.01)),
+        ("camera_calibration", cam_block, np.zeros(6), {}, None, x_err(ceres, 2e-3)),
+        ("camera_calibration_bad", cam_block, [0.5, 0.5, 0.5, 0.2, 0.5, 0.5], dict(max_iterations=50), None,
+         x_err(ceres, 2e-3)),
+        ("accelerometer", accelerometer.accelerometer_block(m, analytic=True), [0.1, 0.0, 0.0],
+         dict(init_lambda_factor=1e-6), None, lambda x, cost: (cost, 1e-6)),
+        ("state_model", state, np.concatenate([[0.9, -0.8, 0.6, 1.5, -2.0, 0.5], np.zeros(9)]),
+         dict(max_iterations=10), product, state_err),
+        ("point2point", point2point_block(src, se3.apply_transform(T, src)), np.zeros(6), {}, None,
+         x_err(x_p2p, 2e-3)),
+        ("sphere_quaternion", sphere, [1.0, 0.0, 0.0, 0.0], dict(max_iterations=30), manifold.Sphere(4),
+         sphere_err),
+    ]
+
+
+def run_reference_problems(dev):
+    """(d) the reference's problem set on the card in float32, by AD with
+    the Cholesky solve, each held to its bound of tests/test_f32_envelope.py
+    (the state and the Sphere fit to STATE_F32_BOUND and SPHERE_F32_BOUND)."""
+    out = {}
+    for name, block, x0, fields, man, check in reference_problems(dev):
+        cfg = LMConfig(diff_mode="auto", linear_solver="cholesky", **fields)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = levenberg_marquardt(block, torch.as_tensor(np.asarray(x0, np.float32), device=dev), cfg,
+                                  manifold=man)
+        cost = float(res.cost)
+        wall_s = time.perf_counter() - t0
+        err, bound = check(res.x, cost)
+        status = Status(int(res.status))
+        print(f"reference problem {name} float32 on {res.x.device}: status {status.name}, iterations "
+              f"{int(res.iterations)}, cost {cost:.4e}, error {err:.3e} (bound {bound:g}), wall {wall_s:.4f} s")
+        if res.x.dtype != torch.float32 or res.x.device.type != dev.type:
+            raise AssertionError(f"{name}: the solve left float32 on the card")
+        if status == Status.NUMERIC_ERROR or not err <= bound:
+            raise AssertionError(f"{name}: status {status.name}, error {err} above {bound}")
+        out[name] = dict(status=status.name, iterations=int(res.iterations), error=err, bound=bound, wall_s=wall_s)
+    return out
 
 
 def make_world(rng, n):
@@ -806,15 +1171,23 @@ def make_sequence(k_scans, n_points, seed=SLAM_SEED, dtype=torch.float32):
     return scans, torch.as_tensor(np.stack(gt), dtype=dtype)
 
 
-def _launches_of(fn):
-    """cudaLaunchKernel calls of one fn() under torch.profiler."""
+def _device_profile(fn):
+    """(cudaLaunchKernel calls, device ms) of one fn() under torch.profiler:
+    the device time is the sum of its device events' durations."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.name == "cudaLaunchKernel" for e in prof.events())
+    events = prof.events()
+    device_us = sum(e.time_range.elapsed_us() for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sum(e.name == "cudaLaunchKernel" for e in events), device_us / 1e3
+
+
+def _launches_of(fn):
+    """cudaLaunchKernel calls of one fn() under torch.profiler."""
+    return _device_profile(fn)[0]
 
 
 def _same_tables(a, b):
@@ -1340,6 +1713,10 @@ def main():
     if not worst <= BA_COST_RTOL:
         raise AssertionError(f"plain-S repeat: costs differ by {worst} > {BA_COST_RTOL}")
 
+    ba_cg = run_ba_cg(ba_prob, ba_res)
+    ba_routing = run_ba_routing(ba_prob, ba_res)
+    selfcal = run_selfcal(ba_prob)
+
     fleet, fleet_wall_s, e_launches = run_fleet(srcs, tgts, fleet_x)
     fleet_vs_single(cloud, tgts, fleet, fleet_wall_s)
 
@@ -1360,6 +1737,7 @@ def main():
     k9 = surface_times(scans, dev)
     lag = run_fixed_lag(scans, gt, dev)
     ring = {n: run_ring(dev, n, bound) for n, bound in RING_BOUNDS.items()}
+    references = run_reference_problems(dev)
 
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
@@ -1378,11 +1756,13 @@ def main():
               slam_launches=dict(grid=k6_grid, auto=k6_auto),
               scan_slam_launches={m: r["k6"] for m, r in slam.items()}, fixed_lag_launches=lag["k6"]),
         entry("schur_pairs", "moptimizer_0_tpu_torch/csrc/schur.cu",
-              "benchmarks/schur_pallas_ab.py:38", s_launches, s_err, s_t, s_bound),
+              "benchmarks/schur_pallas_ab.py:38", s_launches, s_err, s_t, s_bound,
+              ba_cg_launches=ba_cg["k11"], ba_cg_routed_launches=ba_routing["k11"], selfcal_launches=selfcal["k11"]),
     ]
     print(json.dumps({"slam": {
         m: {k: v for k, v in r.items() if k != "reg"} for m, r in slam.items()
     } | {"k9_ms": k9, "fixed_lag": lag, "ring": ring}}))
+    print(json.dumps({"ba_cg": ba_cg, "ba_cg_routed": ba_routing, "selfcal": selfcal, "reference_f32": references}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

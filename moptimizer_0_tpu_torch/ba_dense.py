@@ -34,7 +34,6 @@ import torch
 
 from moptimizer_0_tpu_torch import ba
 from moptimizer_0_tpu_torch.core.solver import Status
-from moptimizer_0_tpu_torch.lie import so3
 from moptimizer_0_tpu_torch.ops import block_cholesky
 from moptimizer_0_tpu_torch.ops import schur, segment_sum
 
@@ -274,16 +273,6 @@ def group_by_landmark(problem, segments=1, max_segments=4):
     )
 
 
-def _camera_cache(cams, with_jacobian=True):
-    """Per-camera [R (9), t (3)] and, with the Jacobian, Jr(ω) (9): (C, 21)
-    or (C, 12). The exp map runs once per camera, not once per observation."""
-    t, w = cams[:, :3], cams[:, 3:]
-    cols = [so3.exp(w).reshape(-1, 9), t]
-    if with_jacobian:
-        cols.append(so3.right_jacobian(w).reshape(-1, 9))
-    return torch.cat(cols, dim=1)
-
-
 def _gather_cache(cache, grouped):
     """cache rows gathered onto the grid by camera id: (L, K, q). Padding
     slots gather camera 0; every consumer masks them."""
@@ -291,56 +280,15 @@ def _gather_cache(cache, grouped):
 
 
 def _linearize_grouped(cams, pts, intr, grouped):
-    """Masked residuals and closed-form Jacobians on the (L, K) grid.
-
-    r (L,K,2), A = ∂r/∂cam (L,K,2,6), B = ∂r/∂pt (L,K,2,3):
-
-        pc = R p + t,  π = (fx·x/z + cx, fy·y/z + cy),  r = pix − π
-        ∂π/∂pc = [[fx/z, 0, −fx·x/z²], [0, fy/z, −fy·y/z²]]
-        ∂pc/∂t = I,  ∂pc/∂ω = −R [p]× Jr(ω),  ∂pc/∂p = R
-
-    unrolled to elementwise work on (L, K) tensors. Padding slots are set to
-    exactly 0 with ``torch.where``, never by multiplying: a padding slot may
-    put the point behind camera 0 and give an inf.
+    """Masked residuals and closed-form Jacobians on the (L, K) grid:
+    r (L,K,2), A = ∂r/∂cam (L,K,2,6), B = ∂r/∂pt (L,K,2,3) (``ba._reproject``
+    on (L, K) tensors). Padding slots are set to exactly 0 with
+    ``torch.where``, never by multiplying: a padding slot may put the point
+    behind camera 0 and give an inf.
     """
-    fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
-    q = _gather_cache(_camera_cache(cams), grouped).unbind(-1)
-    R = [[q[0], q[1], q[2]], [q[3], q[4], q[5]], [q[6], q[7], q[8]]]
-    t = (q[9], q[10], q[11])
-    Jr = [[q[12], q[13], q[14]], [q[15], q[16], q[17]], [q[18], q[19], q[20]]]
-    p0, p1, p2 = pts[:, 0:1], pts[:, 1:2], pts[:, 2:3]  # (L, 1)
-    pix = grouped.pixels
-    x = R[0][0] * p0 + R[0][1] * p1 + R[0][2] * p2 + t[0]
-    y = R[1][0] * p0 + R[1][1] * p1 + R[1][2] * p2 + t[1]
-    z = R[2][0] * p0 + R[2][1] * p1 + R[2][2] * p2 + t[2]
-    iz = 1.0 / z
-    r = torch.stack([pix[..., 0] - (fx * x * iz + cx), pix[..., 1] - (fy * y * iz + cy)], dim=-1)
-    # the rows of ∂π/∂pc: [fx·iz, 0, −fx·x·iz²], [0, fy·iz, −fy·y·iz²]
-    a0, b0 = fx * iz, -fx * x * iz * iz
-    a1, b1 = fy * iz, -fy * y * iz * iz
-    JpiR = [
-        [a0 * R[0][m] + b0 * R[2][m] for m in range(3)],
-        [a1 * R[1][m] + b1 * R[2][m] for m in range(3)],
-    ]
-    # Hp = hat(p) @ Jr
-    Hp = [
-        [-p2 * Jr[1][m] + p1 * Jr[2][m] for m in range(3)],
-        [p2 * Jr[0][m] - p0 * Jr[2][m] for m in range(3)],
-        [-p1 * Jr[0][m] + p0 * Jr[1][m] for m in range(3)],
-    ]
-    Arot = [[sum(JpiR[al][i] * Hp[i][m] for i in range(3)) for m in range(3)] for al in range(2)]
-    zero = torch.zeros_like(iz)
-    A = torch.stack(
-        [
-            torch.stack([-a0, zero, -b0] + Arot[0], dim=-1),
-            torch.stack([zero, -a1, -b1] + Arot[1], dim=-1),
-        ],
-        dim=-2,
-    )
-    B = torch.stack(
-        [torch.stack([-v for v in JpiR[0]], dim=-1), torch.stack([-v for v in JpiR[1]], dim=-1)],
-        dim=-2,
-    )
+    q = _gather_cache(ba._camera_cache(cams), grouped).unbind(-1)
+    p = (pts[:, 0:1], pts[:, 1:2], pts[:, 2:3])  # (L, 1) against the (L, K) grid
+    r, A, B = ba._reproject(q, p, grouped.pixels, intr)
     m = grouped.mask > 0
     r = torch.where(m[..., None], r, 0.0)
     A = torch.where(m[..., None, None], A, 0.0)
@@ -350,18 +298,12 @@ def _linearize_grouped(cams, pts, intr, grouped):
 
 def _cost_grouped(cams, pts, intr, grouped):
     """Σ‖r‖² on the grid; pts in grid-row order (``grouped.sort_points``)."""
-    fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
-    cache = _camera_cache(cams, with_jacobian=False)
+    cache = ba._camera_cache(cams, with_jacobian=False)
     y = torch.zeros((), dtype=cams.dtype, device=cams.device)
     for sl, seg in _seg_views(grouped):
         q = _gather_cache(cache, seg).unbind(-1)
         p = pts[sl]
-        p0, p1, p2 = p[:, 0:1], p[:, 1:2], p[:, 2:3]
-        x = q[0] * p0 + q[1] * p1 + q[2] * p2 + q[9]
-        yy = q[3] * p0 + q[4] * p1 + q[5] * p2 + q[10]
-        z = q[6] * p0 + q[7] * p1 + q[8] * p2 + q[11]
-        iz = 1.0 / z
-        r = seg.pixels - torch.stack([fx * x * iz + cx, fy * yy * iz + cy], dim=-1)
+        r = ba._reproject(q, (p[:, 0:1], p[:, 1:2], p[:, 2:3]), seg.pixels, intr, jacobians=False)
         r = torch.where(seg.mask[..., None] > 0, r, 0.0)
         y = y + torch.sum(r * r)
     return y
@@ -538,11 +480,7 @@ def _dense_outer_step(cams, pts, intr, grouped, loss, n_fixed, lam, config, schu
     C = cams.shape[0]
 
     U, V, W, g, h, y0 = _linearize_and_blocks(cams, pts, intr, grouped, loss)
-    max_diag = torch.maximum(
-        torch.max(torch.abs(torch.diagonal(U, dim1=-2, dim2=-1))),
-        torch.max(torch.abs(torch.diagonal(V, dim1=-2, dim2=-1))),
-    )
-    lam = torch.where(lam < 0.0, config.init_lambda_factor * max_diag, lam)
+    lam = ba._seed_lambda(lam, U, V, config.init_lambda_factor)
     fixed_mask = (torch.arange(C, device=cams.device) >= n_fixed).to(dtype)
     state = ba._lm_init_state(cams, pts, lam, y0, dtype)
     converged0 = state["stop"]
@@ -580,9 +518,6 @@ def ba_step_dense(problem, grouped, lam, config=DenseBAConfig(), *, schur_backen
         problem.loss, problem.n_fixed_cameras, lam, config, schur_backend,
     )
     return cams, grouped.unsort_points(pts), lam, terminal, status, record
-
-
-TRACE_KEYS = ("cost", "cost_new", "rho", "lam")
 
 
 def solve_ba_dense(problem, config=DenseBAConfig(), grouped=None, host_loop=False, *,
@@ -626,19 +561,11 @@ def _solve_dense_host(problem, grouped, config, schur_backend="auto"):
             break
         executed = it + 1
 
-    pad = torch.full((n_it - len(records),), torch.nan, dtype=dtype, device=dev)
-    trace = {
-        k: torch.cat([torch.stack([rec[k] for rec in records]).to(dtype), pad]) if records
-        else pad.clone()
-        for k in TRACE_KEYS
-    }
-    trials = [rec["trials"] for rec in records] + [0] * (n_it - len(records))
-    trace["trials"] = torch.tensor(trials, dtype=torch.int32, device=dev)
     return ba.BAResult(
         camera_params=cams,
         points=grouped.unsort_points(pts),
         status=torch.tensor(int(status), dtype=torch.int32, device=dev),
         iterations=torch.tensor(executed, dtype=torch.int32, device=dev),
         cost=_cost_grouped(cams, pts, problem.intrinsics, grouped),
-        trace=trace,
+        trace=ba._result_trace(records, n_it, dtype, dev),
     )

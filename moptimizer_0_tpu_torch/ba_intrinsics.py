@@ -1,0 +1,170 @@
+"""Self-calibrating bundle adjustment: cameras, landmarks and the shared
+intrinsics θ = [fx, fy, cx, cy] refined together.
+
+PyTorch counterpart of ``moptimizer_0_tpu.ba_intrinsics``. After the
+landmarks are eliminated the reduced system covers 6C + 4 unknowns:
+
+    [ S_cc  S_cθ ] [δc]   [ r_c ]        S_cc = U′ − W V′⁻¹ Wᵀ
+    [ S_cθᵀ S_θθ ] [δθ] = [ r_θ ],       S_cθ = P − W V′⁻¹ Y
+                                         S_θθ = Z′ − Yᵀ V′⁻¹ Y
+
+with K_o = ∂r/∂θ (2,4) per observation, P = Σ_c AᵀK, Y_l = Σ_{o∈l} BᵀK and
+Z = Σ KᵀK, all summed through the engine's ``ops.segment_sum`` plans and
+solved matrix-free by the same preconditioned CG, then δl back-substituted
+with the extra −Y δθ term. The LM trials are ``ba._lm_trials_tree`` over
+(cameras, landmarks, intrinsics): the eager loop stops at the trial that
+ends the iteration, where the JAX package computes every trial and masks
+the ones after it.
+"""
+
+import dataclasses
+
+import torch
+
+from moptimizer_0_tpu_torch import ba
+from moptimizer_0_tpu_torch.core.solver import Status
+from moptimizer_0_tpu_torch.ops.pcg import pcg
+from moptimizer_0_tpu_torch.ops.segment_sum import segment_sum
+
+
+def _linearize_full(problem):
+    """(r, A (O,2,6), B (O,2,3), K (O,2,4)) with the intrinsics Jacobian K."""
+    return ba._flat(problem, problem.camera_params, problem.points, jacobians=True, intrinsics=True)
+
+
+def _gn_blocks_full(problem, r, A, B, K, plans):
+    """U, V, W, P (C,6,4), Y (L,3,4), Z (4,4), g, h and g_θ (4,)."""
+    cam, pt = plans
+    Aw, Bw, Kw, rw = ba._irls(problem, r, A, B, K)
+    C, L = problem.camera_params.shape[0], problem.points.shape[0]
+    U = segment_sum(cam, ba._outer_rows(Aw, A).reshape(-1, 36)).reshape(C, 6, 6)
+    V = segment_sum(pt, ba._outer_rows(Bw, B).reshape(-1, 9)).reshape(L, 3, 3)
+    W = ba._outer_rows(Aw, B)
+    P = segment_sum(cam, ba._outer_rows(Aw, K).reshape(-1, 24)).reshape(C, 6, 4)
+    Y = segment_sum(pt, ba._outer_rows(Bw, K).reshape(-1, 12)).reshape(L, 3, 4)
+    Z = torch.sum(ba._outer_rows(Kw, K), dim=0)
+    g = segment_sum(cam, ba._rows_dot(A, rw))
+    h = segment_sum(pt, ba._rows_dot(B, rw))
+    g_t = torch.sum(ba._rows_dot(K, rw), dim=0)
+    return U, V, W, P, Y, Z, g, h, g_t
+
+
+def _solve_delta_full(problem, blocks, lam, config, plans):
+    """Damped Schur solve over (cams, θ): (δcam, δpt, δθ)."""
+    U, V, W, P, Y, Z, g, h, g_t = blocks
+    cam, pt = plans
+    C = problem.camera_params.shape[0]
+    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
+    cam_idx, pt_idx = problem.cam_idx, problem.pt_idx
+    bmv = ba._bmv
+
+    U_d = ba._damp_blocks(U, lam)
+    Z_d = ba._damp_blocks(Z, lam)
+    Vinv = ba._inv3x3(ba._damp_blocks(V, lam) + 1e-12 * torch.eye(3, dtype=dtype, device=dev))
+    cam_mask = ba._cam_mask(problem)
+
+    def pack(u_c, u_t):
+        return torch.cat([u_c.reshape(-1), u_t])
+
+    def unpack(u):
+        return u[: 6 * C].reshape(C, 6), u[6 * C :]
+
+    def matvec(u):
+        u_c, u_t = unpack(u)
+        u_c = u_c * cam_mask
+        out_c = bmv(U_d, u_c) + torch.sum(P * u_t, dim=-1)
+        out_t = torch.sum(P * u_c[:, :, None], dim=(0, 1)) + Z_d @ u_t
+        # landmark elimination: s_l = V′⁻¹ (Wᵀu_c + Y u_t) per landmark
+        t = segment_sum(pt, torch.sum(W * u_c[cam_idx][:, :, None], dim=1)) + torch.sum(Y * u_t, dim=-1)
+        s = bmv(Vinv, t)
+        out_c = out_c - segment_sum(cam, bmv(W, s[pt_idx]))
+        out_t = out_t - torch.sum(Y * s[:, :, None], dim=(0, 1))
+        return pack(out_c * cam_mask, out_t)
+
+    t0 = bmv(Vinv, h)
+    r_c = -(g - segment_sum(cam, bmv(W, t0[pt_idx]))) * cam_mask
+    r_t = -(g_t - torch.sum(Y * t0[:, :, None], dim=(0, 1)))
+
+    # the block-Jacobi preconditioner: U′ blocks and the Z′ block
+    U_inv = torch.linalg.inv_ex(U_d + 1e-12 * torch.eye(6, dtype=dtype, device=dev))[0]
+    Z_inv = torch.linalg.inv_ex(Z_d + 1e-12 * torch.eye(4, dtype=dtype, device=dev))[0]
+
+    def pre(u):
+        u_c, u_t = unpack(u)
+        return pack(bmv(U_inv, u_c) * cam_mask, Z_inv @ u_t)
+
+    d_cam, d_t = unpack(pcg(matvec, pack(r_c, r_t), pre, config.cg_iterations, config.cg_tol, ba._read))
+    d_cam = d_cam * cam_mask
+    # back-substitute: δl = V′⁻¹ (−h − Wᵀδc − Y δθ)
+    Wtd = segment_sum(pt, torch.sum(W * d_cam[cam_idx][:, :, None], dim=1))
+    d_pt = bmv(Vinv, -h - Wtd - torch.sum(Y * d_t, dim=-1))
+    return d_cam, d_pt, d_t
+
+
+def _step_selfcal(problem, lam, config, plans):
+    """One outer LM iteration over (cams, pts, θ)."""
+    dtype = problem.camera_params.dtype
+    r, A, B, K = _linearize_full(problem)
+    blocks = _gn_blocks_full(problem, r, A, B, K, plans)
+    U, V, g, h, g_t = blocks[0], blocks[1], blocks[6], blocks[7], blocks[8]
+    y0 = torch.sum(r * r)
+    lam = ba._seed_lambda(lam, U, V, config.init_lambda_factor)
+
+    params0 = (problem.camera_params, problem.points, problem.intrinsics)
+    state = ba._lm_init_state_tree(params0, lam, y0, dtype)
+    converged0 = state["stop"]
+
+    def solve_fn(lam_k):
+        return _solve_delta_full(problem, blocks, lam_k, config, plans)
+
+    def cost_fn(params):
+        cams, pts, intr = params
+        return ba.compute_cost(
+            dataclasses.replace(problem, camera_params=cams, points=pts, intrinsics=intr)
+        )
+
+    b_flat = torch.cat([g.reshape(-1), h.reshape(-1), g_t])
+    state = ba._lm_trials_tree(
+        state, y0, b_flat, params0, solve_fn, cost_fn, config.inner_iterations,
+        rel_cost_tol=config.rel_cost_tol,
+    )
+    status = Status.CONVERGED if converged0 else state["status"]
+    record = dict(cost=y0, cost_new=state["y"], rho=state["rho"], lam=state["lam"],
+                  trials=state["trials"])
+    cams, pts, intr = state["params"]
+    return cams, pts, intr, state["lam"], state["terminal"], status, record
+
+
+def ba_step_selfcal(problem, lam, config=ba.BAConfig()):
+    """One LM iteration refining cameras, landmarks and intrinsics:
+    (cams, pts, θ, λ′, terminal, status, record); λ = −1 seeds λ."""
+    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
+    lam = torch.as_tensor(lam, dtype=dtype, device=dev)
+    return _step_selfcal(problem, lam, config, ba._plans(problem))
+
+
+def solve_ba_selfcal(problem, config=ba.BAConfig()):
+    """Full self-calibrating BA. Returns (BAResult with an empty trace, θ)."""
+    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
+    plans = ba._plans(problem)
+    lam = torch.full((), -1.0, dtype=dtype, device=dev)
+    status = Status.MAXIMUM_ITERATIONS_REACHED
+    executed = 0
+    for it in range(config.max_iterations):
+        cams, pts, intr, lam, terminal, status, _ = _step_selfcal(problem, lam, config, plans)
+        problem = dataclasses.replace(problem, camera_params=cams, points=pts, intrinsics=intr)
+        if terminal:
+            executed = it
+            break
+        executed = it + 1
+    return (
+        ba.BAResult(
+            camera_params=problem.camera_params,
+            points=problem.points,
+            status=torch.tensor(int(status), dtype=torch.int32, device=dev),
+            iterations=torch.tensor(executed, dtype=torch.int32, device=dev),
+            cost=ba.compute_cost(problem),
+            trace={},
+        ),
+        problem.intrinsics,
+    )

@@ -7,6 +7,9 @@ over the flattened (N·O) axis:
     H = Aᵀ B   with A = J as (N·O, P), B = (w ⊙ ΣJ) as (N·O, P)
     b = Aᵀ (w ⊙ Σr)
 
+``linearize_tangent`` linearizes in the tangent space of a manifold (J in
+δ at δ = 0 of r(retract(x, δ))), for the solver's ``manifold=``.
+
 ``linearize_batched``, ``compute_cost_batched`` and
 ``compute_block_costs_batched`` evaluate the same functions for every lane of
 a (B, P) x with ``torch.func.vmap``, over each block's data too where that
@@ -219,11 +222,13 @@ def compute_block_costs_batched(block_or_problem, x, accum_dtype=None, batch_dat
     )
 
 
-def _accumulate(block, x, r, valid, J, accum_dtype=None):
+def _accumulate(block, x, r, valid, J, P=None, accum_dtype=None):
     """H, b and cost from residuals and Jacobians in one matrix product.
-    accum_dtype widens r, J and every product."""
+    P defaults to x's dim; pass the tangent dim for a manifold's
+    linearization. accum_dtype widens r, J and every product."""
     N, O = r.shape
-    P = x.shape[0]
+    if P is None:
+        P = x.shape[0]
     if accum_dtype is not None:
         adt = _as_dtype(accum_dtype, x.dtype)
         r = r.to(adt)
@@ -256,3 +261,43 @@ def _accumulate(block, x, r, valid, J, accum_dtype=None):
     else:
         cost = torch.sum(torch.where(valid, sq_norm, 0.0))
     return cost, H, b
+
+
+def linearize_tangent(block_or_problem, x, retract_fn, mode="auto", accum_dtype=None):
+    """(cost, H, b) in the tangent space of a manifold: J is the Jacobian in
+    δ at δ = 0 of r(retract_fn(x, δ)), whose ``tangent_dim`` attribute gives
+    the dim of δ (x's dim without one).
+
+    As in the JAX package, ``mode="analytic"`` takes the block's
+    ``jacobian_fn`` as it stands (a Jacobian in x), and every other mode,
+    ``"fd"`` included, differentiates by forward-mode AD; no block's
+    ``linearize_fn`` is used.
+    """
+    blocks = _blocks_of(block_or_problem)
+    modes = (mode,) * len(blocks) if isinstance(mode, str) else tuple(mode)
+    T = getattr(retract_fn, "tangent_dim", x.shape[0])
+    zero = torch.zeros((T,), dtype=x.dtype, device=x.device)
+    adt = _as_dtype(accum_dtype, x.dtype)
+    H = torch.zeros((T, T), dtype=adt, device=x.device)
+    b = torch.zeros((T,), dtype=adt, device=x.device)
+    cost = torch.zeros((), dtype=adt, device=x.device)
+    for block, m in zip(blocks, modes):
+        state = block.prepare_fn(x)
+        r, valid = _eval_residuals(block, state)
+        if m == "analytic":
+            J = _jacobian_analytic(block, state)
+        else:
+            J = jacfwd(lambda d, blk=block: _batched_residuals(blk, retract_fn(x, d))[0])(zero)
+        c_i, H_i, b_i = _accumulate(block, x, r, valid, J, P=T, accum_dtype=accum_dtype)
+        cost, H, b = cost + c_i, H + H_i, b + b_i
+    return cost, H, b
+
+
+def linearize_tangent_batched(block_or_problem, x, retract_fn, mode="auto", accum_dtype=None,
+                              batch_data=True):
+    """``linearize_tangent`` for every lane of x (B, P): cost (B,),
+    H (B, T, T), b (B, T)."""
+    return _over_lanes(
+        lambda p, xi: linearize_tangent(p, xi, retract_fn, mode=mode, accum_dtype=accum_dtype),
+        block_or_problem, x, batch_data,
+    )

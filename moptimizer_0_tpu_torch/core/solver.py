@@ -8,13 +8,17 @@ outer loop (≤ max_iterations):
     λ < 0      →  λ = 1e-9 · max|diag H|        (seeded once, kept across outer iterations)
     ν = 2                                        (reset every outer iteration)
     inner loop (≤ inner_iterations):
-        δ  = solve(H + λ·diag(H), −b);  xi = x + δ;  yi = cost(xi)
+        δ  = solve(H + λ·diag(H), −b);  xi = x ⊞ δ;  yi = cost(xi)
         NaN yi → NUMERIC_ERROR
         ρ  = (y0 − yi) / δ·(λδ − b)
         ρ < 0:  max|δ| < √ε → CONVERGED if |yi| < 8ε else SMALL_DELTA
                 else λ ← νλ, ν ← 2ν, retry
         else (a NaN ρ included): accept x ← xi, λ ← λ·max(1/3, 1−(2ρ−1)³)
     → MAXIMUM_ITERATIONS_REACHED
+
+With ``manifold=`` (``core.manifold``) the step lives in the tangent space:
+H and b come from ``linearize_tangent`` and x ⊞ δ is ``manifold.retract``
+(lane by lane in the batched solver); without one, x ⊞ δ = x + δ.
 
 The arithmetic stays in tensors on the device of x; the loop reads one small
 vector of flags back to the host per inner trial to decide where to go.
@@ -25,6 +29,7 @@ import enum
 from typing import Any
 
 import torch
+from torch.func import vmap
 
 from moptimizer_0_tpu_torch.core.linearize import (
     _as_dtype,
@@ -34,6 +39,8 @@ from moptimizer_0_tpu_torch.core.linearize import (
     compute_cost_batched,
     linearize,
     linearize_batched,
+    linearize_tangent,
+    linearize_tangent_batched,
 )
 from moptimizer_0_tpu_torch.core.residual import Problem
 from moptimizer_0_tpu_torch.ops.small_solve import cholesky_solve_unrolled
@@ -89,11 +96,6 @@ class LMResult:
     trace: dict  # per-outer-iteration records, NaN-filled to max_iterations
 
 
-def _check_supported(manifold):
-    if manifold is not None:
-        raise NotImplementedError("manifolds are ported with core/manifold.py, a later slice")
-
-
 def _solve_damped(H, diag_H, lam, b, method):
     """δ = (H + λ·diag(H))⁻¹(−b) over any leading lane axes: H (..., P, P),
     λ (...). A failed factorization gives a NaN δ, which the caller turns
@@ -107,6 +109,26 @@ def _solve_damped(H, diag_H, lam, b, method):
     else:
         delta, info = torch.linalg.solve_ex(A, -b)
     return torch.where(info[..., None] != 0, torch.full_like(delta, torch.nan), delta)
+
+
+def _retract_fn(manifold):
+    """manifold.retract with the ``tangent_dim`` that linearize_tangent reads."""
+    fn = lambda xx, dd: manifold.retract(xx, dd)  # noqa: E731
+    fn.tangent_dim = manifold.tangent_dim
+    return fn
+
+
+def _retract(manifold, x, delta):
+    """x ⊞ δ for one state: x + δ without a manifold."""
+    return x + delta if manifold is None else manifold.retract(x, delta)
+
+
+def _linearize_all(problem, x, config, manifold):
+    if manifold is None:
+        return linearize(problem, x, mode=config.diff_mode, accum_dtype=config.accum_dtype)
+    return linearize_tangent(
+        problem, x, _retract_fn(manifold), mode=config.diff_mode, accum_dtype=config.accum_dtype
+    )
 
 
 def _trace_dtype(config, x):
@@ -128,7 +150,6 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
     Returns (problem', x', λ', terminal, status, record): ``terminal`` a
     Python bool, ``status`` a `Status`, the rest tensors on x's device.
     """
-    _check_supported(manifold)
     dtype = _trace_dtype(config, x)
     dev = x.device
     eps = torch.finfo(dtype).eps
@@ -138,7 +159,7 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
     eight_eps = 8 * _full(eps, dtype, dev)
 
     problem = problem.update(x)
-    y0, H, b = linearize(problem, x, mode=config.diff_mode, accum_dtype=config.accum_dtype)
+    y0, H, b = _linearize_all(problem, x, config, manifold)
     diag_H = torch.diagonal(H)
 
     converged0 = torch.abs(y0) < eight_eps
@@ -159,7 +180,7 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
 
     for k in range(0 if converged0 else n_inner):
         delta = _solve_damped(H, diag_H, lam, b, config.linear_solver)
-        xi = x + delta.to(x.dtype)
+        xi = _retract(manifold, x, delta.to(x.dtype))
         yi = compute_cost(problem, xi, accum_dtype=config.accum_dtype)
 
         rho = (y0 - yi) / torch.dot(delta, lam * delta - b)
@@ -357,7 +378,6 @@ def levenberg_marquardt_batched(problem, x0_batch, config=LMConfig(), manifold=N
     (B, max_iterations) and (B, max_iterations, inner_iterations).
     """
     problem = _as_problem(problem)
-    _check_supported(manifold)
     x = torch.as_tensor(x0_batch)
     B = x.shape[0]
     dtype = _trace_dtype(config, x)
@@ -402,7 +422,12 @@ def levenberg_marquardt_batched(problem, x0_batch, config=LMConfig(), manifold=N
                 for new, old, h in zip(updated.blocks, problem.blocks, hooked)
             )
         )
-        y0, H, b = linearize_batched(problem, x, config.diff_mode, adt, lane_data)
+        if manifold is None:
+            y0, H, b = linearize_batched(problem, x, config.diff_mode, adt, lane_data)
+        else:
+            y0, H, b = linearize_tangent_batched(
+                problem, x, _retract_fn(manifold), config.diff_mode, adt, lane_data
+            )
         diag_H = torch.diagonal(H, dim1=-2, dim2=-1)
 
         converged0 = torch.abs(y0) < eight_eps
@@ -425,7 +450,10 @@ def levenberg_marquardt_batched(problem, x0_batch, config=LMConfig(), manifold=N
 
         for k in range(0 if all_done else n_inner):
             delta = _solve_damped(H, diag_H, lam, b, config.linear_solver)
-            xi = x + delta.to(x.dtype)
+            if manifold is None:
+                xi = x + delta.to(x.dtype)
+            else:  # the retraction lane by lane
+                xi = vmap(manifold.retract)(x, delta.to(x.dtype))
             yi = compute_cost_batched(problem, xi, adt, lane_data)
             rho_k = (y0 - yi) / torch.sum(delta * (lam[:, None] * delta - b), dim=-1)
 

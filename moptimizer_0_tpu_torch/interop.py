@@ -10,9 +10,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from moptimizer_0_tpu_torch.ba import BAProblem
+from moptimizer_0_tpu_torch.ba import BAConfig, BAProblem
 from moptimizer_0_tpu_torch.ba_dense import DenseBAConfig
 from moptimizer_0_tpu_torch.core import loss as _loss
+from moptimizer_0_tpu_torch.core import manifold as _manifold
 from moptimizer_0_tpu_torch.core.solver import LMConfig
 from moptimizer_0_tpu_torch.ops.grid_nn import HashGrid
 from moptimizer_0_tpu_torch.pose_graph import PGOConfig, PGOPrior, PoseGraph
@@ -24,6 +25,12 @@ _LOSSES = {
 }
 
 
+_MANIFOLDS = {
+    cls.__name__: cls
+    for cls in (_manifold.Euclidean, _manifold.SO3, _manifold.SE3, _manifold.Product, _manifold.Sphere)
+}
+
+
 def config_from_fields(fields):
     """The port's LMConfig from ``dataclasses.asdict`` of the JAX LMConfig.
     A numpy/JAX dtype in ``accum_dtype`` becomes its torch dtype."""
@@ -31,6 +38,25 @@ def config_from_fields(fields):
     if fields.get("accum_dtype") is not None:
         fields["accum_dtype"] = getattr(torch, np.dtype(fields["accum_dtype"]).name)
     return LMConfig(**fields)
+
+
+def manifold_from_fields(kind, fields=None):
+    """A manifold from its class name and ``dataclasses.asdict`` of the JAX
+    one, e.g. ``manifold_from_fields("Sphere", {"dim": 4})``. A Product's
+    ``parts`` is a sequence of (kind, fields) pairs, since ``asdict`` drops
+    the parts' class names: ``manifold_from_fields("Product",
+    {"parts": [("SO3", {}), ("Euclidean", {"dim": 12})]})``."""
+    if kind not in _MANIFOLDS:
+        raise ValueError(f"unknown manifold {kind!r}; expected one of {sorted(_MANIFOLDS)}")
+    fields = dict(fields or {})
+    if kind == "Product":
+        fields["parts"] = tuple(manifold_from_fields(k, f) for k, f in fields["parts"])
+    return _MANIFOLDS[kind](**fields)
+
+
+def ba_config_from_fields(fields):
+    """The port's BAConfig from ``dataclasses.asdict`` of the JAX one."""
+    return BAConfig(**fields)
 
 
 def loss_from_numpy(kind, params=None):

@@ -84,6 +84,15 @@ def exp(w):
     return _eye_like(K) + a * K + b * K2
 
 
+def exp_dt(ang_vel, dt):
+    """Angular-velocity integration: R = exp(ω·dt), the one-step rigid-body
+    integrator (the reference's two-argument ``so3::Exp(ang_vel, dt)``), with
+    the small-angle Taylor branch of :func:`exp` in place of a snap to the
+    identity, so it stays differentiable in ω and dt."""
+    dt = torch.as_tensor(dt, dtype=ang_vel.dtype, device=ang_vel.device)
+    return exp(ang_vel * dt[..., None])
+
+
 def log(R):
     """Axis-angle from a rotation matrix over the full range [0, π].
 

@@ -23,12 +23,15 @@ _S10 = math.sqrt(10.0)
 
 
 def _residual(x, _):
-    return torch.stack(
+    # (1,) slices, never 0-dim entries: forward AD turns the tangent of a
+    # 0-dim float32 tensor scaled by a Python float into float64
+    x0, x1, x2, x3 = x[0:1], x[1:2], x[2:3], x[3:4]
+    return torch.cat(
         [
-            x[0] + 10.0 * x[1],
-            _S5 * (x[2] - x[3]),
-            (x[1] - 2.0 * x[2]) ** 2,
-            _S10 * (x[0] - x[3]) ** 2,
+            x0 + 10.0 * x1,
+            _S5 * (x2 - x3),
+            (x1 - 2.0 * x2) ** 2,
+            _S10 * (x0 - x3) ** 2,
         ]
     )
 

@@ -6,8 +6,8 @@ Here the items of each segment are gathered through a plan made once per
 layout and summed in chunks of ``CHUNK``, level by level, so a sum is
 bitwise repeatable on the card and a level's gather follows the item count,
 however many items the busiest segment holds. Dense BA sums each camera's
-slots this way (U, g and the rhs), and the pose graph each pose's edge
-blocks.
+slots this way (U, g and the rhs), the CG engines of BA every camera and
+landmark sum, and the pose graph each pose's edge blocks.
 """
 
 import torch

@@ -30,12 +30,8 @@ from torch.func import jacfwd, vmap
 from moptimizer_0_tpu_torch.core.prior import marginalize as _marginalize
 from moptimizer_0_tpu_torch.core.solver import Status
 from moptimizer_0_tpu_torch.lie import se3, so3
+from moptimizer_0_tpu_torch.ops.pcg import pcg
 from moptimizer_0_tpu_torch.ops.segment_sum import segment_plan, segment_sum
-
-# CG iterations between two host reads of the stopping test; the iterations
-# in between are masked once the test fails, so x is what a test at every
-# iteration gives.
-_CG_CHECK = 32
 
 # Reads of the device by the solve loop and the plans (a Python counter).
 HOST_READS = 0
@@ -245,13 +241,11 @@ def _cg_system(graph, r, Ji, Jj, plan):
 def _pgo_cg_solve(graph, system, lam, free_nodes, config, plan):
     """Damped Gauss-Newton step by block-Jacobi-preconditioned CG; returns
     (δ (N, 6), b (6N)). Stops when ‖res‖ ≤ cg_tol or after cg_iterations,
-    reading the test every _CG_CHECK iterations."""
+    reading the test every ``ops.pcg.CHECK`` iterations."""
     dtype = graph.poses.dtype
     i, j = _ends(graph)
     diag_blocks, b = system["diag_blocks"], system["b"]
     d = torch.diagonal(diag_blocks, dim1=-2, dim2=-1)  # (N, 6)
-    tiny = torch.full((), torch.finfo(dtype).tiny, dtype=dtype, device=b.device)
-    tol_sq = config.cg_tol**2
 
     def mv(u):
         base = _pgo_matvec(u, system["H_ii"], system["H_ij"], system["H_jj"], i, j, plan, free_nodes)
@@ -263,26 +257,7 @@ def _pgo_cg_solve(graph, system, lam, free_nodes, config, plan):
     def pre(u):
         return torch.einsum("nij,nj->ni", pre_inv, u) * free_nodes
 
-    rhs = -b * free_nodes
-    x = torch.zeros_like(rhs)
-    res = rhs
-    z = pre(res)
-    p = z
-    rz = torch.sum(res * z)
-    active = torch.sum(res * res) > tol_sq
-    for k in range(config.cg_iterations):
-        if k % _CG_CHECK == 0 and not _read(active):
-            break
-        Ap = mv(p)
-        alpha = rz / torch.maximum(torch.sum(p * Ap), tiny)
-        x_n = x + alpha * p
-        res_n = res - alpha * Ap
-        z = pre(res_n)
-        rz_n = torch.sum(res_n * z)
-        beta = rz_n / torch.maximum(rz, tiny)
-        p_n = z + beta * p
-        x, res, p, rz = (torch.where(active, new, old) for new, old in ((x_n, x), (res_n, res), (p_n, p), (rz_n, rz)))
-        active = active & (torch.sum(res * res) > tol_sq)
+    x = pcg(mv, -b * free_nodes, pre, config.cg_iterations, config.cg_tol, _read)
     return x, b.reshape(-1)
 
 

@@ -5,6 +5,7 @@ The entry points run on the card unless the caller asks for the CPU: with
 a request for it raises; nothing falls back to the CPU.
 """
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,13 @@ def as_input(a, device="cuda"):
     if isinstance(a, torch.Tensor):
         return a
     return torch.as_tensor(a, device=require(device))
+
+
+def as_float64(a):
+    """A tensor stays as it is; anything else (numpy arrays, lists) becomes
+    a float64 tensor on the CPU, as the JAX package's constants are float64
+    in its tests' x64 mode. Models cast such constants to x's dtype and
+    device where they use them."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.as_tensor(np.asarray(a, dtype=np.float64))

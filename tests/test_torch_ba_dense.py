@@ -303,7 +303,7 @@ def test_ba_step_dense_matches_jax_in_problem_order():
     assert rel_err(t[0], j[0]) < 1e-9 and rel_err(t[1], j[1]) < 1e-9
     assert abs(float(t[2]) / float(j[2]) - 1) < 1e-9
     assert t[3] == bool(j[3]) and int(t[4]) == int(j[4])
-    for key in tbd.TRACE_KEYS:
+    for key in tba.TRACE_KEYS:
         np.testing.assert_allclose(float(t[5][key]), float(j[5][key]), rtol=1e-9)
     assert t[5]["trials"] == 1
 
@@ -425,11 +425,21 @@ def test_spd_solve():
 
 
 def test_cg_engine_names_raise_until_ported():
-    tprob = port(jax_problem("synthetic"))
-    for call in (lambda: tba.solve_ba(tprob), lambda: tba.ba_step(tprob, -1.0),
-                 lambda: tba.select_engine(tprob)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    """The CG engine's names are ported: none raises. select_engine routes
+    as the JAX package does, and engine="dense" is solve_ba_dense with the
+    config's three shared fields, bit for bit (test_torch_ba_cg.py holds the
+    CG engine against the JAX package's)."""
+    jprob = jax_problem("synthetic")
+    tprob = port(jprob)
+    assert tba.select_engine(tprob) == jba.select_engine(jprob) == "dense"
+    cams, pts, lam, terminal, status, rec = tba.ba_step(tprob, -1.0, tba.BAConfig())
+    assert cams.shape == tprob.camera_params.shape and rec["trials"] >= 1
+    cfg = tba.BAConfig(max_iterations=4, inner_iterations=2, init_lambda_factor=1e-6)
+    via = tba.solve_ba(tprob, cfg, engine="dense")
+    direct = tbd.solve_ba_dense(tprob, tbd.DenseBAConfig(max_iterations=4, inner_iterations=2,
+                                                         init_lambda_factor=1e-6))
+    assert torch.equal(via.camera_params, direct.camera_params)
+    torch.testing.assert_close(via.trace["cost"], direct.trace["cost"], rtol=0, atol=0, equal_nan=True)
 
 
 def test_dense_config_and_problem_interop():

@@ -82,3 +82,14 @@ def test_se3_functions_match_jax():
     _close(tse3.se3_exp(torch.as_tensor(x)), jse3.se3_exp(jnp.asarray(x)))
     Te = np.array(jse3.se3_exp(jnp.asarray(x)))
     _close(tse3.se3_log(torch.as_tensor(Te)), jse3.se3_log(jnp.asarray(Te)))
+
+
+def test_exp_dt_matches_jax():
+    """so3.exp_dt(ω, dt) = exp(ω·dt) for one and for a batch of dt, through
+    the Taylor branch too, and forward AD in dt stays finite at ω·dt = 0."""
+    w = _rotvecs(3)
+    for dt in (0.01, 1e-7, np.linspace(0.0, 0.2, 12)):
+        _close(tso3.exp_dt(torch.as_tensor(w), dt), jso3.exp_dt(jnp.asarray(w), dt))
+    jac = torch.func.jacfwd(lambda t: tso3.exp_dt(torch.as_tensor(w[4]), t))(torch.tensor(0.0, dtype=torch.float64))
+    assert torch.isfinite(jac).all()
+    _close(jac, jax.jacfwd(lambda t: jso3.exp_dt(jnp.asarray(w[4]), t))(0.0))

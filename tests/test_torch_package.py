@@ -26,7 +26,10 @@ def test_import_leaves_jax_out():
         "moptimizer_0_tpu_torch.evaluation, moptimizer_0_tpu_torch.utils.stats, "
         "moptimizer_0_tpu_torch.pose_graph, moptimizer_0_tpu_torch.core.prior, moptimizer_0_tpu_torch.ops.surface, "
         "moptimizer_0_tpu_torch.ops.segment_sum, moptimizer_0_tpu_torch.models.point2plane, "
-        "moptimizer_0_tpu_torch.models.gicp; "
+        "moptimizer_0_tpu_torch.models.gicp, moptimizer_0_tpu_torch.ba_intrinsics, "
+        "moptimizer_0_tpu_torch.core.manifold, moptimizer_0_tpu_torch.core.covariance, "
+        "moptimizer_0_tpu_torch.models.camera, moptimizer_0_tpu_torch.models.accelerometer, "
+        "moptimizer_0_tpu_torch.models.state, moptimizer_0_tpu_torch.ops.pcg; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'moptimizer_0_tpu.'))"
         " or m == 'moptimizer_0_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -44,7 +47,7 @@ def test_public_names_mirror_the_jax_package():
         "Cauchy", "GemanMcClure", "Huber", "TrivialLoss", "ResidualBlock", "Problem",
         "linearize", "compute_cost", "LMConfig", "LMResult", "Status",
         "levenberg_marquardt", "levenberg_marquardt_batched", "lm_step", "solve_multistart", "lie",
-        "icp", "icp_batched",
+        "icp", "icp_batched", "manifold",
     }
     missing = [n for n in names if not hasattr(moptimizer_0_tpu_torch, n)]
     assert not missing

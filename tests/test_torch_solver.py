@@ -35,6 +35,7 @@ from moptimizer_0_tpu.models.point2point import point2point_block as jp2p
 from moptimizer_0_tpu_torch import interop
 from moptimizer_0_tpu_torch.core import residual as tres
 from moptimizer_0_tpu_torch.core import solver as tsol
+from moptimizer_0_tpu_torch.core.manifold import Euclidean
 from moptimizer_0_tpu_torch.models.point2point import point2point_block as tp2p
 from moptimizer_0_tpu_torch.utils.pointcloud import load_txt_cloud
 
@@ -218,12 +219,16 @@ def test_validation_and_later_slices_raise():
     tb, _ = _curve_blocks()
     with pytest.raises(ValueError, match="unknown diff mode"):
         tsol.levenberg_marquardt(tb, torch.zeros(2), tsol.LMConfig(diff_mode="bogus"))
-    with pytest.raises(NotImplementedError, match="manifold"):
-        tsol.levenberg_marquardt(tb, torch.zeros(2), manifold=object())
-    with pytest.raises(NotImplementedError, match="manifold"):
-        tsol.levenberg_marquardt_batched(tb, torch.zeros(3, 2), manifold=object())
-    with pytest.raises(NotImplementedError, match="manifold"):
-        tsol.solve_multistart(tb, torch.zeros(3, 2), manifold=object())
+    # manifolds are ported: Euclidean(2) takes the steps of no manifold, in
+    # the single, the batched and the multistart solve
+    flat = tsol.levenberg_marquardt(tb, torch.zeros(2, dtype=torch.float64))
+    with_manifold = tsol.levenberg_marquardt(tb, torch.zeros(2, dtype=torch.float64), manifold=Euclidean(2))
+    assert torch.equal(flat.x, with_manifold.x) and int(flat.iterations) == int(with_manifold.iterations)
+    starts = torch.zeros(3, 2, dtype=torch.float64)
+    batched = tsol.levenberg_marquardt_batched(tb, starts, manifold=Euclidean(2), batch_data=False)
+    torch.testing.assert_close(batched.x, flat.x.expand(3, 2), rtol=0, atol=1e-12)
+    best, _ = tsol.solve_multistart(tb, starts, manifold=Euclidean(2))
+    torch.testing.assert_close(best.x, flat.x, rtol=0, atol=1e-12)
     with pytest.raises(ValueError, match="No cost function"):
         tsol.levenberg_marquardt_batched(tres.Problem(blocks=()), torch.zeros(3, 2))
 
