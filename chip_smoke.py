@@ -77,7 +77,29 @@ prints no result):
     camera good and bad, accelerometer, the 15-DoF state through the
     Product(SO3, Euclidean(12)) manifold, point-to-point on fachada) and the
     Sphere(4) quaternion fit, each held to its ``tests/test_f32_envelope.py``
-    bound.
+    bound;
+14. the sharded paths in one process, float32 at full width, n shards on
+    the one card (``parallel.make_mesh(n)``): (a) ``sharded_linearize`` and
+    ``sharded_compute_cost`` of the fachada point2point block over 1, 2 and
+    4 shards (4 pads) against the unsharded ones, then
+    ``distributed_levenberg_marquardt`` over request A's ICP block over 2
+    and 6 shards: x to 2e-3 of the truth and to 1e-5 of request A, K5 once
+    per shard per outer iteration; (b) ``solve_ba_dense_sharded`` on the
+    phase-5 instance over 2 shards (phase 5's segmented grid, flattened) and
+    4: the χ² band, fixed cameras unmoved, the final cost within 1e-4 of
+    phase 5's, K11 once per shard per S build, a second 4-shard solve bit
+    for bit, and one shard's K11 timed; (c) ``icp_batched`` over 4 shards of
+    phase 6's fleet: every lane within 1e-5 of phase 6's (bit-equality
+    reported), K6 once per shard per pass, B = 62 refused;
+15. two processes on the one card over a local gloo group (this script run
+    with ``--rank``; each killed past 300 s): over a mesh of 2 processes × 2
+    shards, the 64-row curve fit through ``make_global_block`` and
+    ``distributed_levenberg_marquardt`` (float64), and
+    ``solve_ba_dense_sharded`` on the phase-5 instance, each twice; both
+    processes must exit 0 and print the same bits (each solve's repeat
+    too), the BA within 1e-4 of phase 14(b)'s
+    4-shard cost, and each times an all-reduce of S's size with the CUDA
+    tensor handed to gloo and staged through the host.
 
 The dense-BA solve runs twice and must repeat itself bit for bit.
 
@@ -93,9 +115,12 @@ before the last is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
+import socket
 import subprocess
 import sys
 import time
@@ -108,8 +133,9 @@ import torch
 import moptimizer_0_tpu_torch  # noqa: F401  (sets fp32 matmul precision)
 from moptimizer_0_tpu_torch import ba, ba_dense, ba_intrinsics, odometry, pose_graph
 from moptimizer_0_tpu_torch.core import manifold
+from moptimizer_0_tpu_torch.core.linearize import compute_cost, linearize
 from moptimizer_0_tpu_torch.core.loss import GemanMcClure, TrivialLoss
-from moptimizer_0_tpu_torch.core.residual import make_block
+from moptimizer_0_tpu_torch.core.residual import make_block, problem
 from moptimizer_0_tpu_torch.core.solver import LMConfig, Status, levenberg_marquardt
 from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
 from moptimizer_0_tpu_torch.kernels import build
@@ -121,10 +147,33 @@ from moptimizer_0_tpu_torch.models import accelerometer, camera, curve_fitting, 
 from moptimizer_0_tpu_torch.models.point2point import point2point_block
 from moptimizer_0_tpu_torch.models.state import product_state_block
 from moptimizer_0_tpu_torch.odometry import scan_odometry
+from moptimizer_0_tpu_torch.parallel import (
+    distributed_levenberg_marquardt,
+    make_mesh,
+    multihost,
+    sharded_compute_cost,
+    sharded_linearize,
+)
 from moptimizer_0_tpu_torch.ops import grid_nn, surface
 from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
-from moptimizer_0_tpu_torch.ops.schur import _schur_corr_pairs_torch, _schur_corr_torch, fold_linv, pair_plan
-from moptimizer_0_tpu_torch.registration import PairwiseRegistrar, _coarse_subsample, _yaw_starts, icp, icp_batched
+from moptimizer_0_tpu_torch.ops.schur import (
+    _schur_corr_pairs_torch,
+    _schur_corr_torch,
+    fold_linv,
+    fold_segments,
+    pair_plan,
+    schur_corr_cuda,
+)
+from moptimizer_0_tpu_torch.registration import (
+    PairwiseRegistrar,
+    _centroid_seed,
+    _coarse_subsample,
+    _icp_config,
+    _yaw_starts,
+    icp,
+    icp_batched,
+    icp_block,
+)
 from moptimizer_0_tpu_torch.utils.pointcloud import load_txt_cloud
 
 ROOT = Path(__file__).resolve().parent
@@ -243,6 +292,52 @@ CAMERA_PIXELS = [[621, 67], [878, 76], [491, 279], [559, 282], [481, 388]]
 STATE_F32_BOUND = 1e-5
 SPHERE_F32_BOUND = 1e-5
 
+# The sharded paths (phase 14), float32 at full width.
+# (a) The fachada point2point block, linearized over 1, 2 and 4 shards (29,310
+# rows: 4 shards pad), at the off-optimum x of tests/test_sharding.py. The
+# shards sum their rows in other partitions than the unsharded sum: float32
+# roundoff of ~√n·ε ≈ 2e-5 of the largest entry at n = 29,310, held to 1e-4.
+SHARDED_LIN_SHARDS = (1, 2, 4)
+SHARDED_LIN_X = [0.5, 0.0, 0.1, 0.05, 0.0, -0.02]
+SHARDED_LIN_RTOL = 1e-4
+# The distributed ICP over 2 and 6 shards (both divide 29,310: a padded block's
+# update_fn is not wrapped, in either package). Its x against the
+# single-device request A: the moment sums round in another order, as the
+# fleet's lanes against their single solves.
+DIST_ICP_SHARDS = (2, 6)
+DIST_ICP_X_TOL = FLEET_X_TOL
+# (b) The dense-BA headline over 2 shards (phase 5's segmented grid, flattened)
+# and 4 (grouped by the solve). The camera-space sums add the shards in
+# another order than the single-device engine, a roundoff of the kind the
+# plain-S repeat shows (1.7e-7 there on an H100): the cost and cost_new of
+# the first SHARDED_BA_TRACE_ITERS outer iterations are held to phase 5's at
+# BA_COST_RTOL. A wrong S correction or rhs of one shard changes the first
+# steps by far more; the final cost alone would not show it, because the
+# cost is summed exactly and LM reaches the same floor from a poorer step.
+# The final costs end within a float32 ulp (1.2e-7 relative at 2.1e5) of
+# phase 5's on an H100; at the noise floor the last accepted steps are
+# roundoff's choice, which moves a final cost by up to ~10 ulps on small
+# instances: held to 1e-5.
+SHARDED_BA_SHARDS = (2, 4)
+SHARDED_BA_TRACE_ITERS = 3
+SHARDED_BA_COST_RTOL = 1e-5
+# (c) The 64-lane fleet over 4 shards of 16 lanes: lanes are independent, so
+# each lane's solve is the unsharded one's up to the order K6 and the moment
+# sums run in: held to 1e-5.
+FLEET_MESH = 4
+SHARDED_FLEET_TOL = 1e-5
+# Phase 15: two processes on the one card over a local gloo group, 2 shards
+# each, both running the 64-row curve fit and the dense-BA headline. The two
+# processes must print the same bits; the BA's 2 × 2 mesh splits the
+# landmarks as the 4-shard mesh of (b) and sums its 4 shards in another
+# order ((s0 + s1) + (s2 + s3)): the first iterations' costs to BA_COST_RTOL
+# and the final cost to SHARDED_BA_COST_RTOL of (b)'s, as (b) against phase 5.
+TWO_PROCESS_TIMEOUT_S = 300
+TWO_PROCESS_BA_RTOL = SHARDED_BA_COST_RTOL
+# The SciPy MINPACK-LM minimum of the curve data's first 64 rows
+# (tests/test_multihost.py), to 5e-5.
+CURVE_MINIMUM_64 = [0.29284892, 0.12883951]
+
 # Published peaks of an H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -323,11 +418,19 @@ def _nn_cases(rng, dev):
 
 def check_nn_kernel(cloud, rng):
     """nn_cuda against _nn_torch: equal indices and bit-equal d² at the
-    fachada shape, at the cases of ``_nn_cases`` and at NaN target rows,
+    fachada shape, at the distributed ICP's shard shapes, at the cases of
+    ``_nn_cases`` and at NaN target rows,
     overflowing rows and subnormal differences, each with its targets in the
     ranges ``target_splits`` gives it. Timed at the fachada shape."""
     dev = cloud.device
-    cases = {"fachada": (_transformed(cloud, X_A, rng), cloud), **_nn_cases(rng, dev)}
+    q_full = _transformed(cloud, X_A, rng)
+    cases = {"fachada": (q_full, cloud)}
+    for n in DIST_ICP_SHARDS:
+        # the distributed ICP's per-shard search: 1/n of the queries against
+        # the whole target, which can give it other target ranges
+        rows = cloud.shape[0] // n
+        cases[f"fachada, one of {n} shards"] = (q_full[-rows:].contiguous(), cloud)
+    cases.update(_nn_cases(rng, dev))
     q_nan, base = cases["NaN query rows"]
     p_nan = base.clone()
     p_nan[5] = torch.nan
@@ -429,14 +532,17 @@ def _coarse_seed_search(scans, dev):
 
 def check_expand_kernel(cloud, srcs, tgts, coarse, rng):
     """nn_expand_cuda against _nn_expand_torch: equal indices and bit-equal
-    d² at the fleet shape, at the SLAM coarse seed's shape (``coarse``: 8
-    yaw starts against one shared target) and at one-lane, ragged, tied,
-    NaN, 3-lane and subnormal cases; every case but the fleet has its
-    targets split, and the tie cases have tied targets on both sides of a
-    range's end. Timed at the fleet shape and at one lane."""
+    d² at the fleet shape, at one shard of the sharded fleet, at the SLAM
+    coarse seed's shape (``coarse``: 8 yaw starts against one shared
+    target) and at one-lane, ragged, tied, NaN, 3-lane and subnormal cases;
+    the cases below the fleet's size have their targets split, and the tie
+    cases have tied targets on both sides of a range's end. Timed at the
+    fleet shape and at one lane."""
     dev = cloud.device
+    lanes = FLEET_B // FLEET_MESH
     cases = {
         f"fleet {FLEET_B}x{cloud.shape[0]}x{cloud.shape[0]}": (srcs, tgts),
+        f"fleet shard, {lanes} lanes (one of {FLEET_MESH})": (srcs[-lanes:], tgts[-lanes:]),
         "SLAM coarse seed, {} yaw starts x {} x {}".format(*coarse[0].shape[:2], coarse[1].shape[1]): coarse,
         "one fachada lane": (_transformed(cloud, X_A, rng), cloud),
         **_nn_cases(rng, dev),
@@ -1641,6 +1747,369 @@ def run_ring(dev, n, bound):
     return out
 
 
+
+def _rel_diff(a, b):
+    """max|a − b| / max|b|."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+def run_sharded_linearize(cloud):
+    """14(a): sharded_linearize and sharded_compute_cost of the fachada
+    point2point block over 1, 2 and 4 shards against the unsharded ones."""
+    dev = cloud.device
+    x = torch.tensor(SHARDED_LIN_X, dtype=torch.float32, device=dev)
+    tgt = se3.apply_transform(se3.transform_from_params6(torch.tensor(X_A, device=dev)), cloud)
+    blk = point2point_block(cloud, tgt)
+    ref = linearize(blk, x)
+    ref_cost = compute_cost(blk, x)
+    worst = {}
+    for n in SHARDED_LIN_SHARDS:
+        mesh = make_mesh(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sharded_linearize(blk, x, mesh)
+        cost = sharded_compute_cost(blk, x, mesh)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        worst[n] = max([_rel_diff(a, b) for a, b in zip(out, ref)] + [_rel_diff(cost, ref_cost)])
+        print(f"sharded_linearize + sharded_compute_cost, fachada {cloud.shape[0]} rows over {n} shard(s)"
+              f"{' (padded)' if cloud.shape[0] % n else ''}: {wall_ms:.3f} ms, max relative difference from "
+              f"the unsharded (c, H, b) and cost {worst[n]:.3e} (bound {SHARDED_LIN_RTOL:g})")
+        if not worst[n] <= SHARDED_LIN_RTOL:
+            raise AssertionError(f"sharded linearization over {n} shards differs by {worst[n]}")
+    return worst
+
+
+def run_distributed_icp(cloud, single):
+    """14(a): distributed_levenberg_marquardt over the fachada ICP block of
+    request A (the same target), as icp() builds it: K5 once per shard per
+    outer iteration, x to X_TOL of the truth and DIST_ICP_X_TOL of the
+    single-device request."""
+    tgt = _transformed(cloud, X_A, np.random.default_rng(SEED + 1))
+    x0 = _centroid_seed(cloud, tgt)
+    out = {}
+    for n in DIST_ICP_SHARDS:
+        mesh = make_mesh(n)
+        k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = distributed_levenberg_marquardt(problem(icp_block(cloud, tgt)), x0, mesh, _icp_config())
+        x = res.x.cpu()
+        wall_s = time.perf_counter() - t0
+        launches = k_nn.LAUNCHES
+        outer = int(torch.isfinite(res.trace["cost"]).sum())
+        err = float((x.double() - torch.tensor(X_A, dtype=torch.float64)).abs().max())
+        dx = float((x - single.x.cpu()).abs().max())
+        status = Status(int(res.status))
+        print(f"distributed ICP over {n} shards: wall {wall_s:.4f} s, outer iterations {outer}, status "
+              f"{status.name}, K5 launches {launches} ({n} x {outer}), max|x - x_true| {err:.3e}, max|x - x_single| "
+              f"{dx:.3e} (bound {DIST_ICP_X_TOL:g})")
+        if status == Status.NUMERIC_ERROR or not torch.isfinite(x).all() or err > X_TOL:
+            raise AssertionError(f"distributed ICP over {n} shards: {status.name}, error {err}")
+        if not dx <= DIST_ICP_X_TOL:
+            raise AssertionError(f"distributed ICP over {n} shards differs from the single request by {dx}")
+        if launches != n * outer or launches == 0 or k_expand.LAUNCHES or k_schur.LAUNCHES:
+            raise AssertionError(f"distributed ICP over {n} shards: K5 launched {launches} times for {n} x {outer}")
+        out[n] = dict(wall_s=wall_s, outer=outer, launches=launches, dx=dx)
+    return out
+
+
+def _solve_sharded(prob, mesh, **kw):
+    """solve_ba_dense_sharded as a user calls it: (result, cost, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ba_dense.solve_ba_dense_sharded(prob, mesh, **kw)
+    cost = float(res.cost)
+    return res, cost, time.perf_counter() - t0
+
+
+def check_shard_k11(prob, grouped, n):
+    """K11 at the sharded BA's own shapes: every shard of the n-shard layout
+    of ``grouped`` (one K, its own pair plan) at the first linearization and
+    λ = 1e-4, against _schur_corr_torch on the shard's segments and
+    _schur_corr_pairs_torch on its plan to S_BOUND, and two builds bit-equal.
+    Shard 0's build timed by CUDA events. Returns (ms, slot pairs, the
+    largest max|ΔS_corr| against the plain version)."""
+    worst = 0.0
+    for j, (shard, pts) in enumerate(ba_dense._shard_layout(prob, make_mesh(n), grouped, n)):
+        _, V, W, _, _, _ = ba_dense._linearize_and_blocks(prob.camera_params, pts, prob.intrinsics, shard, None)
+        Linv, _ = ba_dense._damped_landmarks(V, torch.full((), 1e-4, device=V.device))
+        G, segments = fold_segments(W, Linv, shard.views)
+        plan = shard.schur_plan(BA_C)
+        S_k = schur_corr_cuda(plan, G)
+        S_again = schur_corr_cuda(plan, G)
+        S_p = _schur_corr_torch(segments, BA_C)
+        S_pairs = _schur_corr_pairs_torch(plan, G)
+        err = float((S_k - S_p).abs().max())
+        scale = float(S_p.abs().max())
+        rel, rel_pairs = err / scale, float((S_k - S_pairs).abs().max()) / scale
+        same = torch.equal(S_k.view(torch.int32), S_again.view(torch.int32))
+        print(f"schur kernel, sharded BA shard {j} of {n} ({pts.shape[0]} landmarks, {plan.pairs.shape[0]} plan "
+              f"entries): ratio {rel:.3e} to the plain version, {rel_pairs:.3e} to the plain gather over the plan "
+              f"(bound {S_BOUND:g}); two builds bit-equal: {same}")
+        if not torch.isfinite(S_k).all() or not rel <= S_BOUND or not rel_pairs <= S_BOUND:
+            raise AssertionError(f"schur kernel, shard {j} of {n}: max|dS|/max|S| = {rel}, {rel_pairs} > {S_BOUND}")
+        if not same:
+            raise AssertionError(f"schur kernel, shard {j} of {n}: two builds of S_corr differ")
+        worst = max(worst, err)
+        if j == 0:
+            ms, entries = _time_ms(lambda: schur_corr_cuda(plan, G), 20), plan.pairs.shape[0]
+    return ms, entries, worst
+
+
+def _early_costs(trace):
+    """(cost, cost_new) of the first SHARDED_BA_TRACE_ITERS outer iterations."""
+    n = SHARDED_BA_TRACE_ITERS
+    return [[float(c), float(cn)] for c, cn in zip(trace["cost"][:n].tolist(), trace["cost_new"][:n].tolist())]
+
+
+def _early_gap(a, b):
+    """Largest relative difference between two ``_early_costs`` lists."""
+    return max(abs(x / y - 1) for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+
+
+def run_ba_sharded(prob, grouped, dense_res):
+    """14(b): solve_ba_dense_sharded on the headline over 2 and 4 shards:
+    the χ² band, fixed cameras unmoved, a non-increasing cost, the first
+    outer iterations' costs within BA_COST_RTOL and the final cost within
+    SHARDED_BA_COST_RTOL of phase 5's, K11 once per shard per S build, and
+    a second 4-shard solve bit-equal; then K11 at every shard's shape."""
+    floor = _chi2_floor(BA_O, BA_C, BA_L)
+    dense_cost = float(dense_res.cost)
+    dense_early = _early_costs(dense_res.trace)
+    out, results = {}, {}
+    t0 = time.perf_counter()
+    single_k = ba_dense.group_by_landmark(prob)
+    grouping_s = time.perf_counter() - t0
+    print(f"sharded dense BA: the solve's own host grouping (one K, landmark order) takes {grouping_s:.4f} s")
+    for n in SHARDED_BA_SHARDS:
+        k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+        res, cost, wall_s = _solve_sharded(prob, make_mesh(n), **(dict(grouped=grouped) if n == 2 else {}))
+        launches = k_schur.LAUNCHES
+        builds = sum(res.trace["trials"].tolist())
+        run = int(torch.isfinite(res.trace["cost"]).sum())
+        costs = res.trace["cost"][:run].tolist() + [cost]
+        rel = abs(cost / dense_cost - 1)
+        early = _early_gap(_early_costs(res.trace), dense_early)
+        status = Status(int(res.status))
+        print(f"sharded dense BA over {n} shards{' (phase 5 segmented grid, flattened)' if n == 2 else ''}: wall "
+              f"{wall_s:.4f} s, outer iterations {run}, S builds {builds}, K11 launches {launches} ({n} x {builds}), "
+              f"status {status.name}, final cost {cost:.6e} ({(cost / floor - 1) * 100:+.4f}% of the chi2 floor; "
+              f"{rel:.3e} from solve_ba_dense's {dense_cost:.6e}, bound {SHARDED_BA_COST_RTOL:g}); first "
+              f"{SHARDED_BA_TRACE_ITERS} outer iterations' cost and cost_new {early:.3e} from its (bound {BA_COST_RTOL:g})")
+        if status == Status.NUMERIC_ERROR or not np.isfinite(cost) or abs(cost / floor - 1) > BA_BAND:
+            raise AssertionError(f"sharded BA over {n} shards: {status.name}, cost {cost} vs floor {floor}")
+        if not torch.equal(res.camera_params[:2], prob.camera_params[:2]):
+            raise AssertionError(f"sharded BA over {n} shards: a fixed camera moved")
+        if any(b > a for a, b in zip(costs, costs[1:])):
+            raise AssertionError(f"sharded BA over {n} shards: the accepted cost rose: {costs}")
+        if not rel <= SHARDED_BA_COST_RTOL:
+            raise AssertionError(f"sharded BA over {n} shards: final cost {rel} from solve_ba_dense's")
+        if not early <= BA_COST_RTOL:
+            raise AssertionError(f"sharded BA over {n} shards: the first iterations' costs are {early} from "
+                                 "solve_ba_dense's")
+        if launches != n * builds or launches == 0 or k_nn.LAUNCHES or k_expand.LAUNCHES:
+            raise AssertionError(f"sharded BA over {n} shards: K11 launched {launches} times for {n} x {builds}")
+        out[n] = dict(wall_s=wall_s, outer=run, builds=builds, launches=launches, cost=cost, rel_dense=rel,
+                      early_rel_dense=early)
+        results[n] = res
+    again, _, wall_s = _solve_sharded(prob, make_mesh(4))
+    same = _same_bits(again, results[4])
+    print(f"sharded dense BA over 4 shards again: wall {wall_s:.4f} s; trials, cost trace, cameras and points "
+          f"bit-equal: {same}")
+    if not same:
+        raise AssertionError("sharded dense BA: a second 4-shard solve differs from the first")
+    out[4]["repeat_wall_s"] = wall_s
+    for n in SHARDED_BA_SHARDS:
+        ms, pairs, err = check_shard_k11(prob, single_k, n)
+        out[n].update(k11_shard_ms=ms, k11_shard_err=err)
+        print(f"  K11 of one of {n} shards ({pairs} slot pairs): {ms:.4f} ms an S build (CUDA events)")
+    return out, results[4], grouping_s
+
+
+def run_fleet_sharded(srcs, tgts, fleet, x_true):
+    """14(c): icp_batched over make_mesh(4): every lane within
+    SHARDED_FLEET_TOL of phase 6's unsharded fleet, K6 once per shard per
+    pass, and B − 2 = 62 lanes refused."""
+    mesh = make_mesh(FLEET_MESH)
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = icp_batched(srcs, tgts, loss=TrivialLoss(), mesh=mesh)
+    x = res.x.cpu()
+    wall_s = time.perf_counter() - t0
+    launches = k_expand.LAUNCHES
+    lanes = srcs.shape[0] // FLEET_MESH
+    finite = torch.isfinite(res.trace["cost"]).cpu()
+    passes = [int(finite[j * lanes:(j + 1) * lanes].any(0).sum()) for j in range(FLEET_MESH)]
+    dx = float((x - fleet.x.cpu()).abs().max())
+    bit_equal = torch.equal(_bits(res.x), _bits(fleet.x))
+    err = float((x.double() - x_true).abs().max())
+    status = res.status.cpu()
+    print(f"sharded fleet B={srcs.shape[0]} over {FLEET_MESH} shards of {lanes} lanes: wall {wall_s:.4f} s, "
+          f"{srcs.shape[0] / wall_s:.2f} alignments/s; passes per shard {passes}, K6 launches {launches}; "
+          f"max|x - x_unsharded| {dx:.3e} (bound {SHARDED_FLEET_TOL:g}), lanes bit-equal {bit_equal}; "
+          f"max|x - x_true| {err:.3e}")
+    if (status == Status.NUMERIC_ERROR).any() or not torch.isfinite(x).all() or err > X_TOL:
+        raise AssertionError(f"sharded fleet: error {err}")
+    if not dx <= SHARDED_FLEET_TOL:
+        raise AssertionError(f"sharded fleet: lanes differ from the unsharded fleet by {dx}")
+    if launches != sum(passes) or k_nn.LAUNCHES or k_schur.LAUNCHES:
+        raise AssertionError(f"sharded fleet: K6 launched {launches} times for passes {passes}")
+    try:
+        icp_batched(srcs[:-2], tgts[:-2], mesh=mesh)
+    except ValueError as e:
+        if "must divide" not in str(e):
+            raise
+        print(f"sharded fleet B={srcs.shape[0] - 2} over {FLEET_MESH} shards refused: {e}")
+    else:
+        raise AssertionError(f"sharded fleet: B={srcs.shape[0] - 2} over {FLEET_MESH} shards was not refused")
+    return dict(wall_s=wall_s, alignments_per_s=srcs.shape[0] / wall_s, passes=passes, launches=launches, dx=dx,
+                bit_equal=bit_equal)
+
+
+def _digest(t):
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def _allreduce_ms(t, staged, reps=5):
+    """Median ms of one all-reduce of t over the default group: the CUDA
+    tensor given to gloo as it is, or staged through a host copy and back."""
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if staged:
+            host = t.cpu()
+            dist.all_reduce(host)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def rank_main(rank, port):
+    """One of phase 15's two processes: both join a gloo group at
+    localhost:port and run, over a global mesh of 2 processes × 2 shards on
+    the card, the 64-row curve fit through make_global_block +
+    distributed_levenberg_marquardt (float64, each process feeding its 32
+    rows) and solve_ba_dense_sharded on the headline (float32), each twice
+    (the first is the process's cold start). Prints one RESULT line of
+    JSON."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
+                         initialization_timeout=TWO_PROCESS_TIMEOUT_S)
+    mesh = multihost.global_mesh(shards_per_process=2)
+    out = dict(rank=rank, shards=mesh.shape["data"])
+
+    def residual(x, d):
+        return torch.stack([d[1] - torch.exp(x[0] * d[0] + x[1])])
+
+    data = torch.as_tensor(curve_fitting.CERES_CURVE_DATA[:64], dtype=torch.float64, device=dev)
+    blk = multihost.make_global_block(make_block(residual, data=multihost.host_local_shard(data)), mesh)
+    walls, bits = [], []
+    for _ in range(2):  # the process's first CUDA work, then again
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = distributed_levenberg_marquardt(problem(blk), torch.zeros(2, dtype=torch.float64, device=dev), mesh,
+                                              LMConfig(max_iterations=25))
+        x = res.x.cpu()
+        walls.append(time.perf_counter() - t0)
+        bits.append(_digest(x))
+    out["curve"] = dict(x=[float(v) for v in x], bits=bits, status=int(res.status), iterations=int(res.iterations),
+                        wall_s=walls, rows=blk.data.shape[0])
+
+    prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
+    walls, digests = [], []
+    for _ in range(2):  # the first solve loads the dense engine's CUDA modules and builds the plans
+        k_schur.LAUNCHES = 0
+        res, cost, wall_s = _solve_sharded(prob, mesh)
+        walls.append(wall_s)
+        digests.append([_digest(res.cost), _digest(res.camera_params), _digest(res.points)])
+    out["ba"] = dict(cost=cost, digests=digests, trials=res.trace["trials"].tolist(), wall_s=walls,
+                     early=_early_costs(res.trace),
+                     k11=k_schur.LAUNCHES, fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+    s = torch.ones((6 * BA_C) ** 2, dtype=torch.float32, device=dev)
+    out["allreduce_ms"] = dict(bytes=s.numel() * 4, cuda=_allreduce_ms(s, False), staged=_allreduce_ms(s, True))
+    print("RESULT " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def run_two_processes(ba4):
+    """15: this script's rank_main in two processes on the one card. Each
+    must exit 0 within TWO_PROCESS_TIMEOUT_S (both are killed otherwise),
+    both must print the same bits, and the BA must agree with 14(b)'s
+    4-shard solve: its first iterations' costs to BA_COST_RTOL, the final
+    cost to TWO_PROCESS_BA_RTOL."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--port", str(port)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TWO_PROCESS_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall_s = time.perf_counter() - t0
+    results = {}
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"two processes: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        for line in text.splitlines():
+            if line.startswith("RESULT "):
+                results[r] = json.loads(line[len("RESULT "):])
+    if set(results) != {0, 1}:
+        raise AssertionError(f"two processes: results from ranks {sorted(results)}:\n{outs}")
+    a, b = results[0], results[1]
+    same = all(a[k][f] == b[k][f] for k, fs in (("curve", ("bits", "status", "iterations")),
+                                               ("ba", ("digests", "trials"))) for f in fs)
+    repeats = all(len(set(map(str, r[k][f]))) == 1 for r in (a, b) for k, f in (("curve", "bits"), ("ba", "digests")))
+    rel = abs(a["ba"]["cost"] / float(ba4.cost) - 1)
+    early = _early_gap(a["ba"]["early"], _early_costs(ba4.trace))
+    builds = sum(a["ba"]["trials"])
+    for res in (a, b):
+        curve_s = ", ".join(f"{t:.4f}" for t in res["curve"]["wall_s"])
+        ba_s = ", ".join(f"{t:.4f}" for t in res["ba"]["wall_s"])
+        print(f"two processes, rank {res['rank']} ({res['shards']} shards over 2 processes): curve fit x "
+              f"{res['curve']['x']} ({res['curve']['rows']} rows), walls {curve_s} s; dense BA walls {ba_s} s, "
+              f"S builds {sum(res['ba']['trials'])}, K11 launches {res['ba']['k11']}, cost {res['ba']['cost']:.6e}; "
+              f"all-reduce of S ({res['allreduce_ms']['bytes']} bytes): CUDA tensor to gloo "
+              f"{res['allreduce_ms']['cuda']:.3f} ms, staged through the host {res['allreduce_ms']['staged']:.3f} ms")
+    print(f"two processes: wall {wall_s:.3f} s (start to exit); results bit-equal between the ranks: {same}, "
+          f"and between each rank's two solves: {repeats}; BA cost {rel:.3e} from the 4-shard solve's "
+          f"{float(ba4.cost):.6e} (bound {TWO_PROCESS_BA_RTOL:g}), its first {SHARDED_BA_TRACE_ITERS} outer "
+          f"iterations' costs {early:.3e} from its (bound {BA_COST_RTOL:g})")
+    if not same or not repeats:
+        raise AssertionError(f"two processes: the results differ: {a} {b}")
+    if not early <= BA_COST_RTOL:
+        raise AssertionError(f"two processes: the first iterations' costs are {early} from the 4-shard solve's")
+    if not rel <= TWO_PROCESS_BA_RTOL or not a["ba"]["fixed_unmoved"]:
+        raise AssertionError(f"two processes: BA cost {rel} from the 4-shard solve's, fixed {a['ba']['fixed_unmoved']}")
+    if a["ba"]["k11"] != 2 * builds or a["curve"]["status"] == Status.NUMERIC_ERROR:
+        raise AssertionError(f"two processes: K11 launched {a['ba']['k11']} times for 2 x {builds}")
+    curve_err = max(abs(u - v) for u, v in zip(a["curve"]["x"], CURVE_MINIMUM_64))
+    if curve_err > 5e-5:
+        raise AssertionError(f"two processes: the curve fit is {curve_err} from its minimum")
+    return dict(wall_s=wall_s, curve=a["curve"], ba={k: a["ba"][k] for k in ("wall_s", "cost", "k11")},
+                rel_4_shard=rel, early_rel_4_shard=early, allreduce_ms={r: results[r]["allreduce_ms"] for r in results})
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs on a GPU only")
@@ -1739,6 +2208,12 @@ def main():
     ring = {n: run_ring(dev, n, bound) for n, bound in RING_BOUNDS.items()}
     references = run_reference_problems(dev)
 
+    sharded_lin = run_sharded_linearize(cloud)
+    dist_icp = run_distributed_icp(cloud, results["A"])
+    ba_sharded, ba4, ba_grouping_s = run_ba_sharded(ba_prob, ba_grouped, ba_res)
+    fleet_sharded = run_fleet_sharded(srcs, tgts, fleet, fleet_x)
+    two = run_two_processes(ba4)
+
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=n_launches,
@@ -1750,19 +2225,27 @@ def main():
         entry("nn_bruteforce", "moptimizer_0_tpu_torch/csrc/nn_search.cu",
               "moptimizer_0_tpu/ops/nn_search.py:136", launches, max_abs_err, nn_t, nn_bound,
               splits=nn_splits, slam_launches=dict(grid=k5_grid, auto=k5_auto),
-              scan_slam_launches={m: r["k5"] for m, r in slam.items()}, fixed_lag_launches=lag["k5"]),
+              scan_slam_launches={m: r["k5"] for m, r in slam.items()}, fixed_lag_launches=lag["k5"],
+              distributed_icp_launches={n: r["launches"] for n, r in dist_icp.items()}),
         entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
               "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound,
               slam_launches=dict(grid=k6_grid, auto=k6_auto),
-              scan_slam_launches={m: r["k6"] for m, r in slam.items()}, fixed_lag_launches=lag["k6"]),
+              scan_slam_launches={m: r["k6"] for m, r in slam.items()}, fixed_lag_launches=lag["k6"],
+              sharded_fleet_launches=fleet_sharded["launches"]),
         entry("schur_pairs", "moptimizer_0_tpu_torch/csrc/schur.cu",
-              "benchmarks/schur_pallas_ab.py:38", s_launches, s_err, s_t, s_bound,
-              ba_cg_launches=ba_cg["k11"], ba_cg_routed_launches=ba_routing["k11"], selfcal_launches=selfcal["k11"]),
+              "benchmarks/schur_pallas_ab.py:38", s_launches,
+              max([s_err] + [r["k11_shard_err"] for r in ba_sharded.values()]), s_t, s_bound,
+              ba_cg_launches=ba_cg["k11"], ba_cg_routed_launches=ba_routing["k11"], selfcal_launches=selfcal["k11"],
+              sharded_ba_launches={n: r["launches"] for n, r in ba_sharded.items()},
+              sharded_ba_shard_ms={n: r["k11_shard_ms"] for n, r in ba_sharded.items()},
+              two_process_launches=two["ba"]["k11"]),
     ]
     print(json.dumps({"slam": {
         m: {k: v for k, v in r.items() if k != "reg"} for m, r in slam.items()
     } | {"k9_ms": k9, "fixed_lag": lag, "ring": ring}}))
     print(json.dumps({"ba_cg": ba_cg, "ba_cg_routed": ba_routing, "selfcal": selfcal, "reference_f32": references}))
+    print(json.dumps({"sharded": dict(linearize_rel=sharded_lin, distributed_icp=dist_icp, ba=ba_sharded,
+                                      ba_grouping_s=ba_grouping_s, fleet=fleet_sharded, two_processes=two)}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(
@@ -1779,4 +2262,11 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    parser = argparse.ArgumentParser(description="Drive the port's main paths on one CUDA card and check them.")
+    parser.add_argument("--rank", type=int, help="run as one of phase 15's two processes (internal)")
+    parser.add_argument("--port", type=int, help="phase 15's group port on localhost (internal)")
+    args = parser.parse_args()
+    if args.rank is None:
+        main()
+    else:
+        rank_main(args.rank, args.port)

@@ -34,5 +34,6 @@ from moptimizer_0_tpu_torch.core.solver import (  # noqa: E402
 from moptimizer_0_tpu_torch.registration import icp, icp_batched  # noqa: E402
 from moptimizer_0_tpu_torch.core import manifold  # noqa: E402
 from moptimizer_0_tpu_torch import lie  # noqa: E402
+from moptimizer_0_tpu_torch import parallel  # noqa: E402
 
 __version__ = "0.1.0"

@@ -260,15 +260,17 @@ def _lm_init_state(cams, pts, lam, y0, dtype):
 
 
 def _lm_trials_tree(state, y0, b_flat, params0, solve_fn, cost_fn, inner_iterations,
-                    rel_cost_tol=0.0):
+                    rel_cost_tol=0.0, metrics_fn=None):
     """The inner LM trial loop over a tuple of parameter tensors.
 
     state: from ``_lm_init_state_tree``. solve_fn(λ) → δ tuple shaped like
     params0; cost_fn(params) → scalar; b_flat: the gradient in the order of
-    the concatenated flattened δ. Runs until a trial is accepted or ends the
-    solve, at most ``inner_iterations`` trials, reading one small vector of
-    flags back to the host per trial. ``state["trials"]`` counts the damped
-    solves.
+    the concatenated flattened δ. metrics_fn(δ, λ) → (δ·(λδ − b), max|δ|)
+    replaces the b_flat computation of both (the sharded dense engine sums
+    the landmark part over the mesh); b_flat is then unused. Runs until a
+    trial is accepted or ends the solve, at most ``inner_iterations``
+    trials, reading one small vector of flags back to the host per trial.
+    ``state["trials"]`` counts the damped solves.
     """
     dtype = y0.dtype
     eps = torch.finfo(dtype).eps
@@ -281,12 +283,17 @@ def _lm_trials_tree(state, y0, b_flat, params0, solve_fn, cost_fn, inner_iterati
         params_i = tuple(p + d for p, d in zip(params0, delta))
         yi = cost_fn(params_i)
 
-        delta_flat = torch.cat([d.reshape(-1) for d in delta])
-        rho = (y0 - yi) / torch.dot(delta_flat, lam * delta_flat - b_flat)
+        if metrics_fn is None:
+            delta_flat = torch.cat([d.reshape(-1) for d in delta])
+            denom = torch.dot(delta_flat, lam * delta_flat - b_flat)
+            max_abs = torch.max(torch.abs(delta_flat))
+        else:
+            denom, max_abs = metrics_fn(delta, lam)
+        rho = (y0 - yi) / denom
         flags = [
             torch.isnan(yi),
             rho < 0.0,  # a NaN ρ falls through to accept
-            torch.max(torch.abs(delta_flat)) < math.sqrt(eps),
+            max_abs < math.sqrt(eps),
             torch.abs(yi) < 8 * eps,
             # an accepted step at the noise floor; yi <= y0 keeps a NaN-ρ
             # acceptance of a cost increase from being labelled CONVERGED
@@ -465,12 +472,12 @@ def _solve_delta(problem, U, V, W, g, h, lam, config, plans):
     return d_cam, _bmv(Vinv, -h - Wtd)
 
 
-def _seed_lambda(lam, U, V, factor):
-    """λ < 0 → factor · max |diag| of U and V."""
-    max_diag = torch.maximum(
-        torch.max(torch.abs(torch.diagonal(U, dim1=-2, dim2=-1))),
-        torch.max(torch.abs(torch.diagonal(V, dim1=-2, dim2=-1))),
-    )
+def _seed_lambda(lam, U, V, factor, v_diag_max=None):
+    """λ < 0 → factor · max |diag| of U and V. v_diag_max: V's max |diag|
+    when V is spread over shards (then V is unused)."""
+    if v_diag_max is None:
+        v_diag_max = torch.max(torch.abs(torch.diagonal(V, dim1=-2, dim2=-1)))
+    max_diag = torch.maximum(torch.max(torch.abs(torch.diagonal(U, dim1=-2, dim2=-1))), v_diag_max)
     return torch.where(lam < 0.0, factor * max_diag, lam)
 
 

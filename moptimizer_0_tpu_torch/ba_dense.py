@@ -18,11 +18,15 @@ PyTorch counterpart of ``moptimizer_0_tpu.ba_dense`` (single device):
   permuted i·C + c order) is built explicitly by ``ops.schur``, whose
   correction sum runs in the hand-written CUDA kernel on the card, and the
   camera system is solved by one Cholesky factorization;
-* the LM schedule is ``ba._lm_trials`` (the reference's λ/ν/ρ rules), and
+* the LM schedule is ``ba._lm_trials_tree`` (the reference's λ/ν/ρ rules), and
   the outer loop is a Python loop with one host read per trial.
 
-The sharded solve (``solve_ba_dense_sharded``) is not ported yet
-(ROADMAP.md, Queue 1).
+``solve_ba_dense_sharded`` shards the landmark axis over a
+``parallel.mesh.Mesh``: each shard keeps its landmarks' linearization, V, W,
+h and back-substitution, and the camera-space objects (U, g, the costs, the
+S correction, the rhs reduction and the landmark terms of the step's
+metrics) are summed over the mesh, max|diag V| and max|δpt| maxed; the
+(6C)² Cholesky and the camera step run once per process on reduced inputs.
 """
 
 import dataclasses
@@ -36,6 +40,7 @@ from moptimizer_0_tpu_torch import ba
 from moptimizer_0_tpu_torch.core.solver import Status
 from moptimizer_0_tpu_torch.ops import block_cholesky
 from moptimizer_0_tpu_torch.ops import schur, segment_sum
+from moptimizer_0_tpu_torch.parallel.mesh import Mesh
 
 
 def _np(t):
@@ -413,38 +418,73 @@ def _build_schur(U_d, Vinv_chol, W, grouped, fixed_mask, chunk=512, backend="aut
     return schur.build_schur(U_d, Vinv_chol, W_segs, grouped, fixed_mask, backend=backend, chunk=chunk)
 
 
-def _solve_delta_dense(grouped, C, U, V, W, g, h, lam, fixed_mask, chunk, schur_solver="auto",
-                       schur_backend="auto"):
-    """One damped dense-Schur solve → (δcam (C,6), δpt (L,3))."""
-    dtype = U.dtype
-    views, W_segs = _w_segments(W, grouped)
-    U_d = ba._damp_blocks(U, lam)
-    V_d = ba._damp_blocks(V, lam) + 1e-12 * torch.eye(3, dtype=dtype, device=U.device)
-    Linv = _tri_inv_lower(_chol3x3(V_d))  # V′⁻¹ = Linvᵀ Linv
-    Vinv = torch.sum(Linv[..., :, None] * Linv[..., None, :], dim=-3)
+def _damped_landmarks(V, lam):
+    """(Linv, V′⁻¹) of the damped V′ = V + λ·diag(V) + 1e-12·I: Linv is the
+    inverse of V′'s Cholesky factor, V′⁻¹ = Linvᵀ Linv."""
+    V_d = ba._damp_blocks(V, lam) + 1e-12 * torch.eye(3, dtype=V.dtype, device=V.device)
+    Linv = _tri_inv_lower(_chol3x3(V_d))
+    return Linv, torch.sum(Linv[..., :, None] * Linv[..., None, :], dim=-3)
 
-    S = _build_schur(U_d, Linv, W_segs, grouped, fixed_mask, chunk, schur_backend)
 
-    # rhs = −(g − Σ_lk 1[cam=c] W_lk (V′⁻¹ h)_l), gauge rows zeroed
+def _rhs_reduction(views, W_segs, Vinv, h, C):
+    """Σ_lk 1[cam=c] W_lk (V′⁻¹ h)_l per camera: (C, 6)."""
     t = torch.sum(Vinv * h[:, None, :], dim=-1)  # (L,3)
-    red = torch.zeros_like(g)
+    red = torch.zeros((C, 6), dtype=h.dtype, device=h.device)
     for (sl, seg), W_s in zip(views, W_segs):
         Wt = torch.sum(W_s * t[sl][:, None, None, :], dim=-1)  # (L_s,K_s,6)
         red = red + segment_sum.segment_sum(seg.camera_plan(C), Wt.reshape(-1, 6))
-    rhs = -(g - red)
-    # into S's i·C + c order, and the solution back
-    rhs = (rhs * fixed_mask[:, None]).T.reshape(-1)
-    d_cam = block_cholesky.spd_solve(S, rhs, method=schur_solver).reshape(6, C).T
-    d_cam = d_cam * fixed_mask[:, None]
+    return red
 
-    # back-substitute: δl = V′⁻¹ (−h − Σ_k W_lkᵀ δc[cam(l,k)])
+
+def _camera_step(S, g, red, fixed_mask, schur_solver):
+    """δcam (C, 6) from S and rhs = −(g − red), gauge rows zeroed."""
+    C = g.shape[0]
+    # into S's i·C + c order, and the solution back
+    rhs = (-(g - red) * fixed_mask[:, None]).T.reshape(-1)
+    d_cam = block_cholesky.spd_solve(S, rhs, method=schur_solver).reshape(6, C).T
+    return d_cam * fixed_mask[:, None]
+
+
+def _back_substitute(views, W_segs, Vinv, h, d_cam):
+    """δl = V′⁻¹ (−h − Σ_k W_lkᵀ δc[cam(l,k)]): (L, 3)."""
     Wtd_l = []
     for (sl, seg), W_s in zip(views, W_segs):
         dc_g = d_cam[seg.cam_ids]  # (L_s,K_s,6); padding slots have W = 0
         Wtd_l.append(torch.sum(W_s * dc_g[..., :, None], dim=(1, 2)))
     Wtd = Wtd_l[0] if len(Wtd_l) == 1 else torch.cat(Wtd_l, dim=0)
-    d_pt = torch.sum(Vinv * (-h - Wtd)[:, None, :], dim=-1)
+    return torch.sum(Vinv * (-h - Wtd)[:, None, :], dim=-1)
+
+
+def _solve_delta_dense(grouped, C, U, V, W, g, h, lam, fixed_mask, chunk, schur_solver="auto",
+                       schur_backend="auto"):
+    """One damped dense-Schur solve → (δcam (C,6), δpt (L,3))."""
+    _, W_segs = _w_segments(W, grouped)
+    d_cam, (d_pt,) = _solve_delta_shards(
+        U, g, [(grouped, V, W_segs, h)], C, lam, fixed_mask, chunk, schur_solver, schur_backend,
+        Mesh(devices=(U.device,)),
+    )
     return d_cam, d_pt
+
+
+def _solve_delta_shards(U, g, shards, C, lam, fixed_mask, chunk, schur_solver, schur_backend, mesh):
+    """One damped dense-Schur solve with the landmarks in shards: ``shards``
+    holds each local shard's (GroupedBA, V, W_segs, h) on its device. Each
+    shard's S correction (one K11 launch) and rhs reduction are summed over
+    the mesh, the camera step is solved once on U's device, and each shard
+    back-substitutes its own landmarks → (δcam (C,6), (δpt_s (L_s,3), ...))."""
+    terms = []
+    for (shard, V, W_segs, h), dev in zip(shards, mesh.devices):
+        Linv, Vinv = _damped_landmarks(V, lam.to(dev))
+        corr = schur.grouped_correction(Linv, W_segs, shard, C, backend=schur_backend, chunk=chunk)
+        terms.append((corr, _rhs_reduction(shard.views, W_segs, Vinv, h, C), Vinv))
+    S_corr, red = mesh.psum([t[:2] for t in terms], device=U.device)
+    S = schur.assemble_schur(S_corr, ba._damp_blocks(U, lam), fixed_mask)
+    d_cam = _camera_step(S, g, red, fixed_mask, schur_solver)
+    d_pts = tuple(
+        _back_substitute(shard.views, W_segs, Vinv, h, d_cam.to(dev))
+        for (shard, _, W_segs, h), (_, _, Vinv), dev in zip(shards, terms, mesh.devices)
+    )
+    return d_cam, d_pts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -470,40 +510,73 @@ class DenseBAConfig:
     rel_cost_tol: float = 0.0
 
 
-def _dense_outer_step(cams, pts, intr, grouped, loss, n_fixed, lam, config, schur_backend="auto"):
-    """One outer LM iteration over explicit state; pts in grid-row order.
+def _dense_outer_step(cams, pts, intr, shards, loss, n_fixed, lam, config, mesh=None, schur_backend="auto"):
+    """One outer LM iteration over explicit state, the landmarks in shards:
+    pts is a tuple of each local shard's (L_s, 3) points in its grid-row
+    order, shards their GroupedBAs. With ``mesh`` None there is one shard,
+    on the cameras' device, and δ·(λδ − b) is one dot over the flat δ;
+    otherwise the camera-space sums are reduced over the mesh (``Mesh.psum``,
+    ``Mesh.pmax``: JAX's ``axis_name`` sites) and so is the landmark part of
+    the step metrics.
 
     Returns (cams, pts, λ′, terminal, status, record): ``terminal`` a Python
     bool, ``status`` a Status, record the tensors cost, cost_new, rho, lam and
     the Python int ``trials`` (damped solves run)."""
-    dtype = cams.dtype
+    sharded = mesh is not None
+    dtype, dev = cams.dtype, cams.device
     C = cams.shape[0]
-
-    U, V, W, g, h, y0 = _linearize_and_blocks(cams, pts, intr, grouped, loss)
-    lam = ba._seed_lambda(lam, U, V, config.init_lambda_factor)
-    fixed_mask = (torch.arange(C, device=cams.device) >= n_fixed).to(dtype)
-    state = ba._lm_init_state(cams, pts, lam, y0, dtype)
+    if not sharded:
+        mesh = Mesh(devices=(dev,))
+    devs = mesh.devices
+    blocks = [
+        _linearize_and_blocks(cams.to(d), p, intr.to(d), s, loss) for p, s, d in zip(pts, shards, devs)
+    ]
+    U, g, y0 = mesh.psum([(b[0], b[3], b[5]) for b in blocks], device=dev)
+    v_diag_max = mesh.pmax([torch.max(torch.abs(torch.diagonal(b[1], dim1=-2, dim2=-1))) for b in blocks],
+                           device=dev)
+    lam = ba._seed_lambda(lam, U, None, config.init_lambda_factor, v_diag_max=v_diag_max)
+    fixed_mask = (torch.arange(C, device=dev) >= n_fixed).to(dtype)
+    state = ba._lm_init_state_tree((cams, *pts), lam, y0, dtype)
     converged0 = state["stop"]
+    landmarks = [(s, b[1], b[2], b[4]) for s, b in zip(shards, blocks)]
 
     def solve_fn(lam_k):
-        return _solve_delta_dense(
-            grouped, C, U, V, W, g, h, lam_k, fixed_mask, config.schur_chunk,
-            config.schur_solver, schur_backend,
+        d_cam, d_pts = _solve_delta_shards(
+            U, g, landmarks, C, lam_k, fixed_mask, config.schur_chunk, config.schur_solver, schur_backend, mesh
+        )
+        return (d_cam, *d_pts)
+
+    def cost_fn(params):
+        cams_i = params[0]
+        return mesh.psum(
+            [_cost_grouped(cams_i.to(d), p, intr.to(d), s) for p, s, d in zip(params[1:], shards, devs)],
+            device=dev,
         )
 
-    def cost_fn(cams_i, pts_i):
-        return _cost_grouped(cams_i, pts_i, intr, grouped)
+    g_flat = g.reshape(-1)
 
-    b_flat = torch.cat([g.reshape(-1), h.reshape(-1)])
-    state = ba._lm_trials(
-        state, y0, b_flat, cams, pts, solve_fn, cost_fn, config.inner_iterations,
-        rel_cost_tol=config.rel_cost_tol,
+    def metrics_fn(delta, lam_k):
+        # δ·(λδ − b): the camera part computed on every process, the
+        # landmark part summed over the mesh
+        dc = delta[0].reshape(-1)
+        land = mesh.psum(
+            [torch.dot(dp.reshape(-1), lam_k.to(d) * dp.reshape(-1) - b[4].reshape(-1))
+             for dp, b, d in zip(delta[1:], blocks, devs)],
+            device=dev,
+        )
+        max_pt = mesh.pmax([torch.max(torch.abs(dp)) for dp in delta[1:]], device=dev)
+        return torch.dot(dc, lam_k * dc - g_flat) + land, torch.maximum(torch.max(torch.abs(dc)), max_pt)
+
+    b_flat = None if sharded else torch.cat([g_flat, blocks[0][4].reshape(-1)])
+    state = ba._lm_trials_tree(
+        state, y0, b_flat, (cams, *pts), solve_fn, cost_fn, config.inner_iterations,
+        rel_cost_tol=config.rel_cost_tol, metrics_fn=metrics_fn if sharded else None,
     )
     status = Status.CONVERGED if converged0 else state["status"]
     record = dict(cost=y0, cost_new=state["y"], rho=state["rho"], lam=state["lam"],
                   trials=state["trials"])
-    cams_out, pts_out = state["params"]
-    return cams_out, pts_out, state["lam"], state["terminal"], status, record
+    cams_out, *pts_out = state["params"]
+    return cams_out, tuple(pts_out), state["lam"], state["terminal"], status, record
 
 
 def ba_step_dense(problem, grouped, lam, config=DenseBAConfig(), *, schur_backend="auto"):
@@ -513,9 +586,9 @@ def ba_step_dense(problem, grouped, lam, config=DenseBAConfig(), *, schur_backen
     (``ops.schur``)."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     lam = torch.as_tensor(lam, dtype=dtype, device=dev)
-    cams, pts, lam, terminal, status, record = _dense_outer_step(
-        problem.camera_params, grouped.sort_points(problem.points), problem.intrinsics, grouped,
-        problem.loss, problem.n_fixed_cameras, lam, config, schur_backend,
+    cams, (pts,), lam, terminal, status, record = _dense_outer_step(
+        problem.camera_params, (grouped.sort_points(problem.points),), problem.intrinsics, [grouped],
+        problem.loss, problem.n_fixed_cameras, lam, config, schur_backend=schur_backend,
     )
     return cams, grouped.unsort_points(pts), lam, terminal, status, record
 
@@ -539,33 +612,111 @@ def solve_ba_dense(problem, config=DenseBAConfig(), grouped=None, host_loop=Fals
     return _solve_dense_host(problem, grouped, config, schur_backend)
 
 
-def _solve_dense_host(problem, grouped, config, schur_backend="auto"):
-    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    n_it = config.max_iterations
-    lam = torch.full((), -1.0, dtype=dtype, device=dev)
+def _outer_loop(step, cams, pts, n_it):
+    """At most n_it outer iterations of step(cams, pts, λ) → (cams, pts, λ′,
+    terminal, status, record), from λ = −1. Returns (cams, pts, status,
+    executed iterations, records)."""
+    lam = torch.full((), -1.0, dtype=cams.dtype, device=cams.device)
     status = Status.MAXIMUM_ITERATIONS_REACHED
     records = []
     executed = 0
-    # landmark state in grid-row order for the whole loop: sorted once here,
-    # unsorted once at the end
-    cams = problem.camera_params
-    pts = grouped.sort_points(problem.points)
     for it in range(n_it):
-        cams, pts, lam, terminal, status, record = _dense_outer_step(
-            cams, pts, problem.intrinsics, grouped, problem.loss, problem.n_fixed_cameras,
-            lam, config, schur_backend,
-        )
+        cams, pts, lam, terminal, status, record = step(cams, pts, lam)
         records.append(record)
         if terminal:
             executed = it  # the terminal iteration is not counted as executed
             break
         executed = it + 1
+    return cams, pts, status, executed, records
 
+
+def _result(cams, points, status, executed, cost, records, n_it):
+    dev = cams.device
     return ba.BAResult(
         camera_params=cams,
-        points=grouped.unsort_points(pts),
+        points=points,
         status=torch.tensor(int(status), dtype=torch.int32, device=dev),
         iterations=torch.tensor(executed, dtype=torch.int32, device=dev),
-        cost=_cost_grouped(cams, pts, problem.intrinsics, grouped),
-        trace=ba._result_trace(records, n_it, dtype, dev),
+        cost=cost,
+        trace=ba._result_trace(records, n_it, cams.dtype, dev),
     )
+
+
+def _solve_dense_host(problem, grouped, config, schur_backend="auto"):
+    def step(cams, pts, lam):
+        return _dense_outer_step(
+            cams, pts, problem.intrinsics, [grouped], problem.loss, problem.n_fixed_cameras,
+            lam, config, schur_backend=schur_backend,
+        )
+
+    # landmark state in grid-row order for the whole loop: sorted once here,
+    # unsorted once at the end
+    cams, (pts,), status, executed, records = _outer_loop(
+        step, problem.camera_params, (grouped.sort_points(problem.points),), config.max_iterations
+    )
+    cost = _cost_grouped(cams, pts, problem.intrinsics, grouped)
+    return _result(cams, grouped.unsort_points(pts), status, executed, cost, records, config.max_iterations)
+
+
+def _shard_layout(problem, mesh, grouped, n_shards):
+    """Each local shard's (GroupedBA, points): the grid flattened back to
+    landmark order with a single K, L padded to a shard multiple (mask 0,
+    points 1.0), rows split in mesh order, each on its shard's device."""
+    L = problem.points.shape[0]
+    pixels, cam_ids, mask = grouped.pixels, grouped.cam_ids, grouped.mask
+    if grouped.seg_bounds:
+        # valence segments do not align with shard boundaries
+        inv = grouped.inv_perm.long()
+        pixels, cam_ids, mask = pixels[inv], cam_ids[inv], mask[inv]
+    pts = problem.points
+    pad = -(-L // n_shards) * n_shards - L
+    if pad:
+        # padding rows: mask 0 everywhere, so V′ = 1e-12·I, h = 0 and δpt = 0
+        pixels = torch.cat([pixels, pixels.new_zeros((pad, *pixels.shape[1:]))])
+        cam_ids = torch.cat([cam_ids, cam_ids.new_zeros((pad, *cam_ids.shape[1:]))])
+        mask = torch.cat([mask, mask.new_zeros((pad, *mask.shape[1:]))])
+        pts = torch.cat([pts, pts.new_ones((pad, 3))])
+    rows = (L + pad) // n_shards
+    out = []
+    for j, dev in enumerate(mesh.devices):
+        sl = slice((mesh.first_shard + j) * rows, (mesh.first_shard + j + 1) * rows)
+        shard = GroupedBA(pixels=pixels[sl].to(dev).contiguous(), cam_ids=cam_ids[sl].to(dev).contiguous(),
+                          mask=mask[sl].to(dev).contiguous())
+        out.append((shard, pts[sl].to(dev)))
+    return out
+
+
+def solve_ba_dense_sharded(problem, mesh, config=DenseBAConfig(), axis="data", grouped=None):
+    """Distributed dense-Schur BA: the landmark axis sharded over the mesh.
+
+    The (L, K) grid and the landmark state are split along L (a segmented
+    grid is flattened back to landmark order with one K, and L padded to a
+    shard multiple); every shard gets its own GroupedBA, whose camera plan
+    and K11 pair plan are made once a solve. The cameras are replicated. Per
+    outer iteration the camera-space objects are summed over the mesh
+    (``Mesh.psum``: in shard order, then one all-reduce across processes),
+    so every λ/ρ/status decision is the same on every process and their
+    loops stay in lockstep. Returns a BAResult with the points in the
+    problem's landmark order, on every process. Pass ``grouped`` (from
+    ``group_by_landmark``) to reuse the host grouping.
+    """
+    n_shards = mesh.check_axis(axis)
+    L = problem.points.shape[0]
+    if grouped is None:
+        grouped = group_by_landmark(problem)
+    layout = _shard_layout(problem, mesh, grouped, n_shards)
+    shards = [s for s, _ in layout]
+    intr = problem.intrinsics
+
+    def step(cams, pts, lam):
+        return _dense_outer_step(cams, pts, intr, shards, problem.loss, problem.n_fixed_cameras, lam, config, mesh)
+
+    cams, pts, status, executed, records = _outer_loop(
+        step, problem.camera_params, tuple(p for _, p in layout), config.max_iterations
+    )
+    dev = cams.device
+    cost = mesh.psum(
+        [_cost_grouped(cams.to(d), p, intr.to(d), s) for p, s, d in zip(pts, shards, mesh.devices)], device=dev
+    )
+    points = mesh.gather_rows(torch.cat([p.to(dev) for p in pts]))[:L]
+    return _result(cams, points, status, executed, cost, records, config.max_iterations)

@@ -10,6 +10,11 @@ over the flattened (N·O) axis:
 ``linearize_tangent`` linearizes in the tangent space of a manifold (J in
 δ at δ = 0 of r(retract(x, δ))), for the solver's ``manifold=``.
 
+A problem whose rows are sharded over a mesh
+(``parallel.sharded.ShardedProblem``) evaluates each of ``linearize``,
+``linearize_tangent``, ``compute_cost`` and ``compute_block_costs`` shard by
+shard and sums over the mesh (its ``over_shards``).
+
 ``linearize_batched``, ``compute_cost_batched`` and
 ``compute_block_costs_batched`` evaluate the same functions for every lane of
 a (B, P) x with ``torch.func.vmap``, over each block's data too where that
@@ -30,12 +35,27 @@ does under jit: a masked row with a NaN residual adds 0, not NaN.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
 from moptimizer_0_tpu_torch.core.residual import Problem
+
+
+def _over_shards(fn):
+    """fn, which evaluates a ShardedProblem shard by shard: its
+    ``over_shards`` runs fn on each shard's problem and sums over the mesh."""
+
+    @functools.wraps(fn)
+    def evaluate(block_or_problem, x, *args, **kwargs):
+        over = getattr(block_or_problem, "over_shards", None)
+        if over is None:
+            return fn(block_or_problem, x, *args, **kwargs)
+        return over(lambda p, xs: fn(p, xs, *args, **kwargs), x)
+
+    return evaluate
 
 
 def _blocks_of(block_or_problem):
@@ -77,6 +97,7 @@ def _per_residual_weights(block, state):
     return vmap(lambda d: block.weight_fn(state, d))(block.data)
 
 
+@_over_shards
 def compute_cost(block_or_problem, x, accum_dtype=None):
     """Unweighted Σ_valid ‖r_i‖² over one block or a problem.
 
@@ -105,6 +126,7 @@ def compute_cost(block_or_problem, x, accum_dtype=None):
     return total
 
 
+@_over_shards
 def compute_block_costs(block_or_problem, x, accum_dtype=None):
     """Per-block unweighted Σ‖r‖², stacked to (n_blocks,)."""
     return torch.stack([compute_cost(b, x, accum_dtype) for b in _blocks_of(block_or_problem)])
@@ -138,6 +160,7 @@ def _jacobian_analytic(block, state):
     return vmap(lambda d: block.jacobian_fn(state, d))(block.data)
 
 
+@_over_shards
 def linearize(block_or_problem, x, mode="auto", accum_dtype=None):
     """Accumulate (cost, H, b) over one block or a whole problem.
 
@@ -263,6 +286,7 @@ def _accumulate(block, x, r, valid, J, P=None, accum_dtype=None):
     return cost, H, b
 
 
+@_over_shards
 def linearize_tangent(block_or_problem, x, retract_fn, mode="auto", accum_dtype=None):
     """(cost, H, b) in the tangent space of a manifold: J is the Jacobian in
     δ at δ = 0 of r(retract_fn(x, δ)), whose ``tangent_dim`` attribute gives

@@ -84,7 +84,15 @@ def icp_linearize(src, tgt, x, loss, valid=None):
 
 def fused_point2point_linearizer(block, x):
     """`linearize_fn` for point-to-point and ICP blocks, whose data holds
-    src and tgt (or matched), and optionally valid."""
+    src and tgt (or matched), and optionally valid. Sees through the
+    ``{_inner, _valid}`` wrapping of ``parallel.mesh.pad_block_to``: the
+    padding mask joins valid."""
     d = block.data
+    pad_valid = None
+    if "_inner" in d:
+        pad_valid, d = d["_valid"], d["_inner"]
+    valid = d.get("valid")
+    if pad_valid is not None:
+        valid = pad_valid if valid is None else (valid & pad_valid)
     tgt = d.get("tgt", d.get("matched"))
-    return icp_linearize(d["src"], tgt, x, block.loss, valid=d.get("valid"))
+    return icp_linearize(d["src"], tgt, x, block.loss, valid=valid)

@@ -235,13 +235,26 @@ def build_schur(U_d, Linv, W_segs, grouped, fixed_mask, *, backend="auto", chunk
     of each segment of ``grouped`` (a ``ba_dense.GroupedBA``: its ``views``,
     and for the kernel its cached ``schur_plan(C)``). fixed_mask (C,) is 1.0
     for free cameras, 0.0 for fixed ones."""
-    C = U_d.shape[0]
+    S_corr = grouped_correction(Linv, W_segs, grouped, U_d.shape[0], backend=backend, chunk=chunk)
+    return assemble_schur(S_corr, U_d, fixed_mask)
+
+
+def grouped_correction(Linv, W_segs, grouped, C, *, backend="auto", chunk=512):
+    """S_corr (6C, 6C) of one ``ba_dense.GroupedBA`` layout: its segments' G
+    folded into one flat buffer, then the kernel over the layout's cached
+    ``schur_plan(C)`` or the plain version, by ``backend``."""
     G, segments = fold_segments(W_segs, Linv, grouped.views)
-    if resolve_backend(backend, U_d) == "cuda":
-        S = schur_corr_cuda(grouped.schur_plan(C), G)
-    else:
-        S = _schur_corr_torch(segments, C, chunk)
-    S = S.to(U_d.dtype).neg_()
+    if resolve_backend(backend, G) == "cuda":
+        return schur_corr_cuda(grouped.schur_plan(C), G)
+    return _schur_corr_torch(segments, C, chunk)
+
+
+def assemble_schur(S_corr, U_d, fixed_mask):
+    """S = blockdiag(U_d) − S_corr in i·C + c order, with identity rows and
+    columns for the fixed cameras (fixed_mask 0.0). Writes S over S_corr
+    when it has U_d's dtype."""
+    C = U_d.shape[0]
+    S = S_corr.to(U_d.dtype).neg_()
     # U′ on the camera diagonal blocks: entry (c, i, j) lands at row i·C + c,
     # column j·C + c
     c = torch.arange(C, device=U_d.device)[:, None, None]

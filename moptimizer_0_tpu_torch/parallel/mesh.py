@@ -1,0 +1,247 @@
+"""Device meshes and residual sharding.
+
+PyTorch counterpart of ``moptimizer_0_tpu.parallel.mesh``. JAX runs one
+program per device of a ``Mesh`` under ``shard_map`` and sums with
+``psum``; PyTorch has no single-controller SPMD, so here a mesh is the list
+of this process's shards, each on a device, and a process runs its shards
+one after another:
+
+* ``Mesh.psum`` sums per-shard values over the local shards in shard order,
+  then, when the mesh spans processes, with one ``all_reduce`` over its
+  process group. The order is fixed, so two sharded solves are bit-equal,
+  and an all-reduce hands every process the same bytes, so the control
+  scalars of an LM loop are equal on every process and the loops stay in
+  lockstep. ``Mesh.pmax`` is the same with a max.
+* Shard ``j`` of process ``r`` is the mesh's shard ``r·n_local + j``: a
+  block's rows split into ``mesh.size`` equal parts in that order.
+
+The process group is torch.distributed's (gloo: NCCL refuses two processes
+on one card), whose all-reduce takes CUDA tensors as they are.
+"""
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from moptimizer_0_tpu_torch.utils.device import require
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A 1-D mesh: this process's shards and, across processes, a group.
+
+    devices: the torch.device of each local shard, in shard order.
+    axis_names: (name,) of the one mesh axis; ``shape[name]`` is the shard
+        count over all processes.
+    group: the torch.distributed process group the mesh spans, or None for
+        a mesh inside one process.
+    n_processes, process_index: the group's size and this process's rank.
+    """
+
+    devices: tuple
+    axis_names: tuple = ("data",)
+    group: Any = None
+    n_processes: int = 1
+    process_index: int = 0
+
+    @property
+    def n_local(self):
+        """Shards of this process."""
+        return len(self.devices)
+
+    @property
+    def size(self):
+        """Shards over all processes."""
+        return self.n_local * self.n_processes
+
+    @property
+    def shape(self):
+        """{axis name: shard count}, as ``jax.sharding.Mesh.shape``."""
+        return {self.axis_names[0]: self.size}
+
+    @property
+    def first_shard(self):
+        """The mesh index of this process's first shard."""
+        return self.process_index * self.n_local
+
+    def check_axis(self, axis):
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has axes {self.axis_names}, not {axis!r}")
+        return self.size
+
+    def psum(self, parts, device=None):
+        """Σ over the mesh of per-shard values: ``parts[j]`` is local shard
+        j's tensor, or tuple of tensors. Summed in shard order on ``device``
+        (the first part's by default), then across processes."""
+        return self._reduce(parts, device, torch.add, dist.ReduceOp.SUM)
+
+    def pmax(self, parts, device=None):
+        """max over the mesh of per-shard values, as ``psum``."""
+        return self._reduce(parts, device, torch.maximum, dist.ReduceOp.MAX)
+
+    def _reduce(self, parts, device, combine, op):
+        tuples = isinstance(parts[0], tuple)
+        rows = [p if tuples else (p,) for p in parts]
+        dev = rows[0][0].device if device is None else device
+        acc = [t.to(dev) for t in rows[0]]
+        for row in rows[1:]:
+            acc = [combine(a, t.to(dev)) for a, t in zip(acc, row)]
+        if self.group is not None:
+            acc = _all_reduce(acc, op, self.group)
+        return tuple(acc) if tuples else acc[0]
+
+    def gather_rows(self, t):
+        """This process's rows of a row-sharded tensor → every process's rows,
+        in process order (an all-gather; the tensor itself within one
+        process). Every process must hold as many rows."""
+        if self.group is None:
+            return t
+        as_bool = t.dtype == torch.bool
+        src = (t.to(torch.uint8) if as_bool else t).contiguous()
+        out = [torch.empty_like(src) for _ in range(self.n_processes)]
+        dist.all_gather(out, src, group=self.group)
+        out = torch.cat(out)
+        return out.bool() if as_bool else out
+
+
+def _all_reduce(tensors, op, group):
+    """One all-reduce of a list of same-dtype tensors (each reshaped back)."""
+    if len({t.dtype for t in tensors}) != 1:
+        return [_all_reduce([t], op, group)[0] for t in tensors]
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=op, group=group)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off : off + t.numel()].reshape(t.shape))
+        off += t.numel()
+    return out
+
+
+def make_mesh(n_devices=None, axis="data", device="cuda"):
+    """1-D mesh of ``n_devices`` shards placed round-robin on the visible
+    devices of ``device``'s type (one shard a device when None). On the CPU,
+    or on a machine with one card, n shards share that one device, as the
+    JAX package's tests share one CPU between 8 forced host devices. Raises
+    without a card unless ``device`` says otherwise."""
+    dev = require(device)
+    if dev.index is not None:
+        visible = [dev]
+    elif dev.type == "cuda":
+        visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        visible = [torch.device(dev.type)]
+    n = len(visible) if n_devices is None else int(n_devices)
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one shard, got {n_devices}")
+    return Mesh(devices=tuple(visible[i % len(visible)] for i in range(n)), axis_names=(axis,))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GlobalArray:
+    """This process's rows of an array whose rows are spread over the
+    processes of a mesh (``multihost.make_global_array``).
+
+    local: the rows this process supplied. shape: the global shape, rows
+    summed over the processes."""
+
+    local: torch.Tensor
+    mesh: Mesh
+    axis: str
+    shape: tuple
+
+
+def tree_map(fn, tree):
+    """fn over the leaves of a nest of dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _rows(block):
+    return tree_leaves(block.data)[0].shape[0]
+
+
+def pad_block_to(block, multiple):
+    """Pad a block's residual axis to a multiple of ``multiple``.
+
+    Padded rows repeat row 0's data and are masked invalid: the data becomes
+    ``{"_inner": data, "_valid": (target,) bool}`` and the residual and
+    Jacobian functions are wrapped to unwrap it; the fused point-to-point
+    linearizer sees through it. As in the JAX package, ``update_fn`` and
+    ``weight_fn`` are not wrapped: a padded block with either fails.
+    """
+    if block.data is None:
+        return block
+    n = _rows(block)
+    target = -(-n // multiple) * multiple
+    if target == n:
+        return block
+    pad = target - n
+
+    def pad_leaf(leaf):
+        return torch.cat([leaf, leaf[:1].expand(pad, *leaf.shape[1:])])
+
+    valid = torch.arange(target, device=tree_leaves(block.data)[0].device) < n
+    data = dict(_inner=tree_map(pad_leaf, block.data), _valid=valid)
+    inner_fn = block.residual_fn
+
+    def wrapped(state, d):
+        out = inner_fn(state, d["_inner"])
+        if isinstance(out, tuple):
+            r, v = out
+            return r, v & d["_valid"]
+        return out, d["_valid"]
+
+    wrapped_jac = None
+    if block.jacobian_fn is not None:
+        inner_jac = block.jacobian_fn
+
+        def wrapped_jac(state, d):
+            return inner_jac(state, d["_inner"])
+
+    return dataclasses.replace(block, data=data, residual_fn=wrapped, jacobian_fn=wrapped_jac)
+
+
+def is_global(block):
+    """True for a block whose data holds ``GlobalArray`` leaves."""
+    return block.data is not None and isinstance(tree_leaves(block.data)[0], GlobalArray)
+
+
+def shard_block_data(block, mesh, axis="data"):
+    """The blocks of this process's shards, one a local shard, each with its
+    rows of the data on its shard's device; everything else (loss, Σ) is
+    shared. A block of ``GlobalArray`` leaves splits this process's rows
+    over its local shards; any other block is the global data, split over
+    all of the mesh's shards. The rows must divide the shard count
+    (``pad_block_to``). A block with no data is returned once, unsplit."""
+    n_shards = mesh.check_axis(axis)
+    if block.data is None:
+        return (block,)
+    if is_global(block):
+        data, parts, first = tree_map(lambda g: g.local, block.data), mesh.n_local, 0
+    else:
+        data, parts, first = block.data, n_shards, mesh.first_shard
+    n = tree_leaves(data)[0].shape[0]
+    if n % parts:
+        raise ValueError(
+            f"block {block.name!r}: {n} rows do not divide {parts} shards; pad_block_to first"
+        )
+    rows = n // parts
+
+    def shard(j, dev):
+        s = (first + j) * rows
+        return dataclasses.replace(block, data=tree_map(lambda leaf: leaf[s : s + rows].to(dev), data))
+
+    return tuple(shard(j, dev) for j, dev in enumerate(mesh.devices))

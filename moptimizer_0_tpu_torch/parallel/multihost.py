@@ -1,0 +1,120 @@
+"""Multi-process initialization and global-array helpers.
+
+PyTorch counterpart of ``moptimizer_0_tpu.parallel.multihost``, on
+torch.distributed with the gloo backend (NCCL refuses two processes on one
+card). Every process runs the same program:
+
+    from moptimizer_0_tpu_torch.parallel import multihost
+    multihost.initialize(coordinator_address="host:port", num_processes=N,
+                         process_id=i)        # or no arguments under torchrun
+    mesh = multihost.global_mesh()            # this process's shards + the group
+    blk = multihost.make_global_block(local_block, mesh)   # local rows in
+    res = distributed_levenberg_marquardt(problem(blk), x0, mesh, cfg)
+
+Each process feeds only its own rows; the engine's sums over the mesh end in
+one all-reduce over the group (``mesh.Mesh.psum``).
+"""
+
+import dataclasses
+import datetime
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from moptimizer_0_tpu_torch.parallel.mesh import GlobalArray, Mesh, make_mesh, tree_map
+
+BACKEND = "gloo"
+_TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
+def is_initialized():
+    """True when torch.distributed has a process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def initialize(coordinator_address=None, num_processes=None, process_id=None, initialization_timeout=300):
+    """Idempotent ``torch.distributed.init_process_group``, with the JAX
+    package's keyword names (``initialization_timeout`` in seconds).
+
+    * already initialized: a no-op;
+    * explicit arguments: a group at ``tcp://coordinator_address`` of
+      ``num_processes`` ranks, this one ``process_id``; failures propagate
+      (an unreachable coordinator raises after the timeout);
+    * no arguments: the torchrun environment (MASTER_ADDR, MASTER_PORT,
+      WORLD_SIZE, RANK) when it is set, else a single-process run, unchanged.
+    """
+    if is_initialized():
+        return
+    timeout = datetime.timedelta(seconds=initialization_timeout)
+    given = (coordinator_address, num_processes, process_id)
+    if any(v is not None for v in given):
+        if any(v is None for v in given):
+            raise ValueError("initialize: give coordinator_address, num_processes and process_id together")
+        dist.init_process_group(
+            BACKEND, init_method=f"tcp://{coordinator_address}", world_size=int(num_processes),
+            rank=int(process_id), timeout=timeout,
+        )
+    elif all(k in os.environ for k in _TORCHRUN_ENV):
+        dist.init_process_group(BACKEND, init_method="env://", timeout=timeout)
+
+
+def _rank_and_size():
+    if is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def global_mesh(axis="data", shards_per_process=None, device="cuda"):
+    """A mesh over every process's shards: this process's
+    ``make_mesh(shards_per_process, axis, device)`` and the default group
+    (every process must have as many shards). Without a group, that local
+    mesh."""
+    local = make_mesh(shards_per_process, axis, device)
+    rank, size = _rank_and_size()
+    if size == 1:
+        return local
+    counts = [None] * size
+    dist.all_gather_object(counts, local.n_local)
+    if len(set(counts)) != 1:
+        raise ValueError(f"global_mesh: processes have different shard counts {counts}")
+    return dataclasses.replace(local, group=dist.group.WORLD, n_processes=size, process_index=rank)
+
+
+def host_local_shard(array, axis=0):
+    """This process's contiguous part of an array every process holds
+    (split by rank; the last rank takes the remainder)."""
+    i, n = _rank_and_size()
+    size = array.shape[axis]
+    chunk = size // n
+    start = i * chunk
+    stop = size if i == n - 1 else start + chunk
+    index = [slice(None)] * array.ndim
+    index[axis] = slice(start, stop)
+    return array[tuple(index)]
+
+
+def make_global_array(local_rows, mesh, axis="data"):
+    """This process's rows of a global array sharded along ``axis``
+    (``mesh.GlobalArray``): its ``shape`` counts the rows of every
+    process. The local rows must divide the process's shards."""
+    mesh.check_axis(axis)
+    t = local_rows if isinstance(local_rows, torch.Tensor) else torch.as_tensor(np.asarray(local_rows))
+    if t.shape[0] % mesh.n_local:
+        raise ValueError(f"{t.shape[0]} local rows do not divide {mesh.n_local} local shards")
+    rows = t.shape[0]
+    if mesh.group is not None:
+        counts = [None] * mesh.n_processes
+        dist.all_gather_object(counts, rows, group=mesh.group)
+        rows = sum(counts)
+    return GlobalArray(local=t, mesh=mesh, axis=axis, shape=(rows, *t.shape[1:]))
+
+
+def make_global_block(block, mesh, axis="data"):
+    """The block whose data every process supplies as its own rows: its
+    leaves become ``GlobalArray``s, which ``parallel.sharded`` splits over
+    this process's shards."""
+    if block.data is None:
+        return block
+    return dataclasses.replace(block, data=tree_map(lambda leaf: make_global_array(leaf, mesh, axis), block.data))

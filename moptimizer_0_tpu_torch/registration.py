@@ -16,6 +16,7 @@ end) with any of the three methods, searching through the hash grid
 (``utils.device``).
 """
 
+import dataclasses
 import math
 
 import torch
@@ -23,6 +24,7 @@ import torch
 from moptimizer_0_tpu_torch.core.residual import make_block, problem
 from moptimizer_0_tpu_torch.core.solver import (
     LMConfig,
+    LMResult,
     Status,
     levenberg_marquardt,
     levenberg_marquardt_batched,
@@ -527,13 +529,15 @@ def icp_batched(
     searches all lanes with one expansion search (K6 on the card).
 
     Returns an LMResult with a leading B on every field; each lane matches
-    its own ``icp(..., nn_backend="xla")`` solve. ``mesh``/``mesh_axis``
-    (sharding the lanes over devices) come with the ``parallel/`` slice.
+    its own ``icp(..., nn_backend="xla")`` solve.
+
+    mesh: an optional ``parallel.mesh.Mesh`` whose axis (``mesh_axis``, the
+    mesh's first by default) splits the lanes: each shard runs the batched
+    loop on its B / n_shards lanes, with one search of its lanes a pass, on
+    its device. Lanes are independent, so nothing is reduced; the results
+    are concatenated in lane order (and gathered from every process of a
+    mesh that spans processes). B must divide the shard count.
     """
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError(
-            "icp_batched over a device mesh comes with the parallel/ slice; see ROADMAP.md"
-        )
     srcs = as_input(srcs)
     tgt_clouds = as_input(tgt_clouds)
     if config is None:
@@ -543,8 +547,32 @@ def icp_batched(
         x0s = torch.cat([t0, torch.zeros_like(t0)], dim=1)
     else:
         x0s = as_input(x0s, srcs.device)
-    blk = _icp_fleet_block(srcs, tgt_clouds, loss=loss, max_corr_dist=max_corr_dist)
-    return levenberg_marquardt_batched(problem(blk), x0s, config)
+    if mesh is None:
+        blk = _icp_fleet_block(srcs, tgt_clouds, loss=loss, max_corr_dist=max_corr_dist)
+        return levenberg_marquardt_batched(problem(blk), x0s, config)
+    axis = mesh_axis or mesh.axis_names[0]
+    n_shards = mesh.check_axis(axis)
+    B = srcs.shape[0]
+    if B % n_shards:
+        raise ValueError(
+            f"fleet size B={B} must divide the mesh axis {axis!r} ({n_shards} shards): "
+            "pad the fleet to a multiple"
+        )
+    lanes = B // n_shards
+    parts = []
+    for j, dev in enumerate(mesh.devices):
+        sl = slice((mesh.first_shard + j) * lanes, (mesh.first_shard + j + 1) * lanes)
+        blk = _icp_fleet_block(srcs[sl].to(dev), tgt_clouds[sl].to(dev), loss=loss, max_corr_dist=max_corr_dist)
+        parts.append(levenberg_marquardt_batched(problem(blk), x0s[sl].to(dev), config))
+
+    def lanes_of(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: lanes_of(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+        return mesh.gather_rows(torch.cat([leaf.to(srcs.device) for leaf in leaves]))
+
+    return LMResult(**{
+        f.name: lanes_of(*(getattr(r, f.name) for r in parts)) for f in dataclasses.fields(LMResult)
+    })
 
 
 def _centroid_seed(src, tgt_cloud):

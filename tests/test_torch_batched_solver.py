@@ -31,6 +31,7 @@ from moptimizer_0_tpu_torch.models.curve_fitting import CERES_CURVE_DATA, expone
 from moptimizer_0_tpu_torch.models.point2point import point2point_block
 from moptimizer_0_tpu_torch.models.powell import powell_block
 from moptimizer_0_tpu_torch.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+from moptimizer_0_tpu_torch.parallel import make_mesh
 from moptimizer_0_tpu_torch.registration import (
     _icp_block_with_searcher,
     icp,
@@ -324,8 +325,8 @@ def test_icp_batched_with_nn_update():
         single = icp(torch.as_tensor(srcs[i]), torch.as_tensor(tgts[i]), nn_backend="xla", max_corr_dist=1.0)
         np.testing.assert_allclose(res.x[i].numpy(), single.x.numpy(), atol=1e-9)
         assert int(res.status[i]) == int(single.status)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        icp_batched(torch.as_tensor(srcs), torch.as_tensor(tgts), mesh=object())
+    with pytest.raises(ValueError, match="must divide"):
+        icp_batched(torch.as_tensor(srcs), torch.as_tensor(tgts), mesh=make_mesh(2, device="cpu"))
 
 
 def test_shared_data_with_a_vmapped_update_hook():

@@ -29,7 +29,12 @@ def test_import_leaves_jax_out():
         "moptimizer_0_tpu_torch.models.gicp, moptimizer_0_tpu_torch.ba_intrinsics, "
         "moptimizer_0_tpu_torch.core.manifold, moptimizer_0_tpu_torch.core.covariance, "
         "moptimizer_0_tpu_torch.models.camera, moptimizer_0_tpu_torch.models.accelerometer, "
-        "moptimizer_0_tpu_torch.models.state, moptimizer_0_tpu_torch.ops.pcg; "
+        "moptimizer_0_tpu_torch.models.state, moptimizer_0_tpu_torch.ops.pcg, "
+        "moptimizer_0_tpu_torch.parallel, moptimizer_0_tpu_torch.parallel.mesh, "
+        "moptimizer_0_tpu_torch.parallel.sharded, moptimizer_0_tpu_torch.parallel.multihost, "
+        "moptimizer_0_tpu_torch.utils, moptimizer_0_tpu_torch.utils.checkpoint, "
+        "moptimizer_0_tpu_torch.utils.checks, moptimizer_0_tpu_torch.utils.logging, "
+        "moptimizer_0_tpu_torch.utils.profiling, moptimizer_0_tpu_torch.utils.stopwatch; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'moptimizer_0_tpu.'))"
         " or m == 'moptimizer_0_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -47,10 +52,22 @@ def test_public_names_mirror_the_jax_package():
         "Cauchy", "GemanMcClure", "Huber", "TrivialLoss", "ResidualBlock", "Problem",
         "linearize", "compute_cost", "LMConfig", "LMResult", "Status",
         "levenberg_marquardt", "levenberg_marquardt_batched", "lm_step", "solve_multistart", "lie",
-        "icp", "icp_batched", "manifold",
+        "icp", "icp_batched", "manifold", "parallel",
     }
     missing = [n for n in names if not hasattr(moptimizer_0_tpu_torch, n)]
     assert not missing
+
+
+def test_parallel_names_mirror_the_jax_package():
+    from moptimizer_0_tpu_torch import parallel
+    from moptimizer_0_tpu_torch.parallel import multihost
+
+    for name in ("make_mesh", "shard_block_data", "pad_block_to", "sharded_linearize",
+                 "sharded_compute_cost", "distributed_levenberg_marquardt"):
+        assert callable(getattr(parallel, name)), name
+    for name in ("is_initialized", "initialize", "global_mesh", "host_local_shard", "make_global_array",
+                 "make_global_block"):
+        assert callable(getattr(multihost, name)), name
 
 
 @pytest.mark.parametrize(

@@ -181,9 +181,15 @@ def test_f3_camera_sum_equals_the_per_camera_sum(L, K, C, keep, skew):
 
 
 def test_f3_no_index_add_in_the_camera_reductions():
-    for fn in (tbd._gn_blocks_grouped, tbd._solve_delta_dense):
+    # U and g, and the rhs reduction (_rhs_reduction, which every damped solve
+    # calls through _solve_delta_shards, sharded or not)
+    for fn in (tbd._gn_blocks_grouped, tbd._rhs_reduction):
         src = inspect.getsource(fn)
         assert "index_add_" not in src and "scatter_add" not in src and "camera_plan" in src
+    src = inspect.getsource(tbd._solve_delta_shards)
+    assert "index_add_" not in src and "scatter_add" not in src and "_rhs_reduction" in src
+    for fn in (tbd._solve_delta_dense, tbd._dense_outer_step):
+        assert "_solve_delta_shards" in inspect.getsource(fn)
 
 
 def _masking_searcher(cloud, radius):
