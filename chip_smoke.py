@@ -99,7 +99,32 @@ prints no result):
     processes must exit 0 and print the same bits (each solve's repeat
     too), the BA within 1e-4 of phase 14(b)'s
     4-shard cost, and each times an all-reduce of S's size with the CUDA
-    tensor handed to gloo and staged through the host.
+    tensor handed to gloo and staged through the host; both also run
+    ``solve_ba`` (CG) on the phase-5 instance with the observations sharded
+    along rows, each process feeding its own half (``host_local_shard``,
+    ``make_global_array``), twice: the same bits in both processes and both
+    solves, the first three outer iterations within 1e-5 and the final cost
+    within 1e-5 of phase 16's 4-shard solve, the all-reduces of a solve
+    counted and timed, and ``engine="dense"`` refused;
+16. (run before 15) the observation-sharded CG engine in one process:
+    ``solve_ba`` on the phase-5 instance with ``cam_idx``, ``pt_idx`` and
+    ``pixels`` as ``GlobalArray``s over 2 and 4 shards (4 twice, bit-equal),
+    held to phase 5(a)'s unsharded CG solve (the first three outer
+    iterations' cost and cost_new within 1e-5, the final cost within 1e-5
+    and within ±1% of the χ² floor, fixed cameras unmoved, no K11), and the
+    O=1M, C=4,000 instance over 4 shards held so to phase 5(b)'s routed
+    solve; walls, host reads, mesh reductions, and a PCG iteration's ms and
+    reductions;
+17. the six examples of ``moptimizer_0_tpu_torch.examples`` through their
+    ``main()`` at the JAX scripts' sizes, with their asserts (the curve to
+    its minimum, SciPy's three minima, the ICP transform to 2e-3, the fleet,
+    multistart and fixed-lag checks, the SfM's aligned RMS < 0.05 and
+    reprojection RMS < 1 px) and their launches (K5 in the ICP and the
+    fixed-lag SLAM, K6 in the fleet, K11 once a trial in the BA example's
+    ``engine="auto"`` route); ``solve_ba_dense(schur_solver="blocked")`` on
+    the phase-5 instance within 1e-5 of phase 5's solve; and
+    ``spd_solve_blocked`` against one ``cholesky_ex`` at 6C = 1,200 and
+    24,000, relative residuals and times.
 
 The dense-BA solve runs twice and must repeat itself bit for bit.
 
@@ -119,6 +144,7 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import json
 import socket
 import subprocess
@@ -147,6 +173,15 @@ from moptimizer_0_tpu_torch.models import accelerometer, camera, curve_fitting, 
 from moptimizer_0_tpu_torch.models.point2point import point2point_block
 from moptimizer_0_tpu_torch.models.state import product_state_block
 from moptimizer_0_tpu_torch.odometry import scan_odometry
+from moptimizer_0_tpu_torch.examples import (
+    bundle_adjustment,
+    cross_check_scipy,
+    curve_fitting as curve_example,
+    fleet_and_fixed_lag,
+    icp_registration,
+    sfm_reconstruct,
+)
+from moptimizer_0_tpu_torch.ops.block_cholesky import spd_solve, spd_solve_blocked
 from moptimizer_0_tpu_torch.parallel import (
     distributed_levenberg_marquardt,
     make_mesh,
@@ -154,6 +189,7 @@ from moptimizer_0_tpu_torch.parallel import (
     sharded_compute_cost,
     sharded_linearize,
 )
+from moptimizer_0_tpu_torch.parallel import mesh as mesh_module
 from moptimizer_0_tpu_torch.ops import grid_nn, surface
 from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
 from moptimizer_0_tpu_torch.ops.schur import (
@@ -334,6 +370,23 @@ SHARDED_FLEET_TOL = 1e-5
 # and the final cost to SHARDED_BA_COST_RTOL of (b)'s, as (b) against phase 5.
 TWO_PROCESS_TIMEOUT_S = 300
 TWO_PROCESS_BA_RTOL = SHARDED_BA_COST_RTOL
+# Phase 16: the observation-sharded CG engine in one process, the headline
+# over 2 and 4 shards (4 twice) and the O=1M, C=4,000 instance over 4. The
+# shards sum U, V, g, h, the costs and each PCG iteration's two reductions in
+# another order than the unsharded engine, a roundoff of the same kind as
+# the sharded dense engine's: the first outer iterations' cost and cost_new
+# to BA_COST_RTOL, the final cost to SHARDED_BA_COST_RTOL of the unsharded
+# CG solve's (phase 5(a), and phase 5(b)'s routed solve for the big one).
+# Phase 15 runs the headline's sharded CG over 2 processes × 2 shards: its
+# rows split as the 4 shards here, summed as ((s0 + s1) + (s2 + s3)).
+SHARDED_CG_SHARDS = (2, 4)
+SHARDED_CG_BIG_SHARDS = 4
+# Phase 17: the blocked Cholesky (ops/block_cholesky.py) against one
+# cholesky_ex on SPD matrices M·Mᵀ/n + I (eigenvalues in [1, 5]) at the
+# headline's 6C and at 6C = 24,000: the relative residual ‖Ax − b‖/‖b‖ of
+# each, in float32, is about √n·ε·κ ≈ 1e-4 at n = 24,000; held to 1e-3.
+BLOCKED_SIZES = (6 * BA_C, 24_000)
+BLOCKED_RESIDUAL = 1e-3
 # The SciPy MINPACK-LM minimum of the curve data's first 64 rows
 # (tests/test_multihost.py), to 5e-5.
 CURVE_MINIMUM_64 = [0.29284892, 0.12883951]
@@ -416,10 +469,42 @@ def _nn_cases(rng, dev):
     return cases
 
 
-def check_nn_kernel(cloud, rng):
+def _example_kernel_inputs(dev):
+    """Each kernel's inputs on the examples' paths, made by the example
+    modules' own helpers at their main()'s defaults: {"nn": K5 cases,
+    "expand": K6 cases, "schur": K11 cases as (segments, C)}. K5: the
+    fixed-lag registrar's search, scan 1 at its true pose against scan 0;
+    K6: the fleet's first pass (the sources against the targets) and the
+    fixed-lag stream's coarse seed; K11: the BA example's S build, grouped
+    as ``solve_ba_dense`` groups it on the engine="auto" route."""
+    fl = {k: v.default for k, v in inspect.signature(fleet_and_fixed_lag.main).parameters.items()}
+    rng = np.random.default_rng(0)  # main()'s stream: the fleet, then the scans
+    srcs, tgts, _ = fleet_and_fixed_lag.make_fleet(rng, fl["B"], fl["N"])
+    scans, gt = fleet_and_fixed_lag.make_scans(rng, fl["k_scans"], fl["n_scan"])
+    scans = [torch.as_tensor(s, device=dev) for s in scans]
+    T1 = se3.transform_from_params6(torch.as_tensor(gt[1], dtype=torch.float32, device=dev))
+    coarse = _coarse_seed_search(scans, dev, gate=fleet_and_fixed_lag.GATE)
+    B, N = srcs.shape[:2]
+    ex = {k: v.default for k, v in inspect.signature(bundle_adjustment.main).parameters.items()}
+    ba_start, _ = bundle_adjustment.make_problem(ex["C"], ex["L"], device=dev, dtype=ex["dtype"])
+    grouped = ba_dense.group_by_landmark(ba_start, segments="auto")
+    return dict(
+        nn={f"fixed-lag example, scan 1 ({scans[1].shape[0]} points) against scan 0":
+            (se3.apply_transform(T1, scans[1]).contiguous(), scans[0])},
+        expand={
+            f"fleet example {B}x{N}x{N}": (torch.as_tensor(srcs, device=dev), torch.as_tensor(tgts, device=dev)),
+            "fixed-lag example coarse seed, {} yaw starts x {} x {}".format(*coarse[0].shape[:2],
+                                                                            coarse[1].shape[1]): coarse,
+        },
+        schur={f"bundle_adjustment example C={ex['C']} L={ex['L']} segments {_segments_text(grouped)}":
+               (_s_build_segments(ba_start, grouped), ex["C"])},
+    )
+
+
+def check_nn_kernel(cloud, rng, extra):
     """nn_cuda against _nn_torch: equal indices and bit-equal d² at the
-    fachada shape, at the distributed ICP's shard shapes, at the cases of
-    ``_nn_cases`` and at NaN target rows,
+    fachada shape, at the distributed ICP's shard shapes, at the examples'
+    shapes (``extra``), at the cases of ``_nn_cases`` and at NaN target rows,
     overflowing rows and subnormal differences, each with its targets in the
     ranges ``target_splits`` gives it. Timed at the fachada shape."""
     dev = cloud.device
@@ -430,6 +515,7 @@ def check_nn_kernel(cloud, rng):
         # the whole target, which can give it other target ranges
         rows = cloud.shape[0] // n
         cases[f"fachada, one of {n} shards"] = (q_full[-rows:].contiguous(), cloud)
+    cases.update(extra)
     cases.update(_nn_cases(rng, dev))
     q_nan, base = cases["NaN query rows"]
     p_nan = base.clone()
@@ -517,24 +603,25 @@ def _subnormal_cloud(rng, n, dev):
     return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
 
-def _coarse_seed_search(scans, dev):
-    """The SLAM path's first K6 call: the coarse subsamples of scans 1 and
-    0, the source warped by each yaw start of the registrar's multistart,
-    against the target copied into every lane, as ``_icp_fleet_block``
-    searches them."""
+def _coarse_seed_search(scans, dev, gate=SLAM_GATE):
+    """A scan stream's first K6 call: the coarse subsamples of scans 1 and
+    0, the source warped by each yaw start of the multistart of a registrar
+    gated at ``gate``, against the target copied into every lane, as
+    ``_icp_fleet_block`` searches them."""
     src_c = _coarse_subsample(scans[1].to(dev))
     tgt_c = _coarse_subsample(scans[0].to(dev))
-    B = PairwiseRegistrar(max_corr_dist=SLAM_GATE).coarse_multistart
+    B = PairwiseRegistrar(max_corr_dist=gate).coarse_multistart
     T = se3.transform_from_params6(_yaw_starts(src_c, tgt_c, B))
     warped = src_c @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
     return warped.contiguous(), tgt_c.expand(B, *tgt_c.shape).contiguous()
 
 
-def check_expand_kernel(cloud, srcs, tgts, coarse, rng):
+def check_expand_kernel(cloud, srcs, tgts, coarse, rng, extra):
     """nn_expand_cuda against _nn_expand_torch: equal indices and bit-equal
     d² at the fleet shape, at one shard of the sharded fleet, at the SLAM
     coarse seed's shape (``coarse``: 8 yaw starts against one shared
-    target) and at one-lane, ragged, tied, NaN, 3-lane and subnormal cases;
+    target), at the examples' shapes (``extra``) and at one-lane, ragged,
+    tied, NaN, 3-lane and subnormal cases;
     the cases below the fleet's size have their targets split, and the tie
     cases have tied targets on both sides of a range's end. Timed at the
     fleet shape and at one lane."""
@@ -544,6 +631,7 @@ def check_expand_kernel(cloud, srcs, tgts, coarse, rng):
         f"fleet {FLEET_B}x{cloud.shape[0]}x{cloud.shape[0]}": (srcs, tgts),
         f"fleet shard, {lanes} lanes (one of {FLEET_MESH})": (srcs[-lanes:], tgts[-lanes:]),
         "SLAM coarse seed, {} yaw starts x {} x {}".format(*coarse[0].shape[:2], coarse[1].shape[1]): coarse,
+        **extra,
         "one fachada lane": (_transformed(cloud, X_A, rng), cloud),
         **_nn_cases(rng, dev),
     }
@@ -715,9 +803,10 @@ def _segments_text(grouped):
     return f"(end_row, K_s) {grouped.seg_bounds}" if grouped.seg_bounds else "unsegmented"
 
 
-def check_schur_kernel(prob, grouped, dev, rng):
+def check_schur_kernel(prob, grouped, dev, rng, extra):
     """schur_corr_cuda against _schur_corr_torch: max|ΔS_corr|/max|S_corr| ≤
-    S_BOUND per case, and two builds of each equal bit for bit; the plan's
+    S_BOUND per case (the headline, the examples' ``extra``, random and
+    segmented layouts), and two builds of each equal bit for bit; the plan's
     build time and bytes at the headline shape (the layout the solve
     caches); timed at the headline shape."""
     # many unobserved landmarks: forced into a zero-width last segment
@@ -728,6 +817,7 @@ def check_schur_kernel(prob, grouped, dev, rng):
     cases = {
         f"headline O={BA_O} C={BA_C} L={BA_L} segments {_segments_text(grouped)}":
             (_s_build_segments(prob, grouped), BA_C),
+        **extra,
         "ragged C=5 L=37 K=9 with duplicate cameras": (_random_segments(rng, dev, 5, 37, 9, 0.6), 5),
         "wide C=7 L=23 K=70 (slot windows past 32)": (_random_segments(rng, dev, 7, 23, 70, 0.6), 7),
         f"segments=3 with unobserved landmarks, segments {_segments_text(grouped3)}":
@@ -933,35 +1023,43 @@ def _check_descent(what, prob, res, cost):
 
 
 def _cg_stage_times(prob):
-    """The CG engine's stages at the start of a solve: ms (CUDA events over
-    back-to-back calls, so the host's launch rate when it is the slower),
-    device ms and launches (torch.profiler) of one ``_schur_matvec`` (a PCG
-    iteration's matvec) and of one damped solve (``_solve_delta``,
-    cg_iterations PCG iterations)."""
+    """The CG engine's stages at the start of a solve, on an unsharded or an
+    observation-sharded problem: ms (CUDA events over back-to-back calls, so
+    the host's launch rate when it is the slower), device ms and launches
+    (torch.profiler) of one ``_schur_matvec`` (a PCG iteration's matvec) and
+    of one damped solve (``_solve_delta``, cg_iterations PCG iterations),
+    and the mesh reductions of one matvec."""
     cfg = ba.BAConfig()
-    plans = ba._plans(prob)
-    r, A, B = ba._linearize(prob)
-    U, V, W, g, h = ba._gn_blocks(prob, r, A, B, plans)
-    lam = ba._seed_lambda(torch.full((), -1.0, dtype=r.dtype, device=r.device), U, V, cfg.init_lambda_factor)
+    mesh, shards = ba._shards(prob)
+    plans = [ba._plans(s) for s in shards]
+    dev = prob.camera_params.device
+
+    def linearize():
+        return ba._linearize_shards(mesh, shards, plans, prob.camera_params, prob.points)
+
+    rows, (U, V, g, h, _) = linearize()
+    lam = ba._seed_lambda(torch.full((), -1.0, dtype=g.dtype, device=dev), U, V, cfg.init_lambda_factor)
     U_d = ba._damp_blocks(U, lam)
-    Vinv = ba._inv3x3(ba._damp_blocks(V, lam) + 1e-12 * torch.eye(3, dtype=r.dtype, device=r.device))
+    Vinv = ba._inv3x3(ba._damp_blocks(V, lam) + 1e-12 * torch.eye(3, dtype=g.dtype, device=dev))
     mask = ba._cam_mask(prob)
     u = torch.randn_like(g)
 
     def matvec():
-        return ba._schur_matvec(u, U_d, W, Vinv, prob.cam_idx, prob.pt_idx, plans, mask)
+        return ba._schur_matvec(u, U_d, Vinv, mesh, rows, mask)
 
     def solve():
-        return ba._solve_delta(prob, U, V, W, g, h, lam, cfg, plans)
+        return ba._solve_delta(prob, U, V, g, h, lam, cfg, mesh, rows)
 
     solve()
-    out = dict(matvec_ms=_time_ms(matvec, 20), solve_ms=_time_ms(solve, 3),
-               linearize_ms=_time_ms(lambda: ba._gn_blocks(prob, *ba._linearize(prob), plans), 5))
+    reductions = mesh_module.REDUCTIONS
+    matvec()
+    reductions = mesh_module.REDUCTIONS - reductions
+    out = dict(matvec_ms=_time_ms(matvec, 20), solve_ms=_time_ms(solve, 3), linearize_ms=_time_ms(linearize, 5))
     out["matvec_launches"], out["matvec_device_ms"] = _device_profile(matvec)
     out["solve_launches"], out["solve_device_ms"] = _device_profile(solve)
     n = cfg.cg_iterations
     out.update(pcg_iteration_ms=out["solve_ms"] / n, pcg_iteration_device_ms=out["solve_device_ms"] / n,
-               pcg_iteration_launches=out["solve_launches"] / n)
+               pcg_iteration_launches=out["solve_launches"] / n, pcg_iteration_reductions=reductions)
     return out
 
 
@@ -996,7 +1094,7 @@ def run_ba_cg(prob, dense_res):
     print("CG BA stages at the start (CUDA events, launches by torch.profiler): " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items()))
     return dict(wall_s=[wall_s, wall2_s], outer=run, trials=sum(trials), reads=reads, cost=cost,
-                vs_floor=cost / floor - 1, ms_per_outer=wall_s / max(run, 1) * 1e3, k11=k11, **stages)
+                vs_floor=cost / floor - 1, ms_per_outer=wall_s / max(run, 1) * 1e3, k11=k11, **stages), res
 
 
 def run_ba_routing(prob, dense_res):
@@ -1045,7 +1143,7 @@ def run_ba_routing(prob, dense_res):
     print("  stages at the start: " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items()))
     return dict(wall_s=[wall_s, wall2_s], outer=run, reads=reads, start=costs[0], cost=cost,
-                vs_floor=cost / floor - 1, k11=k11, **stages)
+                vs_floor=cost / floor - 1, k11=k11, **stages), big, res
 
 
 def run_selfcal(prob):
@@ -1968,6 +2066,205 @@ def run_fleet_sharded(srcs, tgts, fleet, x_true):
                 bit_equal=bit_equal)
 
 
+def _observation_sharded(prob, mesh, rows=None):
+    """prob with cam_idx, pt_idx and pixels as GlobalArrays of the mesh:
+    ``rows(a)`` of each (all of them by default, as within one process)."""
+    rows = rows or (lambda a: a)
+    return dataclasses.replace(
+        prob, **{k: multihost.make_global_array(rows(getattr(prob, k)), mesh) for k in ("cam_idx", "pt_idx", "pixels")}
+    )
+
+
+def _hold_sharded_cg(what, sp, res, cost, single, floor):
+    """The sharded CG solve against the unsharded one: the χ² band, fixed
+    cameras unmoved, a non-increasing cost, no K11, the first outer
+    iterations to BA_COST_RTOL and the final cost to SHARDED_BA_COST_RTOL.
+    Returns (final-cost gap, early gap)."""
+    _check_descent(what, sp, res, cost)
+    rel = abs(cost / float(single.cost) - 1)
+    early = _early_gap(_early_costs(res.trace), _early_costs(single.trace))
+    if k_schur.LAUNCHES:
+        raise AssertionError(f"{what}: the CG engine launched the schur kernel")
+    if abs(cost / floor - 1) > BA_BAND:
+        raise AssertionError(f"{what}: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
+    if not rel <= SHARDED_BA_COST_RTOL:
+        raise AssertionError(f"{what}: final cost {rel} from the unsharded CG solve's")
+    if not early <= BA_COST_RTOL:
+        raise AssertionError(f"{what}: the first iterations' costs are {early} from the unsharded CG solve's")
+    return rel, early
+
+
+def run_ba_cg_sharded(prob, cg_res, big, big_res):
+    """16: ``solve_ba`` (the CG engine) with the observations sharded over a
+    mesh in one process: the headline over 2 and 4 shards, and again over 4
+    (bit-equal), held to phase 5(a)'s unsharded CG solve; the O=1M, C=4,000
+    instance over 4 shards, held to phase 5(b)'s routed CG solve. Returns
+    ({shards or "big": numbers}, the 4-shard headline result)."""
+    out, results = {}, {}
+    cases = [(n, prob, cg_res, _chi2_floor(BA_O, BA_C, BA_L)) for n in SHARDED_CG_SHARDS]
+    cases.append(("big", big, big_res, _chi2_floor(BA_CG_O, BA_CG_C, BA_CG_L)))
+    for key, p, single, floor in cases:
+        n = SHARDED_CG_BIG_SHARDS if key == "big" else key
+        sp = _observation_sharded(p, make_mesh(n))
+        reductions = mesh_module.REDUCTIONS
+        res, cost, wall_s, reads = _solve_cg(sp, engine="cg")
+        reductions = mesh_module.REDUCTIONS - reductions
+        k11 = k_schur.LAUNCHES
+        rel, early = _hold_sharded_cg(f"sharded CG BA ({key}, {n} shards)", sp, res, cost, single, floor)
+        run = int(torch.isfinite(res.trace["cost"]).sum())
+        stages = _cg_stage_times(sp)
+        O, C, L = p.cam_idx.shape[0], p.camera_params.shape[0], p.points.shape[0]
+        print(f"sharded CG BA O={O} C={C} L={L} over {n} shards: wall {wall_s:.4f} s (unsharded CG solve "
+              f"{float(single.cost):.6e}), outer iterations {run}, trials {sum(res.trace['trials'].tolist())}, "
+              f"host reads {reads}, mesh reductions {reductions}, K11 launches {k11}, status {Status(int(res.status)).name}, final "
+              f"cost {cost:.6e} ({(cost / floor - 1) * 100:+.4f}% of the chi2 floor; {rel:.3e} from the unsharded "
+              f"CG's, bound {SHARDED_BA_COST_RTOL:g}); first {SHARDED_BA_TRACE_ITERS} outer iterations' cost and "
+              f"cost_new {early:.3e} from its (bound {BA_COST_RTOL:g})")
+        print("  stages at the start: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items()))
+        out[str(key)] = dict(shards=n, wall_s=wall_s, outer=run, reads=reads, reductions=reductions, k11=k11, cost=cost,
+                             vs_floor=cost / floor - 1, rel_unsharded=rel, early_rel_unsharded=early, **stages)
+        results[key] = res
+    sp = _observation_sharded(prob, make_mesh(4))
+    again, _, wall_s, _ = _solve_cg(sp, engine="cg")
+    out["4"]["repeat_k11"] = k_schur.LAUNCHES
+    if k_schur.LAUNCHES:
+        raise AssertionError("sharded CG BA over 4 shards again: the CG engine launched the schur kernel")
+    same = _same_bits(again, results[4])
+    print(f"sharded CG BA over 4 shards again: wall {wall_s:.4f} s; trials, cost trace, cameras and points "
+          f"bit-equal: {same}")
+    if not same:
+        raise AssertionError("sharded CG BA: a second 4-shard solve differs from the first")
+    out["4"]["repeat_wall_s"] = wall_s
+    return out, results[4]
+
+
+@contextlib.contextmanager
+def _timed_all_reduces():
+    """The mesh's all-reduces across processes while the block runs: their
+    count (``mesh.ALL_REDUCES``) and their summed ms, each timed between two
+    synchronisations of the card."""
+    stats = dict(count=0, ms=0.0)
+    all_reduce, count = mesh_module._all_reduce, mesh_module.ALL_REDUCES
+
+    def timed(tensors, op, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(tensors, op, group)
+        torch.cuda.synchronize()
+        stats["ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    mesh_module._all_reduce = timed
+    try:
+        yield stats
+    finally:
+        mesh_module._all_reduce = all_reduce
+        stats["count"] = mesh_module.ALL_REDUCES - count
+
+
+def _example(out, name, fn, **kwargs):
+    """An example's main() on the card, with every kernel count set to 0
+    before it: its result; its wall and launches go into out[name]."""
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    print(f"--- example {name}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn(**kwargs)
+    torch.cuda.synchronize()
+    out[name] = dict(wall_s=time.perf_counter() - t0, k5=k_nn.LAUNCHES, k6=k_expand.LAUNCHES, k11=k_schur.LAUNCHES)
+    print(f"--- example {name}: wall {out[name]['wall_s']:.3f} s, launches K5 {k_nn.LAUNCHES}, K6 "
+          f"{k_expand.LAUNCHES}, K11 {k_schur.LAUNCHES}")
+    return result
+
+
+def run_examples():
+    """17: the six examples' main() on the card at the JAX scripts' sizes,
+    with their own asserts, and the kernels each must launch: K5 in the ICP
+    example and the fixed-lag SLAM, K6 in the fleet, K11 in the BA
+    example's engine="auto" route (one launch a trial) and nowhere else."""
+    out = {}
+    res = _example(out, "curve_fitting", curve_example.main)
+    err = float((res.x.cpu() - torch.tensor(CURVE_MINIMUM)).abs().max())
+    if Status(int(res.status)) == Status.NUMERIC_ERROR or err > 5e-5:
+        raise AssertionError(f"curve_fitting example: {Status(int(res.status)).name}, x {err} from the minimum")
+    if _example(out, "cross_check_scipy", cross_check_scipy.main) != 0:
+        raise AssertionError("cross_check_scipy example: a minimum disagrees with SciPy's")
+    res, x_true = _example(out, "icp_registration", icp_registration.main)
+    err = float((res.x - x_true).abs().max())
+    out["icp_registration"].update(x_err=err, iterations=int(res.iterations))
+    if Status(int(res.status)) == Status.NUMERIC_ERROR or err > X_TOL:
+        raise AssertionError(f"icp_registration example: {Status(int(res.status)).name}, x {err} from the truth")
+    start, _, res, res_auto = _example(out, "bundle_adjustment", bundle_adjustment.main)
+    route, trials = ba.select_engine(start), sum(res_auto.trace["trials"].tolist())
+    out["bundle_adjustment"].update(cost_cg=float(res.cost), cost_auto=float(res_auto.cost), route=route)
+    for r in (res, res_auto):
+        moved = not torch.equal(r.camera_params[:2], start.camera_params[:2])
+        if Status(int(r.status)) == Status.NUMERIC_ERROR or moved:
+            raise AssertionError(f"bundle_adjustment example: {Status(int(r.status)).name} or a fixed camera moved")
+    if route != "dense" or out["bundle_adjustment"]["k11"] != trials:
+        raise AssertionError(f"bundle_adjustment example: route {route}, K11 {out['bundle_adjustment']['k11']} "
+                             f"for {trials} trials")
+    err, _, drift = _example(out, "fleet_and_fixed_lag", fleet_and_fixed_lag.main)
+    out["fleet_and_fixed_lag"].update(fleet_x_err=err, drift=drift)
+    rms, rms_px = _example(out, "sfm_reconstruct", sfm_reconstruct.main)
+    out["sfm_reconstruct"].update(aligned_rms=rms, reprojection_rms_px=rms_px)
+    print(f"examples: sfm aligned landmark RMS {rms:.4f}, reprojection RMS {rms_px:.4f} px")
+    launches = {k: (v["k5"], v["k6"], v["k11"]) for k, v in out.items()}
+    expect_k5 = {"icp_registration", "fleet_and_fixed_lag"}
+    if any((k in expect_k5) != (v[0] > 0) for k, v in launches.items()):
+        raise AssertionError(f"examples: K5 launches {launches}")
+    if any((k == "fleet_and_fixed_lag") != (v[1] > 0) for k, v in launches.items()):
+        raise AssertionError(f"examples: K6 launches {launches}")
+    if any(k != "bundle_adjustment" and v[2] for k, v in launches.items()):
+        raise AssertionError(f"examples: K11 launches {launches}")
+    return out
+
+
+def run_blocked(prob, dense_res, dev):
+    """17: solve_ba_dense(schur_solver="blocked") on the headline against
+    phase 5's "auto" solve (first outer iterations and final cost to
+    BA_COST_RTOL, K11 once a trial), and spd_solve_blocked against one
+    cholesky_ex solve at BLOCKED_SIZES: relative residuals and CUDA-event
+    times."""
+    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ba_dense.solve_ba_dense(prob, ba_dense.DenseBAConfig(schur_solver="blocked"))
+    cost = float(res.cost)
+    wall_s = time.perf_counter() - t0
+    rel = abs(cost / float(dense_res.cost) - 1)
+    early = _early_gap(_early_costs(res.trace), _early_costs(dense_res.trace))
+    trials = sum(res.trace["trials"].tolist())
+    print(f"dense BA with schur_solver='blocked': wall {wall_s:.4f} s, trials {trials}, K11 launches "
+          f"{k_schur.LAUNCHES}, final cost {cost:.6e} ({rel:.3e} from phase 5's 'auto' solve); first "
+          f"{SHARDED_BA_TRACE_ITERS} outer iterations' costs {early:.3e} from its (bound {BA_COST_RTOL:g})")
+    _check_descent("dense BA (blocked)", prob, res, cost)
+    if not rel <= BA_COST_RTOL or not early <= BA_COST_RTOL or k_schur.LAUNCHES != trials:
+        raise AssertionError(f"dense BA (blocked): {rel}, {early} from phase 5's; K11 {k_schur.LAUNCHES}")
+    out = dict(wall_s=wall_s, cost=cost, rel_auto=rel, early_rel_auto=early, k11=k_schur.LAUNCHES, spd={})
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for n in BLOCKED_SIZES:
+        M = torch.randn(n, n, device=dev, generator=gen)
+        A = M @ M.T / n + torch.eye(n, device=dev)
+        del M
+        b = torch.randn(n, device=dev, generator=gen)
+        row = {}
+        for name, fn in (("blocked", lambda: spd_solve_blocked(A, b)), ("cholesky_ex", lambda: spd_solve(A, b))):
+            x = fn().double()
+            resid = float(torch.linalg.vector_norm(A.double() @ x - b.double()) / torch.linalg.vector_norm(b.double()))
+            row[name] = dict(residual=resid, ms=_time_ms(fn, 3))
+        blk, chol = row["blocked"], row["cholesky_ex"]
+        print(f"spd_solve_blocked at n = {n}: relative residual {blk['residual']:.3e} in {blk['ms']:.3f} ms; one "
+              f"cholesky_ex + cholesky_solve {chol['residual']:.3e} in {chol['ms']:.3f} ms (CUDA events; bound "
+              f"{BLOCKED_RESIDUAL:g})")
+        if not max(r["residual"] for r in row.values()) <= BLOCKED_RESIDUAL:
+            raise AssertionError(f"spd_solve_blocked at n = {n}: residuals {row}")
+        out["spd"][n] = row
+        del A
+    return out
+
+
 def _digest(t):
     return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
 
@@ -1993,14 +2290,40 @@ def _allreduce_ms(t, staged, reps=5):
     return sorted(times)[reps // 2]
 
 
+def _cg_over_processes(prob, mesh):
+    """15, in each process: solve_ba (CG) with the observations sharded over
+    the processes' mesh, each feeding its own rows, twice, the all-reduces
+    counted and timed; then engine="dense", which must refuse."""
+    sp = _observation_sharded(prob, mesh, multihost.host_local_shard)
+    walls, digests, allreduces = [], [], []
+    for _ in range(2):  # the first solve builds the plans and loads the CG engine's modules
+        with _timed_all_reduces() as stats:
+            res, cost, wall_s, _ = _solve_cg(sp, engine="cg")
+        walls.append(wall_s)
+        allreduces.append(stats)
+        digests.append([_digest(res.cost), _digest(res.camera_params), _digest(res.points)])
+    k11 = k_schur.LAUNCHES
+    try:
+        ba.solve_ba(sp, engine="dense")
+    except ValueError as e:
+        refused = "solve_ba_dense_sharded" in str(e)
+    else:
+        refused = False
+    return dict(cost=cost, digests=digests, trials=res.trace["trials"].tolist(), wall_s=walls,
+                early=_early_costs(res.trace), allreduces=allreduces, dense_refused=refused,
+                rows=sp.pixels.local.shape[0], k11=k11,
+                fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+
+
 def rank_main(rank, port):
     """One of phase 15's two processes: both join a gloo group at
     localhost:port and run, over a global mesh of 2 processes × 2 shards on
     the card, the 64-row curve fit through make_global_block +
     distributed_levenberg_marquardt (float64, each process feeding its 32
     rows) and solve_ba_dense_sharded on the headline (float32), each twice
-    (the first is the process's cold start). Prints one RESULT line of
-    JSON."""
+    (the first is the process's cold start), then the observation-sharded
+    CG solve on the headline (``_cg_over_processes``). Prints one RESULT
+    line of JSON."""
     import torch.distributed as dist
 
     dev = torch.device("cuda", 0)
@@ -2036,18 +2359,19 @@ def rank_main(rank, port):
     out["ba"] = dict(cost=cost, digests=digests, trials=res.trace["trials"].tolist(), wall_s=walls,
                      early=_early_costs(res.trace),
                      k11=k_schur.LAUNCHES, fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+    out["cg"] = _cg_over_processes(prob, mesh)
     s = torch.ones((6 * BA_C) ** 2, dtype=torch.float32, device=dev)
     out["allreduce_ms"] = dict(bytes=s.numel() * 4, cuda=_allreduce_ms(s, False), staged=_allreduce_ms(s, True))
     print("RESULT " + json.dumps(out), flush=True)
     dist.destroy_process_group()
 
 
-def run_two_processes(ba4):
+def run_two_processes(ba4, cg4):
     """15: this script's rank_main in two processes on the one card. Each
     must exit 0 within TWO_PROCESS_TIMEOUT_S (both are killed otherwise),
-    both must print the same bits, and the BA must agree with 14(b)'s
-    4-shard solve: its first iterations' costs to BA_COST_RTOL, the final
-    cost to TWO_PROCESS_BA_RTOL."""
+    both must print the same bits, the dense BA must agree with 14(b)'s
+    4-shard solve and the sharded CG BA with 16's: their first iterations'
+    costs to BA_COST_RTOL, the final costs to TWO_PROCESS_BA_RTOL."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2078,8 +2402,12 @@ def run_two_processes(ba4):
         raise AssertionError(f"two processes: results from ranks {sorted(results)}:\n{outs}")
     a, b = results[0], results[1]
     same = all(a[k][f] == b[k][f] for k, fs in (("curve", ("bits", "status", "iterations")),
-                                               ("ba", ("digests", "trials"))) for f in fs)
-    repeats = all(len(set(map(str, r[k][f]))) == 1 for r in (a, b) for k, f in (("curve", "bits"), ("ba", "digests")))
+                                               ("ba", ("digests", "trials")), ("cg", ("digests", "trials")))
+               for f in fs)
+    repeats = all(len(set(map(str, r[k][f]))) == 1 for r in (a, b)
+                  for k, f in (("curve", "bits"), ("ba", "digests"), ("cg", "digests")))
+    cg_rel = abs(a["cg"]["cost"] / float(cg4.cost) - 1)
+    cg_early = _early_gap(a["cg"]["early"], _early_costs(cg4.trace))
     rel = abs(a["ba"]["cost"] / float(ba4.cost) - 1)
     early = _early_gap(a["ba"]["early"], _early_costs(ba4.trace))
     builds = sum(a["ba"]["trials"])
@@ -2101,13 +2429,28 @@ def run_two_processes(ba4):
         raise AssertionError(f"two processes: the first iterations' costs are {early} from the 4-shard solve's")
     if not rel <= TWO_PROCESS_BA_RTOL or not a["ba"]["fixed_unmoved"]:
         raise AssertionError(f"two processes: BA cost {rel} from the 4-shard solve's, fixed {a['ba']['fixed_unmoved']}")
+    for res in (a, b):
+        cg = res["cg"]
+        print(f"two processes, rank {res['rank']}: sharded CG BA over its {cg['rows']} rows (2 shards): walls "
+              + ", ".join(f"{t:.4f}" for t in cg["wall_s"]) + " s, all-reduces a solve "
+              + ", ".join(f"{st['count']} ({st['ms']:.1f} ms)" for st in cg["allreduces"])
+              + f", cost {cg['cost']:.6e}, engine='dense' refused: {cg['dense_refused']}")
+    print(f"two processes, sharded CG BA: cost {cg_rel:.3e} from the 4-shard solve's {float(cg4.cost):.6e} (bound "
+          f"{TWO_PROCESS_BA_RTOL:g}), its first {SHARDED_BA_TRACE_ITERS} outer iterations' costs {cg_early:.3e} from "
+          f"its (bound {BA_COST_RTOL:g})")
+    if not cg_early <= BA_COST_RTOL or not cg_rel <= TWO_PROCESS_BA_RTOL:
+        raise AssertionError(f"two processes: sharded CG BA {cg_rel}, {cg_early} from the 4-shard solve's")
+    if not a["cg"]["fixed_unmoved"] or a["cg"]["k11"] or not (a["cg"]["dense_refused"] and b["cg"]["dense_refused"]):
+        raise AssertionError(f"two processes: sharded CG BA {a['cg']} {b['cg']}")
     if a["ba"]["k11"] != 2 * builds or a["curve"]["status"] == Status.NUMERIC_ERROR:
         raise AssertionError(f"two processes: K11 launched {a['ba']['k11']} times for 2 x {builds}")
     curve_err = max(abs(u - v) for u, v in zip(a["curve"]["x"], CURVE_MINIMUM_64))
     if curve_err > 5e-5:
         raise AssertionError(f"two processes: the curve fit is {curve_err} from its minimum")
     return dict(wall_s=wall_s, curve=a["curve"], ba={k: a["ba"][k] for k in ("wall_s", "cost", "k11")},
-                rel_4_shard=rel, early_rel_4_shard=early, allreduce_ms={r: results[r]["allreduce_ms"] for r in results})
+                rel_4_shard=rel, early_rel_4_shard=early, allreduce_ms={r: results[r]["allreduce_ms"] for r in results},
+                cg={k: a["cg"][k] for k in ("wall_s", "cost", "allreduces", "rows", "k11")}, cg_rel_4_shard=cg_rel,
+                cg_early_rel_4_shard=cg_early)
 
 
 def main():
@@ -2135,16 +2478,19 @@ def main():
 
     rng = np.random.default_rng(SEED)
     cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
-    max_abs_err, nn_t, nn_bound, nn_splits = check_nn_kernel(cloud, rng)
+    examples_in = _example_kernel_inputs(dev)
+    max_abs_err, nn_t, nn_bound, nn_splits = check_nn_kernel(cloud, rng, examples_in["nn"])
     t0 = time.perf_counter()
     scans, gt = make_sequence(SLAM_K, SLAM_N)
     print(f"SLAM sequence {SLAM_K} x {SLAM_N} points made in {time.perf_counter() - t0:.3f} s (host, numpy)")
     check_grid(cloud, scans, gt, rng)
     srcs, tgts, fleet_x = _fleet_inputs(cloud, np.random.default_rng(SEED + 2))
-    e_err, e_t, e_bound = check_expand_kernel(cloud, srcs, tgts, _coarse_seed_search(scans, dev), rng)
+    e_err, e_t, e_bound = check_expand_kernel(cloud, srcs, tgts, _coarse_seed_search(scans, dev), rng,
+                                              examples_in["expand"])
     ba_prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
     ba_grouped = ba_dense.group_by_landmark(ba_prob, segments="auto")
-    s_err, s_t, s_bound = check_schur_kernel(ba_prob, ba_grouped, dev, rng)
+    s_err, s_t, s_bound = check_schur_kernel(ba_prob, ba_grouped, dev, rng, examples_in["schur"])
+    del examples_in
 
     requests = [
         ("A", X_A, {}),
@@ -2182,8 +2528,8 @@ def main():
     if not worst <= BA_COST_RTOL:
         raise AssertionError(f"plain-S repeat: costs differ by {worst} > {BA_COST_RTOL}")
 
-    ba_cg = run_ba_cg(ba_prob, ba_res)
-    ba_routing = run_ba_routing(ba_prob, ba_res)
+    ba_cg, cg_res = run_ba_cg(ba_prob, ba_res)
+    ba_routing, cg_big, cg_big_res = run_ba_routing(ba_prob, ba_res)
     selfcal = run_selfcal(ba_prob)
 
     fleet, fleet_wall_s, e_launches = run_fleet(srcs, tgts, fleet_x)
@@ -2212,7 +2558,11 @@ def main():
     dist_icp = run_distributed_icp(cloud, results["A"])
     ba_sharded, ba4, ba_grouping_s = run_ba_sharded(ba_prob, ba_grouped, ba_res)
     fleet_sharded = run_fleet_sharded(srcs, tgts, fleet, fleet_x)
-    two = run_two_processes(ba4)
+    cg_sharded, cg4 = run_ba_cg_sharded(ba_prob, cg_res, cg_big, cg_big_res)
+    del cg_big, cg_big_res
+    two = run_two_processes(ba4, cg4)
+    examples = run_examples()
+    blocked = run_blocked(ba_prob, ba_res, dev)
 
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
@@ -2226,26 +2576,33 @@ def main():
               "moptimizer_0_tpu/ops/nn_search.py:136", launches, max_abs_err, nn_t, nn_bound,
               splits=nn_splits, slam_launches=dict(grid=k5_grid, auto=k5_auto),
               scan_slam_launches={m: r["k5"] for m, r in slam.items()}, fixed_lag_launches=lag["k5"],
-              distributed_icp_launches={n: r["launches"] for n, r in dist_icp.items()}),
+              distributed_icp_launches={n: r["launches"] for n, r in dist_icp.items()},
+              examples_launches={k: v["k5"] for k, v in examples.items() if v["k5"]}),
         entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
               "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound,
               slam_launches=dict(grid=k6_grid, auto=k6_auto),
               scan_slam_launches={m: r["k6"] for m, r in slam.items()}, fixed_lag_launches=lag["k6"],
-              sharded_fleet_launches=fleet_sharded["launches"]),
+              sharded_fleet_launches=fleet_sharded["launches"],
+              examples_launches={k: v["k6"] for k, v in examples.items() if v["k6"]}),
         entry("schur_pairs", "moptimizer_0_tpu_torch/csrc/schur.cu",
               "benchmarks/schur_pallas_ab.py:38", s_launches,
               max([s_err] + [r["k11_shard_err"] for r in ba_sharded.values()]), s_t, s_bound,
               ba_cg_launches=ba_cg["k11"], ba_cg_routed_launches=ba_routing["k11"], selfcal_launches=selfcal["k11"],
               sharded_ba_launches={n: r["launches"] for n, r in ba_sharded.items()},
               sharded_ba_shard_ms={n: r["k11_shard_ms"] for n, r in ba_sharded.items()},
-              two_process_launches=two["ba"]["k11"]),
+              two_process_launches=two["ba"]["k11"],
+              sharded_cg_launches={k: r["k11"] for k, r in cg_sharded.items()}, two_process_cg_launches=two["cg"]["k11"],
+              examples_launches={k: v["k11"] for k, v in examples.items() if v["k11"]},
+              blocked_dense_launches=blocked["k11"]),
     ]
     print(json.dumps({"slam": {
         m: {k: v for k, v in r.items() if k != "reg"} for m, r in slam.items()
     } | {"k9_ms": k9, "fixed_lag": lag, "ring": ring}}))
     print(json.dumps({"ba_cg": ba_cg, "ba_cg_routed": ba_routing, "selfcal": selfcal, "reference_f32": references}))
     print(json.dumps({"sharded": dict(linearize_rel=sharded_lin, distributed_icp=dist_icp, ba=ba_sharded,
-                                      ba_grouping_s=ba_grouping_s, fleet=fleet_sharded, two_processes=two)}))
+                                      ba_grouping_s=ba_grouping_s, fleet=fleet_sharded, cg=cg_sharded,
+                                      two_processes=two)}))
+    print(json.dumps({"examples": examples, "blocked": blocked}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

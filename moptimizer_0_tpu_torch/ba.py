@@ -23,6 +23,18 @@ poses and L landmarks from O pixel observations.
 
 ``solve_ba(engine="dense")`` runs ``ba_dense.solve_ba_dense``, and
 ``engine="auto"`` routes between the two as the JAX package does.
+
+Observation sharding: ``cam_idx``, ``pt_idx`` and ``pixels`` may be
+``parallel.mesh.GlobalArray``s (``multihost.make_global_array(rows, mesh)``:
+all the rows within one process, each process's own rows across processes),
+the counterpart of the JAX package's arrays sharded along ``P("data")``.
+Each local shard keeps its rows, its camera and landmark plans and its W on
+its device; U, V, g, h and the costs are summed over the mesh
+(``Mesh.psum``), and each PCG iteration's matvec reduces twice, Σ_o W_oᵀ u
+(L, 3) and Σ_o W_o s (C, 6), where GSPMD inserts its two reductions for the
+JAX engine. Cameras, points and the solver's vectors are replicated, so
+every process reads the same flags and the processes' loops stay in
+lockstep. The unsharded solve is the one-shard case of the same step.
 """
 
 import dataclasses
@@ -31,11 +43,13 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from moptimizer_0_tpu_torch.core.solver import Status
 from moptimizer_0_tpu_torch.lie import se3, so3
 from moptimizer_0_tpu_torch.ops.pcg import pcg
 from moptimizer_0_tpu_torch.ops.segment_sum import segment_plan, segment_sum
+from moptimizer_0_tpu_torch.parallel.mesh import GlobalArray, Mesh
 from moptimizer_0_tpu_torch.utils.device import require
 
 # Reads of the device by the BA solve loops, their CG and their plans (a
@@ -194,14 +208,76 @@ def _flat(problem, cams, pts, jacobians, intrinsics=False):
     return _reproject(q, p, problem.pixels, problem.intrinsics, jacobians, intrinsics)
 
 
+def _mesh_of(problem):
+    """The mesh of an observation-sharded problem; None for an unsharded one."""
+    fields = (problem.cam_idx, problem.pt_idx, problem.pixels)
+    sharded = [isinstance(f, GlobalArray) for f in fields]
+    if not any(sharded):
+        return None
+    mesh = problem.cam_idx.mesh if sharded[0] else None
+    n = problem.cam_idx.local.shape[0] if sharded[0] else -1
+    if not all(sharded) or any(f.mesh is not mesh or f.local.shape[0] != n for f in fields):
+        raise ValueError("cam_idx, pt_idx and pixels must all be GlobalArrays of one mesh, with as many rows")
+    return mesh
+
+
+def _shards(problem):
+    """(mesh, shards) of a problem: an unsharded problem is one shard on its
+    cameras' device, with no process group; an observation-sharded one (see
+    the module docstring) splits this process's rows into equal parts in
+    mesh order, each a BAProblem with its rows and the replicated cameras,
+    points and intrinsics on its shard's device. The JAX package's
+    ``device_put`` refuses a row count that the mesh does not divide, and
+    so does this (``multihost.make_global_array`` first)."""
+    mesh = _mesh_of(problem)
+    if mesh is None:
+        return Mesh(devices=(problem.camera_params.device,)), [problem]
+    n = problem.cam_idx.local.shape[0]
+    if n % mesh.n_local:
+        raise ValueError(f"{n} observation rows do not divide {mesh.n_local} local shards")
+    rows = n // mesh.n_local
+    return mesh, [
+        dataclasses.replace(
+            problem,
+            camera_params=problem.camera_params.to(dev),
+            points=problem.points.to(dev),
+            cam_idx=problem.cam_idx.local[j * rows : (j + 1) * rows].to(dev),
+            pt_idx=problem.pt_idx.local[j * rows : (j + 1) * rows].to(dev),
+            pixels=problem.pixels.local[j * rows : (j + 1) * rows].to(dev),
+            intrinsics=problem.intrinsics.to(dev),
+        )
+        for j, dev in enumerate(mesh.devices)
+    ]
+
+
+def _at(shard, cams, pts):
+    """The shard evaluated at the replicated state (cams, pts)."""
+    dev = shard.cam_idx.device
+    return dataclasses.replace(shard, camera_params=cams.to(dev), points=pts.to(dev))
+
+
+def _mesh_cost(mesh, shards, cams, pts):
+    """Σ‖r‖² over every shard's rows, summed over the mesh, on cams' device."""
+    parts = []
+    for shard in shards:
+        s = _at(shard, cams, pts)
+        r = _flat(s, s.camera_params, s.points, jacobians=False)
+        parts.append(torch.sum(r * r))
+    return mesh.psum(parts, device=cams.device)
+
+
 def residuals_all(problem):
-    """(O, 2) residual array."""
-    return _flat(problem, problem.camera_params, problem.points, jacobians=False)
+    """(O, 2) residual array; of an observation-sharded problem, this
+    process's rows."""
+    _, shards = _shards(problem)
+    dev = problem.camera_params.device
+    rs = [_flat(s, s.camera_params, s.points, jacobians=False).to(dev) for s in shards]
+    return rs[0] if len(rs) == 1 else torch.cat(rs)
 
 
 def compute_cost(problem):
-    r = residuals_all(problem)
-    return torch.sum(r * r)
+    mesh, shards = _shards(problem)
+    return _mesh_cost(mesh, shards, problem.camera_params, problem.points)
 
 
 def _outer_rows(X, Y):
@@ -429,15 +505,32 @@ def _gn_blocks(problem, r, A, B, plans):
     return U, V, W, g, h
 
 
-def _schur_matvec(u, U_d, W, Vinv, cam_idx, pt_idx, plans, cam_mask):
-    """S·u with S = U′ − W V′⁻¹ Wᵀ, matrix-free; u (C,6)."""
-    cam, pt = plans
+def _to_landmarks(mesh, rows, u, dev):
+    """Σ_o W_oᵀ u[cam_idx_o] per landmark (L, 3), over every shard's rows and
+    the mesh; u (C, 6). rows: each local shard's (problem, plans, W)."""
+    return mesh.psum(
+        [segment_sum(plans[1], torch.sum(W * u.to(p.cam_idx.device)[p.cam_idx][:, :, None], dim=1))
+         for p, plans, W in rows],
+        device=dev,
+    )
+
+
+def _to_cameras(mesh, rows, s, dev):
+    """Σ_o W_o s[pt_idx_o] per camera (C, 6), over every shard's rows and the
+    mesh; s (L, 3)."""
+    return mesh.psum(
+        [segment_sum(plans[0], _bmv(W, s.to(p.pt_idx.device)[p.pt_idx])) for p, plans, W in rows], device=dev
+    )
+
+
+def _schur_matvec(u, U_d, Vinv, mesh, rows, cam_mask):
+    """S·u with S = U′ − W V′⁻¹ Wᵀ, matrix-free; u (C,6). Two reductions
+    over the mesh: Σ Wᵀu (L, 3) and Σ W s (C, 6)."""
+    dev = u.device
     u = u * cam_mask  # fixed cameras contribute nothing
     Uu = _bmv(U_d, u)
-    t = segment_sum(pt, torch.sum(W * u[cam_idx][:, :, None], dim=1))  # (L,3): Σ_o W_oᵀ u
-    s = _bmv(Vinv, t)
-    back = segment_sum(cam, _bmv(W, s[pt_idx]))  # (C,6)
-    return (Uu - back) * cam_mask
+    s = _bmv(Vinv, _to_landmarks(mesh, rows, u, dev))
+    return (Uu - _to_cameras(mesh, rows, s, dev)) * cam_mask
 
 
 def _cam_mask(problem):
@@ -446,30 +539,28 @@ def _cam_mask(problem):
     return (torch.arange(C, device=dev) >= problem.n_fixed_cameras).to(problem.camera_params.dtype)[:, None]
 
 
-def _solve_delta(problem, U, V, W, g, h, lam, config, plans):
-    """One damped Gauss-Newton solve: (δcam (C,6), δpt (L,3))."""
-    cam, pt = plans
+def _solve_delta(problem, U, V, g, h, lam, config, mesh, rows):
+    """One damped Gauss-Newton solve: (δcam (C,6), δpt (L,3)). U, V, g, h
+    are the mesh's sums; rows holds each local shard's (problem, plans, W)."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    cam_idx, pt_idx = problem.cam_idx, problem.pt_idx
     U_d = _damp_blocks(U, lam)
     Vinv = _inv3x3(_damp_blocks(V, lam) + 1e-12 * torch.eye(3, dtype=dtype, device=dev))
     cam_mask = _cam_mask(problem)
 
     # rhs = −(g − W V′⁻¹ h), for H δ = −b
-    rhs = -(g - segment_sum(cam, _bmv(W, _bmv(Vinv, h)[pt_idx]))) * cam_mask
+    rhs = -(g - _to_cameras(mesh, rows, _bmv(Vinv, h), dev)) * cam_mask
     # the block-Jacobi preconditioner from U′
     U_inv = torch.linalg.inv_ex(U_d + 1e-12 * torch.eye(6, dtype=dtype, device=dev))[0]
 
     def mv(u):
-        return _schur_matvec(u, U_d, W, Vinv, cam_idx, pt_idx, plans, cam_mask)
+        return _schur_matvec(u, U_d, Vinv, mesh, rows, cam_mask)
 
     def pre(u):
         return _bmv(U_inv, u) * cam_mask
 
     d_cam = pcg(mv, rhs, pre, config.cg_iterations, config.cg_tol, _read) * cam_mask
     # back-substitute: δl = V′⁻¹ (−h − Wᵀ δcam)
-    Wtd = segment_sum(pt, torch.sum(W * d_cam[cam_idx][:, :, None], dim=1))
-    return d_cam, _bmv(Vinv, -h - Wtd)
+    return d_cam, _bmv(Vinv, -h - _to_landmarks(mesh, rows, d_cam, dev))
 
 
 def _seed_lambda(lam, U, V, factor, v_diag_max=None):
@@ -481,28 +572,43 @@ def _seed_lambda(lam, U, V, factor, v_diag_max=None):
     return torch.where(lam < 0.0, factor * max_diag, lam)
 
 
-def _outer_step(problem, lam, config, plans):
-    """One outer LM iteration: (cams, pts, λ′, terminal, status, record),
-    ``terminal`` a Python bool, ``status`` a Status, ``record`` the tensors
-    cost, cost_new, rho and lam and the Python int ``trials``."""
+def _linearize_shards(mesh, shards, plans, cams, pts):
+    """Each shard's rows linearized at (cams, pts): (rows, (U, V, g, h, y0)),
+    rows holding each local shard's (problem, plans, W) and the blocks and
+    the cost summed over the mesh on cams' device."""
+    rows, parts = [], []
+    for shard, plan in zip(shards, plans):
+        s = _at(shard, cams, pts)
+        r, A, B = _linearize(s)
+        U, V, W, g, h = _gn_blocks(s, r, A, B, plan)
+        rows.append((s, plan, W))
+        parts.append((U, V, g, h, torch.sum(r * r)))
+    return rows, mesh.psum(parts, device=cams.device)
+
+
+def _outer_step(problem, lam, config, mesh, shards, plans):
+    """One outer LM iteration at the problem's (replicated) cameras and
+    points, over the rows of ``shards`` (``_shards``) with their ``plans``:
+    (cams, pts, λ′, terminal, status, record), ``terminal`` a Python bool,
+    ``status`` a Status, ``record`` the tensors cost, cost_new, rho and lam
+    and the Python int ``trials``."""
     dtype = problem.camera_params.dtype
-    r, A, B = _linearize(problem)
-    U, V, W, g, h = _gn_blocks(problem, r, A, B, plans)
-    y0 = torch.sum(r * r)
+    cams0, pts0 = problem.camera_params, problem.points
+    rows, (U, V, g, h, y0) = _linearize_shards(mesh, shards, plans, cams0, pts0)
     lam = _seed_lambda(lam, U, V, config.init_lambda_factor)
 
-    state = _lm_init_state(problem.camera_params, problem.points, lam, y0, dtype)
+    state = _lm_init_state(cams0, pts0, lam, y0, dtype)
     converged0 = state["stop"]
 
     def solve_fn(lam_k):
-        return _solve_delta(problem, U, V, W, g, h, lam_k, config, plans)
+        return _solve_delta(problem, U, V, g, h, lam_k, config, mesh, rows)
 
     def cost_fn(cams_i, pts_i):
-        return compute_cost(dataclasses.replace(problem, camera_params=cams_i, points=pts_i))
+        return _mesh_cost(mesh, shards, cams_i, pts_i)
 
     b_flat = torch.cat([g.reshape(-1), h.reshape(-1)])
     state = _lm_trials(
-        state, y0, b_flat, problem.camera_params, problem.points, solve_fn, cost_fn,
+        state, y0, b_flat, cams0, pts0, solve_fn, cost_fn,
         config.inner_iterations, rel_cost_tol=config.rel_cost_tol,
     )
     status = Status.CONVERGED if converged0 else state["status"]
@@ -515,10 +621,12 @@ def _outer_step(problem, lam, config, plans):
 def ba_step(problem, lam, config=BAConfig()):
     """One outer LM iteration of the CG engine, for callers that step,
     inspect or persist between iterations: (cams, pts, λ′, terminal, status,
-    record). Pass λ = −1 on the first call to seed λ from the GN diagonal."""
+    record). Pass λ = −1 on the first call to seed λ from the GN diagonal.
+    Takes an observation-sharded problem too."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     lam = torch.as_tensor(lam, dtype=dtype, device=dev)
-    return _outer_step(problem, lam, config, _plans(problem))
+    mesh, shards = _shards(problem)
+    return _outer_step(problem, lam, config, mesh, shards, [_plans(s) for s in shards])
 
 
 # engine="auto" routing: the JAX package's constants, kept so that the port
@@ -531,21 +639,60 @@ DENSE_MAX_PADDING = 16.0
 DENSE_MAX_BYTES = 9e9
 
 
+def _global_pt_idx(problem):
+    """The landmark ids of every observation: of a problem sharded across
+    processes gathered from all of them in process order (the same array
+    on every process)."""
+    g = problem.pt_idx
+    if not isinstance(g, GlobalArray):
+        return g
+    local = g.local.detach().cpu().numpy()
+    if g.mesh.group is None:
+        return local
+    parts = [None] * g.mesh.n_processes
+    dist.all_gather_object(parts, local, group=g.mesh.group)
+    return np.concatenate(parts)
+
+
 def select_engine(problem):
     """engine="auto" routing (host-side, from shapes and the incidence):
     "dense" while C ≤ DENSE_MAX_CAMERAS, the valence-segmented slot factor
     ≤ DENSE_MAX_PADDING and the dense engine's estimated peak memory ≤
-    DENSE_MAX_BYTES; else "cg"."""
+    DENSE_MAX_BYTES; else "cg". An observation-sharded problem is routed on
+    its global incidence, and across processes every process gets the same
+    answer."""
     from moptimizer_0_tpu_torch import ba_dense
 
     C = problem.camera_params.shape[0]
+    whole = dataclasses.replace(problem, pt_idx=_global_pt_idx(problem))
     if (
         C <= DENSE_MAX_CAMERAS
-        and ba_dense.dense_slot_factor(problem) <= DENSE_MAX_PADDING
-        and ba_dense.dense_memory_bytes(problem) <= DENSE_MAX_BYTES
+        and ba_dense.dense_slot_factor(whole) <= DENSE_MAX_PADDING
+        and ba_dense.dense_memory_bytes(whole) <= DENSE_MAX_BYTES
     ):
         return "dense"
     return "cg"
+
+
+def _unsharded(problem):
+    """The problem with plain observation tensors for the dense engine: an
+    observation-sharded problem within one process holds all its rows, as
+    the JAX package's dense engine gathers a sharded incidence to its host.
+    Across processes that gather fails in the JAX package, and here it
+    raises."""
+    mesh = _mesh_of(problem)
+    if mesh is None:
+        return problem
+    if mesh.group is not None:
+        raise ValueError(
+            "the dense engine does not take observations sharded across processes: shard the "
+            "landmarks with ba_dense.solve_ba_dense_sharded, or solve with engine='cg'"
+        )
+    dev = problem.camera_params.device
+    return dataclasses.replace(
+        problem, cam_idx=problem.cam_idx.local.to(dev), pt_idx=problem.pt_idx.local.to(dev),
+        pixels=problem.pixels.local.to(dev),
+    )
 
 
 TRACE_KEYS = ("cost", "cost_new", "rho", "lam")
@@ -579,6 +726,10 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
     nothing: the eager loop is both of its loops. The result's trace holds
     cost, cost_new, rho and lam per outer iteration (NaN-filled to
     max_iterations) and ``trials``.
+
+    An observation-sharded problem (module docstring) solves by CG over its
+    mesh, with the cameras and points of the result replicated on every
+    process; "dense" takes it within one process only.
     """
     del host_loop
     if engine == "auto":
@@ -587,7 +738,7 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
         from moptimizer_0_tpu_torch import ba_dense
 
         return ba_dense.solve_ba_dense(
-            problem,
+            _unsharded(problem),
             ba_dense.DenseBAConfig(
                 max_iterations=config.max_iterations,
                 inner_iterations=config.inner_iterations,
@@ -599,13 +750,14 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
 
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     n_it = config.max_iterations
-    plans = _plans(problem)
+    mesh, shards = _shards(problem)
+    plans = [_plans(s) for s in shards]
     lam = torch.full((), -1.0, dtype=dtype, device=dev)
     status = Status.MAXIMUM_ITERATIONS_REACHED
     records = []
     executed = 0
     for it in range(n_it):
-        cams, pts, lam, terminal, status, record = _outer_step(problem, lam, config, plans)
+        cams, pts, lam, terminal, status, record = _outer_step(problem, lam, config, mesh, shards, plans)
         problem = dataclasses.replace(problem, camera_params=cams, points=pts)
         records.append(record)
         if terminal:
@@ -617,6 +769,6 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
         points=problem.points,
         status=torch.tensor(int(status), dtype=torch.int32, device=dev),
         iterations=torch.tensor(executed, dtype=torch.int32, device=dev),
-        cost=compute_cost(problem),
+        cost=_mesh_cost(mesh, shards, problem.camera_params, problem.points),
         trace=_result_trace(records, n_it, dtype, dev),
     )

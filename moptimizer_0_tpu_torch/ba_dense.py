@@ -492,7 +492,8 @@ class DenseBAConfig:
     """Settings, with the fields and defaults of the JAX package's DenseBAConfig.
 
     schur_chunk: landmarks per A2 panel of the plain S build.
-    schur_solver: "auto" or "xla" (one Cholesky); "blocked" is not ported.
+    schur_solver: "auto" or "xla" (one Cholesky), or "blocked" (the
+    blocked recursion of ``ops.block_cholesky``, which also forms L⁻¹).
     schur_precision, gn_precision: the JAX package's matmul pass counts on
     the TPU. The port computes both stages in the problem's dtype whatever
     they say (float32 on the card, no TF32 or bf16); their mapping is queued

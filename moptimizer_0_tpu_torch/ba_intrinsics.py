@@ -135,9 +135,15 @@ def _step_selfcal(problem, lam, config, plans):
     return cams, pts, intr, state["lam"], state["terminal"], status, record
 
 
+def _require_unsharded(problem):
+    if ba._mesh_of(problem) is not None:
+        raise NotImplementedError("self-calibrating BA does not take observation-sharded problems yet")
+
+
 def ba_step_selfcal(problem, lam, config=ba.BAConfig()):
     """One LM iteration refining cameras, landmarks and intrinsics:
     (cams, pts, θ, λ′, terminal, status, record); λ = −1 seeds λ."""
+    _require_unsharded(problem)
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     lam = torch.as_tensor(lam, dtype=dtype, device=dev)
     return _step_selfcal(problem, lam, config, ba._plans(problem))
@@ -145,6 +151,7 @@ def ba_step_selfcal(problem, lam, config=ba.BAConfig()):
 
 def solve_ba_selfcal(problem, config=ba.BAConfig()):
     """Full self-calibrating BA. Returns (BAResult with an empty trace, θ)."""
+    _require_unsharded(problem)
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     plans = ba._plans(problem)
     lam = torch.full((), -1.0, dtype=dtype, device=dev)

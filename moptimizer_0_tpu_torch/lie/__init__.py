@@ -12,6 +12,7 @@ from moptimizer_0_tpu_torch.lie.so3 import (
 )
 from moptimizer_0_tpu_torch.lie.se3 import (
     transform_from_params6,
+    rotation_from_params3,
     se3_exp,
     se3_log,
     apply_transform,

@@ -26,6 +26,11 @@ def transform_from_params6(x):
     return _assemble_rt(R, t)
 
 
+def rotation_from_params3(x):
+    """x = [wx wy wz] → 3×3 rotation: so3.exp(x[:3])."""
+    return so3.exp(x[..., 0:3])
+
+
 def apply_transform(T, points):
     """Apply a 4×4 transform to (..., N, 3) points: R·p + t."""
     R = T[..., :3, :3]

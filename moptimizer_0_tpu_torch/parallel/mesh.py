@@ -27,6 +27,11 @@ import torch.distributed as dist
 
 from moptimizer_0_tpu_torch.utils.device import require
 
+# Mesh.psum/pmax calls (reductions over a mesh's shards), and the all-reduces
+# across processes that they make: counters for profiling, never reset here.
+REDUCTIONS = 0
+ALL_REDUCES = 0
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
@@ -82,6 +87,8 @@ class Mesh:
         return self._reduce(parts, device, torch.maximum, dist.ReduceOp.MAX)
 
     def _reduce(self, parts, device, combine, op):
+        global REDUCTIONS
+        REDUCTIONS += 1
         tuples = isinstance(parts[0], tuple)
         rows = [p if tuples else (p,) for p in parts]
         dev = rows[0][0].device if device is None else device
@@ -108,8 +115,10 @@ class Mesh:
 
 def _all_reduce(tensors, op, group):
     """One all-reduce of a list of same-dtype tensors (each reshaped back)."""
+    global ALL_REDUCES
     if len({t.dtype for t in tensors}) != 1:
         return [_all_reduce([t], op, group)[0] for t in tensors]
+    ALL_REDUCES += 1
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, op=op, group=group)
     out, off = [], 0

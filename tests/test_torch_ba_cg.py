@@ -85,6 +85,16 @@ def dense_oracle(prob, J_blocks, r, lam, n_extra=0, extra=None):
     return delta
 
 
+def _solve_delta(prob, U, V, W, g, h, lam, cfg, plans):
+    """One damped step of the CG engine, called as ``_outer_step`` calls it:
+    with the rows that ``_linearize_shards`` gives the problem's one shard,
+    whose W must be the W given."""
+    mesh, shards = tba._shards(prob)
+    rows, _ = tba._linearize_shards(mesh, shards, [plans], prob.camera_params, prob.points)
+    assert torch.equal(rows[0][2], W)
+    return tba._solve_delta(prob, U, V, g, h, lam, cfg, mesh, rows)
+
+
 def test_schur_solve_matches_dense_oracle():
     """One damped Schur-CG step ≡ the dense (6C+3L) damped solve (the bounds
     of tests/test_ba.py)."""
@@ -95,7 +105,7 @@ def test_schur_solve_matches_dense_oracle():
     U, V, W, g, h = tba._gn_blocks(prob, r, A, B, plans)
     lam = torch.tensor(1e-4, dtype=torch.float64)
     cfg = tba.BAConfig(cg_iterations=200, cg_tol=1e-14)
-    d_cam, d_pt = tba._solve_delta(prob, U, V, W, g, h, lam, cfg, plans)
+    d_cam, d_pt = _solve_delta(prob, U, V, W, g, h, lam, cfg, plans)
     delta = dense_oracle(jprob, (A.numpy(), B.numpy()), r.numpy(), 1e-4)
     C = 3
     np.testing.assert_allclose(d_cam.numpy().reshape(-1), delta[: 6 * C], rtol=1e-6, atol=1e-10)
@@ -122,8 +132,8 @@ def test_linearize_blocks_and_step_match_jax(robust):
         assert rel_err(t, j) < 1e-12, name
     cfg = jba.BAConfig(cg_iterations=200, cg_tol=1e-14)
     jd = _j_solve_delta(jprob, *jblocks, 1e-4, config=cfg)
-    td = tba._solve_delta(prob, *blocks, torch.tensor(1e-4, dtype=torch.float64),
-                          interop.ba_config_from_fields(dataclasses.asdict(cfg)), plans)
+    td = _solve_delta(prob, *blocks, torch.tensor(1e-4, dtype=torch.float64),
+                      interop.ba_config_from_fields(dataclasses.asdict(cfg)), plans)
     for t, j in zip(td, jd):
         assert rel_err(t, j) < 1e-9
     Vd = tba._damp_blocks(blocks[1], 0.5)

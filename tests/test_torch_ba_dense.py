@@ -410,16 +410,16 @@ def test_spd_solve():
     M = rng.normal(size=(30, 30))
     A = torch.as_tensor(M @ M.T + 30 * np.eye(30))
     b = torch.as_tensor(rng.normal(size=30))
-    for method in ("auto", "xla"):
+    for method in ("auto", "xla", "blocked"):
         x = block_cholesky.spd_solve(A, b, method)
         np.testing.assert_allclose((A @ x).numpy(), b.numpy(), rtol=0, atol=1e-12)
     B = torch.as_tensor(rng.normal(size=(30, 2)))
     assert block_cholesky.spd_solve(A, B).shape == (30, 2)
+    assert block_cholesky.spd_solve(A, B, "blocked", base=8).shape == (30, 2)
     not_pd = A.clone()
     not_pd[4, 4] = -1.0
     assert torch.isnan(block_cholesky.spd_solve(not_pd, b)).all()  # like cho_factor: no raise
-    with pytest.raises(NotImplementedError, match="blocked"):
-        block_cholesky.spd_solve(A, b, "blocked")
+    assert torch.isnan(block_cholesky.spd_solve(not_pd, b, "blocked", base=8)).all()
     with pytest.raises(ValueError, match="unknown"):
         block_cholesky.spd_solve(A, b, "lu")
 

@@ -93,3 +93,14 @@ def test_exp_dt_matches_jax():
     jac = torch.func.jacfwd(lambda t: tso3.exp_dt(torch.as_tensor(w[4]), t))(torch.tensor(0.0, dtype=torch.float64))
     assert torch.isfinite(jac).all()
     _close(jac, jax.jacfwd(lambda t: jso3.exp_dt(jnp.asarray(w[4]), t))(0.0))
+
+
+def test_rotation_from_params3_matches_jax():
+    """lie.rotation_from_params3 (exported as in the JAX package) is exp of
+    the three parameters, batched, through the Taylor branch and near π."""
+    from moptimizer_0_tpu import lie as jlie
+    from moptimizer_0_tpu_torch import lie as tlie
+
+    w = _rotvecs(4)
+    _close(tlie.rotation_from_params3(torch.as_tensor(w)), jlie.rotation_from_params3(jnp.asarray(w)))
+    _close(tse3.rotation_from_params3(torch.as_tensor(w[0])), jse3.rotation_from_params3(jnp.asarray(w[0])))

@@ -16,7 +16,11 @@ Every process has a 120 s limit and its group a 60 s timeout. Tolerances:
   where the SMALL_DELTA stop falls on roundoff's iteration (12 in JAX, 15
   in the port) and x moves by ~1e-8 relative in the last steps;
 * the BA's cameras to 1e-8 relative and 1e-10 absolute of JAX's
-  (``tests/_multihost_ba_worker.py``'s bound).
+  (``tests/_multihost_ba_worker.py``'s bound);
+* the observation-sharded CG solve, in each process, against a
+  process-local solve of all rows, and its cameras against JAX's
+  single-device CG solve: 1e-6 relative and 1e-8 absolute (the JAX
+  worker's bound for its GSPMD-sharded CG solve).
 """
 
 import os
@@ -90,7 +94,49 @@ def _ba_worker(rank, port, path):
     return f"{float(res.cost)!r} {cams.tobytes().hex()} {pts.tobytes().hex()} {int(res.iterations)}"
 
 
-WORKERS = {"curve": _curve_worker, "ba": _ba_worker}
+def _cg_worker(rank, port, path):
+    """The observation-sharded CG solve (``tests/_multihost_ba_worker.py``'s
+    second case): each process feeds its own rows of cam_idx, pt_idx and
+    pixels, held to a process-local solve of all rows at the JAX worker's
+    bound; "dense" and "auto" (which routes this problem to "dense") raise,
+    as the JAX package's solve does across processes."""
+    import dataclasses
+
+    import torch
+
+    from moptimizer_0_tpu_torch import ba, interop
+    from moptimizer_0_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
+                         initialization_timeout=GROUP_TIMEOUT_S)
+    mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
+    with np.load(path) as f:
+        arrays = {k: f[k] for k in f.files}
+    start = interop.ba_problem_from_numpy(**arrays, n_fixed_cameras=2, device="cpu")
+    start_cg = dataclasses.replace(start, **{
+        k: multihost.make_global_array(multihost.host_local_shard(getattr(start, k)), mesh)
+        for k in ("cam_idx", "pt_idx", "pixels")
+    })
+    assert start_cg.pixels.shape == tuple(start.pixels.shape)
+    cfg = ba.BAConfig(max_iterations=8)
+    res = ba.solve_ba(start_cg, cfg)
+    local = ba.solve_ba(start, cfg)
+    np.testing.assert_allclose(res.camera_params.numpy(), local.camera_params.numpy(), rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(res.points.numpy(), local.points.numpy(), rtol=1e-6, atol=1e-8)
+    assert torch.equal(res.camera_params[:2], start.camera_params[:2])
+    route = ba.select_engine(start_cg)
+    for engine in ("dense", "auto"):
+        try:
+            ba.solve_ba(start_cg, cfg, engine=engine)
+        except ValueError as e:
+            assert "solve_ba_dense_sharded" in str(e), e
+        else:
+            raise AssertionError(f"engine={engine!r} across processes did not raise")
+    cams, pts = res.camera_params.numpy(), res.points.numpy()
+    return f"{float(res.cost)!r} {cams.tobytes().hex()} {pts.tobytes().hex()} {int(res.iterations)} {route}"
+
+
+WORKERS = {"curve": _curve_worker, "ba": _ba_worker, "cg": _cg_worker}
 
 
 def _worker_main(rank, port, path):
@@ -227,6 +273,21 @@ def test_two_process_dense_schur_ba(pair):
     cams = np.frombuffer(bytes.fromhex(results[0].split()[1]), dtype=np.float64).reshape(6, 6)
     np.testing.assert_allclose(cams, np.asarray(ref.camera_params), rtol=1e-8, atol=1e-10)
     np.testing.assert_array_equal(cams[:2], np.asarray(start.camera_params)[:2])
+
+
+def test_two_process_sharded_cg_ba(pair):
+    """Both processes bit-equal; the CG solve over their rows against the JAX
+    package's single-device CG solve of all rows at the JAX worker's bound."""
+    from moptimizer_0_tpu import ba
+
+    start, results = pair[0], pair[1]["cg"]
+    assert results[0] == results[1]
+    cost, cams_hex, _, _, route = results[0].split()
+    assert route == "dense" == ba.select_engine(start)
+    ref = ba.solve_ba(start, ba.BAConfig(max_iterations=8))
+    cams = np.frombuffer(bytes.fromhex(cams_hex), dtype=np.float64).reshape(6, 6)
+    np.testing.assert_allclose(cams, np.asarray(ref.camera_params), rtol=1e-6, atol=1e-8)
+    assert np.isfinite(float(cost))
 
 
 def test_initialize_failure_is_loud():

@@ -34,7 +34,11 @@ def test_import_leaves_jax_out():
         "moptimizer_0_tpu_torch.parallel.sharded, moptimizer_0_tpu_torch.parallel.multihost, "
         "moptimizer_0_tpu_torch.utils, moptimizer_0_tpu_torch.utils.checkpoint, "
         "moptimizer_0_tpu_torch.utils.checks, moptimizer_0_tpu_torch.utils.logging, "
-        "moptimizer_0_tpu_torch.utils.profiling, moptimizer_0_tpu_torch.utils.stopwatch; "
+        "moptimizer_0_tpu_torch.utils.profiling, moptimizer_0_tpu_torch.utils.stopwatch, "
+        "moptimizer_0_tpu_torch.examples, moptimizer_0_tpu_torch.examples.curve_fitting, "
+        "moptimizer_0_tpu_torch.examples.cross_check_scipy, moptimizer_0_tpu_torch.examples.icp_registration, "
+        "moptimizer_0_tpu_torch.examples.bundle_adjustment, moptimizer_0_tpu_torch.examples.fleet_and_fixed_lag, "
+        "moptimizer_0_tpu_torch.examples.sfm_reconstruct; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'moptimizer_0_tpu.'))"
         " or m == 'moptimizer_0_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
