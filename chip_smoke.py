@@ -33,8 +33,9 @@ prints no result):
    (past ``DENSE_MAX_CAMERAS``) to CG, which must end below its start with a
    non-increasing trace, no K11 launch and a repeat bit-equal; (c)
    ``solve_ba_selfcal`` from intrinsics off by [+8, −6, +3, −2], which must
-   end within ±1% of its χ² floor (4 unknowns more) while plain
-   ``solve_ba`` from the same intrinsics ends above that band;
+   end within ±1% of its χ² floor (4 unknowns more) with the intrinsics
+   within 1 px of the true ones, while plain ``solve_ba`` from the same
+   intrinsics ends above that band;
 6. the fleet path: ``icp_batched`` on 64 lanes of the full fachada scan in
    float32, each lane with its own shuffled target and known transform to
    be recovered to 2e-3, with one launch of the expansion kernel K6 per
@@ -124,7 +125,19 @@ prints no result):
     ``engine="auto"`` route); ``solve_ba_dense(schur_solver="blocked")`` on
     the phase-5 instance within 1e-5 of phase 5's solve; and
     ``spd_solve_blocked`` against one ``cholesky_ex`` at 6C = 1,200 and
-    24,000, relative residuals and times.
+    24,000, relative residuals and times;
+18. (run before 15, and in 15's processes) self-calibrating BA with the
+    observations sharded: ``solve_ba_selfcal`` on 5(c)'s start with
+    ``cam_idx``, ``pt_idx`` and ``pixels`` as ``GlobalArray``s over 2 and 4
+    shards in one process, and over 2 processes × 2 shards (each process
+    its own rows, in phase 15's processes), held to 5(c)'s unsharded solve:
+    the first three outer iterations' cost and cost_new within 1e-5, the
+    final cost within 1e-5 and within ±1% of the χ² floor, the intrinsics
+    within 1 px of the true ones, fixed cameras unmoved, no kernel launched,
+    both processes bit-equal; the status reported (a NaN trial at the
+    float32 floor ends a solve NUMERIC_ERROR, as in the JAX package); walls
+    beside 5(c)'s, host reads, mesh reductions and, across processes, the
+    all-reduces of a solve.
 
 The dense-BA solve runs twice and must repeat itself bit for bit.
 
@@ -242,6 +255,10 @@ BA_CG_O, BA_CG_C, BA_CG_L = 1_000_000, 4_000, 100_000
 # Self-calibrating BA starts from intrinsics off by tests/test_ba_intrinsics.py's
 # perturbation; its χ² floor has 4 unknowns more.
 SELFCAL_WRONG = (8.0, -6.0, 3.0, -2.0)
+# The recovered intrinsics against the true ones, in px: the estimate's own
+# error at 0.5 px noise, which shrinks as 1/√O (0.27 px at this O on an H100,
+# PERF.md; 0.53 px at O = 100k, C = 100, L = 10k on the CPU).
+SELFCAL_INTR_TOL = 1.0
 
 # The fleet of the JAX package's batch-64 ICP bench (bench.py:104-152): 64
 # lanes of the full fachada scan. Lanes 0 and 1 use X_A and X_B, the others
@@ -381,6 +398,22 @@ TWO_PROCESS_BA_RTOL = SHARDED_BA_COST_RTOL
 # rows split as the 4 shards here, summed as ((s0 + s1) + (s2 + s3)).
 SHARDED_CG_SHARDS = (2, 4)
 SHARDED_CG_BIG_SHARDS = 4
+# Phase 18: self-calibrating BA on the same sharding, the headline from
+# intrinsics off by SELFCAL_WRONG over 2 and 4 shards in one process and over
+# 2 processes × 2 shards: it makes the CG engine's reductions plus P, Y, Z and
+# g_t, summed in another order than the unsharded solve, held as phase 16:
+# the first outer iterations to BA_COST_RTOL and the final cost to
+# SHARDED_BA_COST_RTOL of phase 5(c)'s. On the CPU at O = 100k, 2 shards are
+# 2.9e-7 (first iterations) and 0 (final) from the unsharded solve; one
+# shard's P, Y, Z or g_t off by 1% moves the first iterations by 1.0e-3 to
+# 2.7e-3, and g_t's leaves the final cost within 1e-7. The status is reported,
+# not held: at the float32 floor λ falls towards ε, where the damped V of a
+# landmark seen once is singular in float32 and its closed-form inverse
+# (``ba._inv3x3``, the JAX package's) gives NaN, so a trial's cost is NaN and
+# LM ends NUMERIC_ERROR after the last accepted step, as the JAX package
+# would. Whether λ gets there is roundoff's choice: on an H100 the 2-shard
+# solve reached λ = 1.6e-7 at its 15th iteration and the unsharded one did not.
+SELFCAL_SHARDS = (2, 4)
 # Phase 17: the blocked Cholesky (ops/block_cholesky.py) against one
 # cholesky_ex on SPD matrices M·Mᵀ/n + I (eigenvalues in [1, 5]) at the
 # headline's 6C and at 6C = 24,000: the relative residual ‖Ax − b‖/‖b‖ of
@@ -1022,6 +1055,11 @@ def _check_descent(what, prob, res, cost):
     return costs
 
 
+def _stages_text(stages):
+    """A stage-times dict as one line: floats to 4 decimals."""
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items())
+
+
 def _cg_stage_times(prob):
     """The CG engine's stages at the start of a solve, on an unsharded or an
     observation-sharded problem: ms (CUDA events over back-to-back calls, so
@@ -1091,8 +1129,7 @@ def run_ba_cg(prob, dense_res):
     if not same:
         raise AssertionError("CG BA: a second solve of the same instance differs from the first")
     stages = _cg_stage_times(prob)
-    print("CG BA stages at the start (CUDA events, launches by torch.profiler): " + ", ".join(
-        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items()))
+    print(f"CG BA stages at the start (CUDA events, launches by torch.profiler): {_stages_text(stages)}")
     return dict(wall_s=[wall_s, wall2_s], outer=run, trials=sum(trials), reads=reads, cost=cost,
                 vs_floor=cost / floor - 1, ms_per_outer=wall_s / max(run, 1) * 1e3, k11=k11, **stages), res
 
@@ -1140,33 +1177,102 @@ def run_ba_routing(prob, dense_res):
     if not same:
         raise AssertionError("CG BA (routed): a second solve differs from the first")
     stages = _cg_stage_times(big)
-    print("  stages at the start: " + ", ".join(
-        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items()))
+    print(f"  stages at the start: {_stages_text(stages)}")
     return dict(wall_s=[wall_s, wall2_s], outer=run, reads=reads, start=costs[0], cost=cost,
                 vs_floor=cost / floor - 1, k11=k11, **stages), big, res
 
 
-def run_selfcal(prob):
-    """(c) solve_ba_selfcal from intrinsics off by SELFCAL_WRONG: within
-    ±1% of its χ² floor (4 unknowns more), no K11 launch; plain solve_ba
-    from the same wrong intrinsics ends above that band."""
-    wrong = dataclasses.replace(
-        prob, intrinsics=prob.intrinsics + torch.tensor(SELFCAL_WRONG, dtype=prob.intrinsics.dtype).to(prob.intrinsics.device)
-    )
+def _selfcal_start(prob):
+    """prob with its intrinsics off by SELFCAL_WRONG."""
+    wrong = torch.tensor(SELFCAL_WRONG, dtype=prob.intrinsics.dtype).to(prob.intrinsics.device)
+    return dataclasses.replace(prob, intrinsics=prob.intrinsics + wrong)
+
+
+def _solve_selfcal(prob):
+    """solve_ba_selfcal through its entry point: (result, θ, cost, wall s,
+    host reads, mesh reductions), with every kernel count set to 0 before it;
+    no kernel may launch."""
     k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
-    reads = ba.HOST_READS
+    reads, reductions = ba.HOST_READS, mesh_module.REDUCTIONS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, intr = ba_intrinsics.solve_ba_selfcal(wrong, ba.BAConfig())
+    res, intr = ba_intrinsics.solve_ba_selfcal(prob, ba.BAConfig())
     cost = float(res.cost)
     wall_s = time.perf_counter() - t0
-    reads = ba.HOST_READS - reads
-    k11 = k_schur.LAUNCHES
-    if k11 or k_nn.LAUNCHES or k_expand.LAUNCHES:
+    if k_schur.LAUNCHES or k_nn.LAUNCHES or k_expand.LAUNCHES:
         raise AssertionError("self-calibrating BA launched a kernel of another path")
+    return res, intr, cost, wall_s, ba.HOST_READS - reads, mesh_module.REDUCTIONS - reductions
+
+
+def _selfcal_early(prob):
+    """(cost, cost_new) of the first SHARDED_BA_TRACE_ITERS outer iterations
+    of ``ba_step_selfcal`` from λ = −1, as ``solve_ba_selfcal`` steps."""
+    lam, out = -1.0, []
+    for _ in range(SHARDED_BA_TRACE_ITERS):
+        cams, pts, intr, lam, _, _, rec = ba_intrinsics.ba_step_selfcal(prob, lam)
+        prob = dataclasses.replace(prob, camera_params=cams, points=pts, intrinsics=intr)
+        out.append([float(rec["cost"]), float(rec["cost_new"])])
+    return out
+
+
+def _hold_selfcal(what, sp, res, intr, cost, truth):
+    """A self-calibration's end: a finite cost within BA_BAND of its χ²
+    floor, fixed cameras unmoved, the intrinsics within SELFCAL_INTR_TOL of
+    the true ones. Returns (floor, intrinsics error)."""
     floor = _chi2_floor(BA_O, BA_C, BA_L, extra=4)
-    err = (intr - prob.intrinsics).abs().max().item()
+    err = (intr - truth).abs().max().item()
+    if not np.isfinite(cost):
+        raise AssertionError(f"{what}: status {Status(int(res.status)).name}, cost {cost}")
+    if not torch.equal(res.camera_params[: sp.n_fixed_cameras], sp.camera_params[: sp.n_fixed_cameras]):
+        raise AssertionError(f"{what}: a fixed camera moved")
+    if abs(cost / floor - 1) > BA_BAND:
+        raise AssertionError(f"{what}: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
+    if not err <= SELFCAL_INTR_TOL:
+        raise AssertionError(f"{what}: intrinsics {intr.tolist()} are {err} px from the true ones")
+    return floor, err
+
+
+def _selfcal_stage_times(prob):
+    """One damped self-calibrating solve (``_solve_delta_full``,
+    cg_iterations PCG iterations) at the start, on an unsharded or an
+    observation-sharded problem: ms (CUDA events), device ms and launches
+    (torch.profiler) a PCG iteration, and the mesh reductions of the solve."""
+    cfg = ba.BAConfig()
+    mesh, shards = ba._shards(prob)
+    plans = [ba._plans(s) for s in shards]
+    rows, sums = ba_intrinsics._linearize_shards_full(mesh, shards, plans,
+                                                       (prob.camera_params, prob.points, prob.intrinsics))
+    blocks = sums[:-1]
+    lam = ba._seed_lambda(torch.full((), -1.0, dtype=prob.points.dtype, device=prob.points.device),
+                          blocks[0], blocks[1], cfg.init_lambda_factor)
+
+    def solve():
+        return ba_intrinsics._solve_delta_full(prob, blocks, lam, cfg, mesh, rows)
+
+    solve()
+    reductions = mesh_module.REDUCTIONS
+    solve()
+    reductions = mesh_module.REDUCTIONS - reductions
+    solve_ms = _time_ms(solve, 3)
+    launches, device_ms = _device_profile(solve)
+    n = cfg.cg_iterations
+    return dict(solve_ms=solve_ms, pcg_iteration_ms=solve_ms / n, pcg_iteration_device_ms=device_ms / n,
+                pcg_iteration_launches=launches / n, solve_reductions=reductions)
+
+
+def run_selfcal(prob):
+    """(c) solve_ba_selfcal from intrinsics off by SELFCAL_WRONG: within
+    ±1% of its χ² floor (4 unknowns more), the intrinsics within
+    SELFCAL_INTR_TOL of the true ones, no kernel launch; plain solve_ba from
+    the same wrong intrinsics ends above that band. Returns (numbers, the
+    start, the result, θ, the first outer iterations' costs)."""
+    wrong = _selfcal_start(prob)
+    res, intr, cost, wall_s, reads, _ = _solve_selfcal(wrong)
+    k11 = k_schur.LAUNCHES
+    floor, err = _hold_selfcal("self-cal BA", wrong, res, intr, cost, prob.intrinsics)
     status = Status(int(res.status))
+    if status == Status.NUMERIC_ERROR:
+        raise AssertionError("self-cal BA: status NUMERIC_ERROR")
     # outer iterations run: the terminal one is not counted in `iterations`
     run = int(res.iterations) + (status != Status.MAXIMUM_ITERATIONS_REACHED)
     _, plain_cost, plain_wall_s, _ = _solve_cg(wrong)
@@ -1175,39 +1281,17 @@ def run_selfcal(prob):
         f"{wall_s:.4f} s, iterations {int(res.iterations)}, host reads {reads}, "
         f"{wall_s / max(run, 1) * 1e3:.2f} ms per outer iteration, status {status.name}, "
         f"cost {cost:.6e} vs chi2 floor {floor:.6e} ({(cost / floor - 1) * 100:+.4f}%), intrinsics "
-        f"{intr.tolist()}, max|error| {err:.4e} px; plain solve_ba from them: cost {plain_cost:.6e} "
-        f"({(plain_cost / floor - 1) * 100:+.4f}%), wall {plain_wall_s:.4f} s"
+        f"{intr.tolist()}, max|error| {err:.4e} px (bound {SELFCAL_INTR_TOL:g}); plain solve_ba from them: cost "
+        f"{plain_cost:.6e} ({(plain_cost / floor - 1) * 100:+.4f}%), wall {plain_wall_s:.4f} s"
     )
-    if status == Status.NUMERIC_ERROR or not np.isfinite(cost):
-        raise AssertionError(f"self-cal BA: status {status.name}, cost {cost}")
-    if not torch.equal(res.camera_params[:2], prob.camera_params[:2]):
-        raise AssertionError("self-cal BA: a fixed camera moved")
-    if abs(cost / floor - 1) > BA_BAND:
-        raise AssertionError(f"self-cal BA: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
     if not plain_cost > floor * (1 + BA_BAND):
         raise AssertionError(f"plain BA from the wrong intrinsics ended inside the band: {plain_cost}")
-
-    cfg = ba.BAConfig()
-    plans = ba._plans(wrong)
-    lin = ba_intrinsics._linearize_full(wrong)
-    blocks = ba_intrinsics._gn_blocks_full(wrong, *lin, plans)
-    lam = ba._seed_lambda(torch.full((), -1.0, dtype=wrong.points.dtype, device=wrong.points.device),
-                          blocks[0], blocks[1], cfg.init_lambda_factor)
-
-    def solve():
-        return ba_intrinsics._solve_delta_full(wrong, blocks, lam, cfg, plans)
-
-    solve()
-    solve_ms = _time_ms(solve, 3)
-    launches, device_ms = _device_profile(solve)
-    n = cfg.cg_iterations
-    print(f"  self-cal stages at the start: damped solve {solve_ms:.4f} ms ({solve_ms / n:.4f} ms a PCG "
-          f"iteration), device {device_ms:.4f} ms ({device_ms / n:.4f} a PCG iteration), {launches} launches "
-          f"({launches / n:.1f} a PCG iteration)")
-    return dict(wall_s=wall_s, iterations=int(res.iterations), ms_per_outer=wall_s / max(run, 1) * 1e3, reads=reads,
-                cost=cost, vs_floor=cost / floor - 1, k11=k11, intrinsics_err=err,
-                plain_vs_floor=plain_cost / floor - 1, solve_ms=solve_ms, pcg_iteration_ms=solve_ms / n,
-                pcg_iteration_device_ms=device_ms / n, pcg_iteration_launches=launches / n)
+    stages = _selfcal_stage_times(wrong)
+    print(f"  self-cal stages at the start: {_stages_text(stages)}")
+    out = dict(wall_s=wall_s, iterations=int(res.iterations), ms_per_outer=wall_s / max(run, 1) * 1e3, reads=reads,
+               cost=cost, vs_floor=cost / floor - 1, k11=k11, intrinsics_err=err,
+               plain_vs_floor=plain_cost / floor - 1, **stages)
+    return out, wrong, res, intr, _selfcal_early(wrong)
 
 
 def ba_steps(prob, grouped, backend, n=3):
@@ -2120,8 +2204,7 @@ def run_ba_cg_sharded(prob, cg_res, big, big_res):
               f"cost {cost:.6e} ({(cost / floor - 1) * 100:+.4f}% of the chi2 floor; {rel:.3e} from the unsharded "
               f"CG's, bound {SHARDED_BA_COST_RTOL:g}); first {SHARDED_BA_TRACE_ITERS} outer iterations' cost and "
               f"cost_new {early:.3e} from its (bound {BA_COST_RTOL:g})")
-        print("  stages at the start: " + ", ".join(
-            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stages.items()))
+        print(f"  stages at the start: {_stages_text(stages)}")
         out[str(key)] = dict(shards=n, wall_s=wall_s, outer=run, reads=reads, reductions=reductions, k11=k11, cost=cost,
                              vs_floor=cost / floor - 1, rel_unsharded=rel, early_rel_unsharded=early, **stages)
         results[key] = res
@@ -2137,6 +2220,41 @@ def run_ba_cg_sharded(prob, cg_res, big, big_res):
         raise AssertionError("sharded CG BA: a second 4-shard solve differs from the first")
     out["4"]["repeat_wall_s"] = wall_s
     return out, results[4]
+
+
+def run_selfcal_sharded(prob, wrong, single, single_intr, single_early, single_wall_s):
+    """18: solve_ba_selfcal with the observations of 5(c)'s start sharded
+    over 2 and 4 shards in one process, held to 5(c)'s unsharded solve
+    (``_hold_selfcal``, the first outer iterations to BA_COST_RTOL, the final
+    cost to SHARDED_BA_COST_RTOL). Returns {shards: numbers}."""
+    out = {}
+    for n in SELFCAL_SHARDS:
+        what = f"sharded self-cal BA ({n} shards)"
+        sp = _observation_sharded(wrong, make_mesh(n))
+        res, intr, cost, wall_s, reads, reductions = _solve_selfcal(sp)
+        k11 = k_schur.LAUNCHES
+        floor, err = _hold_selfcal(what, sp, res, intr, cost, prob.intrinsics)
+        rel = abs(cost / float(single.cost) - 1)
+        early = _early_gap(_selfcal_early(sp), single_early)
+        d_intr = (intr - single_intr).abs().max().item()
+        stages = _selfcal_stage_times(sp)
+        print(f"sharded self-calibrating BA O={BA_O} C={BA_C} L={BA_L} over {n} shards: wall {wall_s:.4f} s "
+              f"(unsharded {single_wall_s:.4f} s in this run; 0.82-1.07 s in PR 8), iterations {int(res.iterations)}, "
+              f"host reads {reads}, mesh reductions {reductions}, K11 launches {k11}, status "
+              f"{Status(int(res.status)).name}, final cost {cost:.6e} ({(cost / floor - 1) * 100:+.4f}% of the chi2 "
+              f"floor; {rel:.3e} from the unsharded self-cal's, bound {SHARDED_BA_COST_RTOL:g}); first "
+              f"{SHARDED_BA_TRACE_ITERS} outer iterations' cost and cost_new {early:.3e} from its (bound "
+              f"{BA_COST_RTOL:g}); intrinsics {intr.tolist()}, {err:.4e} px from the true ones, {d_intr:.4e} from "
+              f"the unsharded solve's")
+        print(f"  stages at the start: {_stages_text(stages)}")
+        if not rel <= SHARDED_BA_COST_RTOL:
+            raise AssertionError(f"{what}: final cost {rel} from the unsharded self-cal's")
+        if not early <= BA_COST_RTOL:
+            raise AssertionError(f"{what}: the first iterations' costs are {early} from the unsharded self-cal's")
+        out[str(n)] = dict(wall_s=wall_s, iterations=int(res.iterations), reads=reads, reductions=reductions, k11=k11,
+                           cost=cost, vs_floor=cost / floor - 1, rel_unsharded=rel, early_rel_unsharded=early,
+                           intrinsics_err=err, intrinsics_vs_unsharded=d_intr, **stages)
+    return out
 
 
 @contextlib.contextmanager
@@ -2315,6 +2433,21 @@ def _cg_over_processes(prob, mesh):
                 fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
 
 
+def _selfcal_over_processes(prob, mesh):
+    """18, in each of phase 15's processes: solve_ba_selfcal from 5(c)'s
+    start with the observations sharded over the processes' mesh, each
+    feeding its own rows, once (the CG solves before it have loaded the
+    engine's modules), its all-reduces counted and timed; then its first
+    outer iterations."""
+    sp = _observation_sharded(_selfcal_start(prob), mesh, multihost.host_local_shard)
+    with _timed_all_reduces() as stats:
+        res, intr, cost, wall_s, _, _ = _solve_selfcal(sp)
+    return dict(cost=cost, intr=intr.tolist(), iterations=int(res.iterations), status=int(res.status), wall_s=wall_s,
+                allreduces=stats, k11=k_schur.LAUNCHES, early=_selfcal_early(sp),
+                digests=[_digest(res.cost), _digest(res.camera_params), _digest(res.points), _digest(intr)],
+                fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+
+
 def rank_main(rank, port):
     """One of phase 15's two processes: both join a gloo group at
     localhost:port and run, over a global mesh of 2 processes × 2 shards on
@@ -2322,8 +2455,9 @@ def rank_main(rank, port):
     distributed_levenberg_marquardt (float64, each process feeding its 32
     rows) and solve_ba_dense_sharded on the headline (float32), each twice
     (the first is the process's cold start), then the observation-sharded
-    CG solve on the headline (``_cg_over_processes``). Prints one RESULT
-    line of JSON."""
+    CG solve on the headline (``_cg_over_processes``) and phase 18's
+    self-calibration (``_selfcal_over_processes``). Prints one RESULT line
+    of JSON."""
     import torch.distributed as dist
 
     dev = torch.device("cuda", 0)
@@ -2360,18 +2494,49 @@ def rank_main(rank, port):
                      early=_early_costs(res.trace),
                      k11=k_schur.LAUNCHES, fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
     out["cg"] = _cg_over_processes(prob, mesh)
+    out["selfcal"] = _selfcal_over_processes(prob, mesh)
     s = torch.ones((6 * BA_C) ** 2, dtype=torch.float32, device=dev)
     out["allreduce_ms"] = dict(bytes=s.numel() * 4, cuda=_allreduce_ms(s, False), staged=_allreduce_ms(s, True))
     print("RESULT " + json.dumps(out), flush=True)
     dist.destroy_process_group()
 
 
-def run_two_processes(ba4, cg4):
+def _hold_two_process_selfcal(a, b, truth, single, single_early):
+    """18 across processes: ranks a and b's self-calibrations (their bits
+    already compared) against 5(c)'s unsharded solve ``single`` and its
+    first iterations' costs: the costs to BA_COST_RTOL and
+    TWO_PROCESS_BA_RTOL, the χ² band, the intrinsics to SELFCAL_INTR_TOL of
+    ``truth``, fixed cameras unmoved, no K11. Returns rank a's numbers."""
+    sc = a["selfcal"]
+    rel = abs(sc["cost"] / float(single.cost) - 1)
+    early = _early_gap(sc["early"], single_early)
+    err = max(abs(u - v) for u, v in zip(sc["intr"], truth.tolist()))
+    floor = _chi2_floor(BA_O, BA_C, BA_L, extra=4)
+    for res in (a, b):
+        st = res["selfcal"]["allreduces"]
+        print(f"two processes, rank {res['rank']}: sharded self-calibrating BA over its {res['cg']['rows']} rows "
+              f"(2 shards): wall {res['selfcal']['wall_s']:.4f} s, iterations {res['selfcal']['iterations']}, "
+              f"all-reduces {st['count']} ({st['ms']:.1f} ms), cost {res['selfcal']['cost']:.6e}")
+    print(f"two processes, sharded self-calibrating BA: cost {rel:.3e} from the unsharded self-cal's "
+          f"{float(single.cost):.6e} (bound {TWO_PROCESS_BA_RTOL:g}), its first {SHARDED_BA_TRACE_ITERS} outer "
+          f"iterations' costs {early:.3e} from its (bound {BA_COST_RTOL:g}), intrinsics {sc['intr']}, "
+          f"{err:.4e} px from the true ones (bound {SELFCAL_INTR_TOL:g})")
+    if not early <= BA_COST_RTOL or not rel <= TWO_PROCESS_BA_RTOL:
+        raise AssertionError(f"two processes: sharded self-cal BA {rel}, {early} from the unsharded one's")
+    if not err <= SELFCAL_INTR_TOL or not sc["fixed_unmoved"] or sc["k11"] or abs(sc["cost"] / floor - 1) > BA_BAND:
+        raise AssertionError(f"two processes: sharded self-cal BA {sc}")
+    return dict({k: sc[k] for k in ("wall_s", "cost", "iterations", "allreduces", "intr", "k11")},
+                rel_unsharded=rel, early_rel_unsharded=early, intrinsics_err=err)
+
+
+def run_two_processes(ba4, cg4, selfcal):
     """15: this script's rank_main in two processes on the one card. Each
     must exit 0 within TWO_PROCESS_TIMEOUT_S (both are killed otherwise),
     both must print the same bits, the dense BA must agree with 14(b)'s
-    4-shard solve and the sharded CG BA with 16's: their first iterations'
-    costs to BA_COST_RTOL, the final costs to TWO_PROCESS_BA_RTOL."""
+    4-shard solve, the sharded CG BA with 16's and the sharded self-cal (18)
+    with 5(c)'s unsharded one: their first iterations' costs to
+    BA_COST_RTOL, the final costs to TWO_PROCESS_BA_RTOL. selfcal: (the
+    truth's intrinsics, 5(c)'s result, its first iterations' costs)."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2402,7 +2567,8 @@ def run_two_processes(ba4, cg4):
         raise AssertionError(f"two processes: results from ranks {sorted(results)}:\n{outs}")
     a, b = results[0], results[1]
     same = all(a[k][f] == b[k][f] for k, fs in (("curve", ("bits", "status", "iterations")),
-                                               ("ba", ("digests", "trials")), ("cg", ("digests", "trials")))
+                                               ("ba", ("digests", "trials")), ("cg", ("digests", "trials")),
+                                               ("selfcal", ("digests", "iterations", "early")))
                for f in fs)
     repeats = all(len(set(map(str, r[k][f]))) == 1 for r in (a, b)
                   for k, f in (("curve", "bits"), ("ba", "digests"), ("cg", "digests")))
@@ -2444,13 +2610,14 @@ def run_two_processes(ba4, cg4):
         raise AssertionError(f"two processes: sharded CG BA {a['cg']} {b['cg']}")
     if a["ba"]["k11"] != 2 * builds or a["curve"]["status"] == Status.NUMERIC_ERROR:
         raise AssertionError(f"two processes: K11 launched {a['ba']['k11']} times for 2 x {builds}")
+    sc = _hold_two_process_selfcal(a, b, *selfcal)
     curve_err = max(abs(u - v) for u, v in zip(a["curve"]["x"], CURVE_MINIMUM_64))
     if curve_err > 5e-5:
         raise AssertionError(f"two processes: the curve fit is {curve_err} from its minimum")
     return dict(wall_s=wall_s, curve=a["curve"], ba={k: a["ba"][k] for k in ("wall_s", "cost", "k11")},
                 rel_4_shard=rel, early_rel_4_shard=early, allreduce_ms={r: results[r]["allreduce_ms"] for r in results},
                 cg={k: a["cg"][k] for k in ("wall_s", "cost", "allreduces", "rows", "k11")}, cg_rel_4_shard=cg_rel,
-                cg_early_rel_4_shard=cg_early)
+                cg_early_rel_4_shard=cg_early, selfcal=sc)
 
 
 def main():
@@ -2530,7 +2697,7 @@ def main():
 
     ba_cg, cg_res = run_ba_cg(ba_prob, ba_res)
     ba_routing, cg_big, cg_big_res = run_ba_routing(ba_prob, ba_res)
-    selfcal = run_selfcal(ba_prob)
+    selfcal, selfcal_start, selfcal_res, selfcal_intr, selfcal_early = run_selfcal(ba_prob)
 
     fleet, fleet_wall_s, e_launches = run_fleet(srcs, tgts, fleet_x)
     fleet_vs_single(cloud, tgts, fleet, fleet_wall_s)
@@ -2560,7 +2727,9 @@ def main():
     fleet_sharded = run_fleet_sharded(srcs, tgts, fleet, fleet_x)
     cg_sharded, cg4 = run_ba_cg_sharded(ba_prob, cg_res, cg_big, cg_big_res)
     del cg_big, cg_big_res
-    two = run_two_processes(ba4, cg4)
+    selfcal_sharded = run_selfcal_sharded(ba_prob, selfcal_start, selfcal_res, selfcal_intr, selfcal_early,
+                                          selfcal["wall_s"])
+    two = run_two_processes(ba4, cg4, (ba_prob.intrinsics, selfcal_res, selfcal_early))
     examples = run_examples()
     blocked = run_blocked(ba_prob, ba_res, dev)
 
@@ -2592,6 +2761,8 @@ def main():
               sharded_ba_shard_ms={n: r["k11_shard_ms"] for n, r in ba_sharded.items()},
               two_process_launches=two["ba"]["k11"],
               sharded_cg_launches={k: r["k11"] for k, r in cg_sharded.items()}, two_process_cg_launches=two["cg"]["k11"],
+              sharded_selfcal_launches={k: r["k11"] for k, r in selfcal_sharded.items()},
+              two_process_selfcal_launches=two["selfcal"]["k11"],
               examples_launches={k: v["k11"] for k, v in examples.items() if v["k11"]},
               blocked_dense_launches=blocked["k11"]),
     ]
@@ -2601,7 +2772,7 @@ def main():
     print(json.dumps({"ba_cg": ba_cg, "ba_cg_routed": ba_routing, "selfcal": selfcal, "reference_f32": references}))
     print(json.dumps({"sharded": dict(linearize_rel=sharded_lin, distributed_icp=dist_icp, ba=ba_sharded,
                                       ba_grouping_s=ba_grouping_s, fleet=fleet_sharded, cg=cg_sharded,
-                                      two_processes=two)}))
+                                      selfcal=selfcal_sharded, two_processes=two)}))
     print(json.dumps({"examples": examples, "blocked": blocked}))
     print(json.dumps({"kernels": kernels}))
     print(

@@ -250,17 +250,19 @@ def _shards(problem):
     ]
 
 
-def _at(shard, cams, pts):
-    """The shard evaluated at the replicated state (cams, pts)."""
+def _at(shard, cams, pts, intr=None):
+    """The shard evaluated at the replicated state (cams, pts) and, when
+    given, intrinsics ``intr``."""
     dev = shard.cam_idx.device
-    return dataclasses.replace(shard, camera_params=cams.to(dev), points=pts.to(dev))
+    intr = shard.intrinsics if intr is None else intr
+    return dataclasses.replace(shard, camera_params=cams.to(dev), points=pts.to(dev), intrinsics=intr.to(dev))
 
 
-def _mesh_cost(mesh, shards, cams, pts):
+def _mesh_cost(mesh, shards, cams, pts, intr=None):
     """Σ‖r‖² over every shard's rows, summed over the mesh, on cams' device."""
     parts = []
     for shard in shards:
-        s = _at(shard, cams, pts)
+        s = _at(shard, cams, pts, intr)
         r = _flat(s, s.camera_params, s.points, jacobians=False)
         parts.append(torch.sum(r * r))
     return mesh.psum(parts, device=cams.device)

@@ -15,6 +15,17 @@ with the extra −Y δθ term. The LM trials are ``ba._lm_trials_tree`` over
 (cameras, landmarks, intrinsics): the eager loop stops at the trial that
 ends the iteration, where the JAX package computes every trial and masks
 the ones after it.
+
+Observation sharding is the CG engine's (``ba`` module docstring): with
+``cam_idx``, ``pt_idx`` and ``pixels`` given as ``GlobalArray``s, each local
+shard keeps its rows, plans and W; U, V, P, Y, Z, g, h, g_t and the costs
+are summed over the mesh in one ``Mesh.psum``, and each PCG iteration's
+matvec makes the CG engine's two reductions, Σ Wᵀu_c (L, 3) and Σ W s
+(C, 6). The θ terms of the matvec sum the replicated P, Y and Z over
+cameras and landmarks, so they need no reduction of their own. The JAX
+package runs the same solve under GSPMD and refuses only a row count the
+mesh does not divide; so does this. The unsharded solve is the one-shard
+case.
 """
 
 import dataclasses
@@ -49,13 +60,28 @@ def _gn_blocks_full(problem, r, A, B, K, plans):
     return U, V, W, P, Y, Z, g, h, g_t
 
 
-def _solve_delta_full(problem, blocks, lam, config, plans):
-    """Damped Schur solve over (cams, θ): (δcam, δpt, δθ)."""
-    U, V, W, P, Y, Z, g, h, g_t = blocks
-    cam, pt = plans
+def _linearize_shards_full(mesh, shards, plans, params):
+    """Each shard's rows linearized at params = (cams, pts, θ): (rows,
+    (U, V, P, Y, Z, g, h, g_t, y0)), rows holding each local shard's
+    (problem, plans, W) and the blocks and the cost summed over the mesh on
+    cams' device."""
+    rows, parts = [], []
+    for shard, plan in zip(shards, plans):
+        s = ba._at(shard, *params)
+        r, A, B, K = _linearize_full(s)
+        U, V, W, P, Y, Z, g, h, g_t = _gn_blocks_full(s, r, A, B, K, plan)
+        rows.append((s, plan, W))
+        parts.append((U, V, P, Y, Z, g, h, g_t, torch.sum(r * r)))
+    return rows, mesh.psum(parts, device=params[0].device)
+
+
+def _solve_delta_full(problem, blocks, lam, config, mesh, rows):
+    """Damped Schur solve over (cams, θ): (δcam, δpt, δθ). blocks: the
+    mesh's sums (U, V, P, Y, Z, g, h, g_t); rows: each local shard's
+    (problem, plans, W)."""
+    U, V, P, Y, Z, g, h, g_t = blocks
     C = problem.camera_params.shape[0]
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    cam_idx, pt_idx = problem.cam_idx, problem.pt_idx
     bmv = ba._bmv
 
     U_d = ba._damp_blocks(U, lam)
@@ -75,14 +101,13 @@ def _solve_delta_full(problem, blocks, lam, config, plans):
         out_c = bmv(U_d, u_c) + torch.sum(P * u_t, dim=-1)
         out_t = torch.sum(P * u_c[:, :, None], dim=(0, 1)) + Z_d @ u_t
         # landmark elimination: s_l = V′⁻¹ (Wᵀu_c + Y u_t) per landmark
-        t = segment_sum(pt, torch.sum(W * u_c[cam_idx][:, :, None], dim=1)) + torch.sum(Y * u_t, dim=-1)
-        s = bmv(Vinv, t)
-        out_c = out_c - segment_sum(cam, bmv(W, s[pt_idx]))
+        s = bmv(Vinv, ba._to_landmarks(mesh, rows, u_c, dev) + torch.sum(Y * u_t, dim=-1))
+        out_c = out_c - ba._to_cameras(mesh, rows, s, dev)
         out_t = out_t - torch.sum(Y * s[:, :, None], dim=(0, 1))
         return pack(out_c * cam_mask, out_t)
 
     t0 = bmv(Vinv, h)
-    r_c = -(g - segment_sum(cam, bmv(W, t0[pt_idx]))) * cam_mask
+    r_c = -(g - ba._to_cameras(mesh, rows, t0, dev)) * cam_mask
     r_t = -(g_t - torch.sum(Y * t0[:, :, None], dim=(0, 1)))
 
     # the block-Jacobi preconditioner: U′ blocks and the Z′ block
@@ -96,32 +121,28 @@ def _solve_delta_full(problem, blocks, lam, config, plans):
     d_cam, d_t = unpack(pcg(matvec, pack(r_c, r_t), pre, config.cg_iterations, config.cg_tol, ba._read))
     d_cam = d_cam * cam_mask
     # back-substitute: δl = V′⁻¹ (−h − Wᵀδc − Y δθ)
-    Wtd = segment_sum(pt, torch.sum(W * d_cam[cam_idx][:, :, None], dim=1))
-    d_pt = bmv(Vinv, -h - Wtd - torch.sum(Y * d_t, dim=-1))
+    d_pt = bmv(Vinv, -h - ba._to_landmarks(mesh, rows, d_cam, dev) - torch.sum(Y * d_t, dim=-1))
     return d_cam, d_pt, d_t
 
 
-def _step_selfcal(problem, lam, config, plans):
-    """One outer LM iteration over (cams, pts, θ)."""
+def _step_selfcal(problem, lam, config, mesh, shards, plans):
+    """One outer LM iteration over (cams, pts, θ), over the rows of
+    ``shards`` (``ba._shards``) with their ``plans``."""
     dtype = problem.camera_params.dtype
-    r, A, B, K = _linearize_full(problem)
-    blocks = _gn_blocks_full(problem, r, A, B, K, plans)
-    U, V, g, h, g_t = blocks[0], blocks[1], blocks[6], blocks[7], blocks[8]
-    y0 = torch.sum(r * r)
+    params0 = (problem.camera_params, problem.points, problem.intrinsics)
+    rows, sums = _linearize_shards_full(mesh, shards, plans, params0)
+    blocks, y0 = sums[:-1], sums[-1]
+    U, V, g, h, g_t = blocks[0], blocks[1], blocks[5], blocks[6], blocks[7]
     lam = ba._seed_lambda(lam, U, V, config.init_lambda_factor)
 
-    params0 = (problem.camera_params, problem.points, problem.intrinsics)
     state = ba._lm_init_state_tree(params0, lam, y0, dtype)
     converged0 = state["stop"]
 
     def solve_fn(lam_k):
-        return _solve_delta_full(problem, blocks, lam_k, config, plans)
+        return _solve_delta_full(problem, blocks, lam_k, config, mesh, rows)
 
     def cost_fn(params):
-        cams, pts, intr = params
-        return ba.compute_cost(
-            dataclasses.replace(problem, camera_params=cams, points=pts, intrinsics=intr)
-        )
+        return ba._mesh_cost(mesh, shards, *params)
 
     b_flat = torch.cat([g.reshape(-1), h.reshape(-1), g_t])
     state = ba._lm_trials_tree(
@@ -135,30 +156,28 @@ def _step_selfcal(problem, lam, config, plans):
     return cams, pts, intr, state["lam"], state["terminal"], status, record
 
 
-def _require_unsharded(problem):
-    if ba._mesh_of(problem) is not None:
-        raise NotImplementedError("self-calibrating BA does not take observation-sharded problems yet")
-
-
 def ba_step_selfcal(problem, lam, config=ba.BAConfig()):
     """One LM iteration refining cameras, landmarks and intrinsics:
-    (cams, pts, θ, λ′, terminal, status, record); λ = −1 seeds λ."""
-    _require_unsharded(problem)
+    (cams, pts, θ, λ′, terminal, status, record); λ = −1 seeds λ. Takes an
+    observation-sharded problem too."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     lam = torch.as_tensor(lam, dtype=dtype, device=dev)
-    return _step_selfcal(problem, lam, config, ba._plans(problem))
+    mesh, shards = ba._shards(problem)
+    return _step_selfcal(problem, lam, config, mesh, shards, [ba._plans(s) for s in shards])
 
 
 def solve_ba_selfcal(problem, config=ba.BAConfig()):
-    """Full self-calibrating BA. Returns (BAResult with an empty trace, θ)."""
-    _require_unsharded(problem)
+    """Full self-calibrating BA. Returns (BAResult with an empty trace, θ).
+    On an observation-sharded problem the cameras, points and θ of the
+    result are replicated on every process."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    plans = ba._plans(problem)
+    mesh, shards = ba._shards(problem)
+    plans = [ba._plans(s) for s in shards]
     lam = torch.full((), -1.0, dtype=dtype, device=dev)
     status = Status.MAXIMUM_ITERATIONS_REACHED
     executed = 0
     for it in range(config.max_iterations):
-        cams, pts, intr, lam, terminal, status, _ = _step_selfcal(problem, lam, config, plans)
+        cams, pts, intr, lam, terminal, status, _ = _step_selfcal(problem, lam, config, mesh, shards, plans)
         problem = dataclasses.replace(problem, camera_params=cams, points=pts, intrinsics=intr)
         if terminal:
             executed = it
@@ -170,7 +189,7 @@ def solve_ba_selfcal(problem, config=ba.BAConfig()):
             points=problem.points,
             status=torch.tensor(int(status), dtype=torch.int32, device=dev),
             iterations=torch.tensor(executed, dtype=torch.int32, device=dev),
-            cost=ba.compute_cost(problem),
+            cost=ba._mesh_cost(mesh, shards, problem.camera_params, problem.points, problem.intrinsics),
             trace={},
         ),
         problem.intrinsics,

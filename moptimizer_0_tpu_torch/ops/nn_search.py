@@ -34,13 +34,21 @@ from moptimizer_0_tpu_torch.kernels.nn_search import nn_cuda
 _CHUNK_ELEMS = 1 << 25
 
 
-def _nn_torch(query, points):
+def _chunk_rows(lanes, n_points, chunk):
+    """Queries a plain version's chunk holds: at most ``chunk`` (None: no
+    limit) and at most ``_CHUNK_ELEMS`` distances in all."""
+    rows = max(1, _CHUNK_ELEMS // (lanes * n_points))
+    return rows if chunk is None else max(1, min(rows, int(chunk)))
+
+
+def _nn_torch(query, points, chunk=None):
     """Plain version of K5: exact direct differences, chunked over queries
-    so that the whole (Q, M) distance block is never in memory."""
+    (``_chunk_rows``) so that the whole (Q, M) distance block is never in
+    memory. Each query's row is its own, so the chunks change no bit."""
     q = query.to(torch.float32)
     p = points.to(torch.float32)
     px, py, pz = p[:, 0], p[:, 1], p[:, 2]
-    chunk = max(1, _CHUNK_ELEMS // p.shape[0])
+    chunk = _chunk_rows(1, p.shape[0], chunk)
     idx, dist = [], []
     for s in range(0, q.shape[0], chunk):
         qc = q[s : s + chunk]
@@ -60,18 +68,18 @@ def _sq_norm(a):
     return (a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]) + a[..., 2] * a[..., 2]
 
 
-def _nn_expand_torch(query, points):
+def _nn_expand_torch(query, points, chunk=None):
     """Plain version of K6: d² = (qn − 2·cross) + pn with qn = ‖q‖², pn = ‖p‖²
     and cross = (qx·px + qy·py) + qz·pz, every float32 operation rounded on
     its own (no matmul, no ``sum``: their order is not fixed). query
     (..., Q, 3), points (..., M, 3) with the same leading lane axes; chunked
-    over queries so that the whole (..., Q, M) block is never in memory."""
+    over queries (``_chunk_rows``) so that the whole (..., Q, M) block is
+    never in memory."""
     q = query.to(torch.float32)
     p = points.to(torch.float32)
     pn = _sq_norm(p)[..., None, :]  # (..., 1, M)
     px, py, pz = (p[..., None, :, c] for c in range(3))
-    lanes = q[..., 0, 0].numel()
-    chunk = max(1, _CHUNK_ELEMS // (lanes * p.shape[-2]))
+    chunk = _chunk_rows(q[..., 0, 0].numel(), p.shape[-2], chunk)
     idx, dist = [], []
     for s in range(0, q.shape[-2], chunk):
         qc = q[..., s : s + chunk, :]
@@ -106,12 +114,18 @@ def knn(query, points, k, chunk=1024):
     return torch.cat(idx), torch.cat(dist)
 
 
-def nearest_neighbors(query, points, *, backend="auto"):
+def nearest_neighbors(query, points, *, backend="auto", block_q=None, block_p=None, chunk=1024):
     """For each query point, the index of (int32) and squared distance to
     (float32) its nearest point in ``points``. Returns (indices, sq_dists)
     of shape query.shape[:-1]; any float dtype is searched in float32.
     query (Q, 3) against points (M, 3); the expansion backends ("xla",
-    "pallas_mxu") also take lanes, (..., Q, 3) against (..., M, 3)."""
+    "pallas_mxu") also take lanes, (..., Q, 3) against (..., M, 3).
+
+    The JAX package's tuning keywords: ``block_q`` and ``block_p`` (its
+    Pallas tiles) are ignored, since K5 and K6 choose their own blocks and
+    target splits; ``chunk`` caps the queries a chunk of the plain versions
+    holds (a lane's, on the CPU), which changes no result."""
+    del block_q, block_p
     if query.shape[-2] == 0 or points.shape[-2] == 0:
         raise ValueError(
             f"nearest_neighbors needs non-empty clouds; got query {tuple(query.shape)}, "
@@ -121,12 +135,12 @@ def nearest_neighbors(query, points, *, backend="auto"):
         backend = "cuda" if query.is_cuda else "torch"
     if backend == "xla":
         if not query.is_cuda:
-            return _nn_expand_torch(query, points)
+            return _nn_expand_torch(query, points, chunk)
         backend = "pallas_mxu"
     if backend in ("cuda", "pallas"):
         return nn_cuda(query.to(torch.float32).contiguous(), points.to(torch.float32).contiguous())
     if backend == "torch":
-        return _nn_torch(query, points)
+        return _nn_torch(query, points, chunk)
     if backend == "pallas_mxu":
         return nn_expand_cuda(
             query.to(torch.float32).contiguous(), points.to(torch.float32).contiguous()

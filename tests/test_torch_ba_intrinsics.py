@@ -26,6 +26,7 @@ from moptimizer_0_tpu_torch import ba as tba
 from moptimizer_0_tpu_torch import ba_intrinsics as tbi
 from moptimizer_0_tpu_torch import interop
 from moptimizer_0_tpu_torch.core.solver import Status
+from moptimizer_0_tpu_torch.parallel.mesh import Mesh
 
 from test_ba import make_synthetic_ba
 from test_torch_ba_cg import dense_oracle, port, rel_err
@@ -37,6 +38,14 @@ def _lam(x):
     return torch.tensor(x, dtype=torch.float64)
 
 
+def _solve_delta(prob, blocks, lam, cfg, plans):
+    """``_solve_delta_full`` of an unsharded problem: its one shard's rows
+    hold W, the other eight blocks are the mesh's sums."""
+    U, V, W, *sums = blocks
+    mesh = Mesh(devices=(prob.camera_params.device,))
+    return tbi._solve_delta_full(prob, (U, V, *sums), lam, cfg, mesh, [(prob, plans, W)])
+
+
 def test_selfcal_schur_matches_dense_oracle():
     """One damped (cams, pts, θ) solve ≡ the dense (6C+3L+4) damped solve."""
     jprob, _ = make_synthetic_ba(C=3, L=14, n_fixed=1)
@@ -45,7 +54,7 @@ def test_selfcal_schur_matches_dense_oracle():
     r, A, B, K = tbi._linearize_full(prob)
     blocks = tbi._gn_blocks_full(prob, r, A, B, K, plans)
     cfg = tba.BAConfig(cg_iterations=400, cg_tol=1e-14)
-    d_cam, d_pt, d_t = tbi._solve_delta_full(prob, blocks, _lam(1e-4), cfg, plans)
+    d_cam, d_pt, d_t = _solve_delta(prob, blocks, _lam(1e-4), cfg, plans)
     delta = dense_oracle(jprob, (A.numpy(), B.numpy()), r.numpy(), 1e-4, n_extra=4, extra=K.numpy())
     C, L = 3, 14
     np.testing.assert_allclose(d_cam.numpy().reshape(-1), delta[: 6 * C], rtol=1e-5, atol=1e-9)
@@ -68,8 +77,7 @@ def test_selfcal_linearization_blocks_and_step_match_jax():
         assert rel_err(t, j) < 1e-12, name
     cfg = jba.BAConfig(cg_iterations=400, cg_tol=1e-14)
     jd = jax.jit(jbi._solve_delta_full, static_argnames=("config",))(jprob, jblocks, 1e-3, config=cfg)
-    td = tbi._solve_delta_full(prob, blocks, _lam(1e-3), interop.ba_config_from_fields(dataclasses.asdict(cfg)),
-                               plans)
+    td = _solve_delta(prob, blocks, _lam(1e-3), interop.ba_config_from_fields(dataclasses.asdict(cfg)), plans)
     for t, j in zip(td, jd):
         assert rel_err(t, j) < 1e-9
 

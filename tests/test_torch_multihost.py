@@ -20,7 +20,11 @@ Every process has a 120 s limit and its group a 60 s timeout. Tolerances:
 * the observation-sharded CG solve, in each process, against a
   process-local solve of all rows, and its cameras against JAX's
   single-device CG solve: 1e-6 relative and 1e-8 absolute (the JAX
-  worker's bound for its GSPMD-sharded CG solve).
+  worker's bound for its GSPMD-sharded CG solve);
+* the observation-sharded self-calibration from intrinsics off by
+  ``SELFCAL_WRONG``, in each process against a process-local solve, and its
+  intrinsics and cameras against JAX's single-device self-calibration: the
+  same bound, since it runs on the same reductions.
 """
 
 import os
@@ -34,6 +38,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120
 GROUP_TIMEOUT_S = 60
+SELFCAL_WRONG = [8.0, -6.0, 3.0, -2.0]  # tests/test_ba_intrinsics.py's perturbation
 
 
 # ---------------------------------------------------------------- the worker
@@ -136,11 +141,42 @@ def _cg_worker(rank, port, path):
     return f"{float(res.cost)!r} {cams.tobytes().hex()} {pts.tobytes().hex()} {int(res.iterations)} {route}"
 
 
-WORKERS = {"curve": _curve_worker, "ba": _ba_worker, "cg": _cg_worker}
+def _selfcal_worker(rank, port, path):
+    """Self-calibrating BA on the CG worker's sharding, from wrong intrinsics,
+    held to a process-local self-calibration of all rows."""
+    import dataclasses
+
+    import torch
+
+    from moptimizer_0_tpu_torch import ba, ba_intrinsics, interop
+    from moptimizer_0_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
+                         initialization_timeout=GROUP_TIMEOUT_S)
+    mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
+    with np.load(path) as f:
+        arrays = {k: f[k] for k in f.files}
+    arrays["intrinsics"] = arrays["intrinsics"] + np.asarray(SELFCAL_WRONG)
+    start = interop.ba_problem_from_numpy(**arrays, n_fixed_cameras=2, device="cpu")
+    sharded = dataclasses.replace(start, **{
+        k: multihost.make_global_array(multihost.host_local_shard(getattr(start, k)), mesh)
+        for k in ("cam_idx", "pt_idx", "pixels")
+    })
+    cfg = ba.BAConfig(max_iterations=8)
+    res, intr = ba_intrinsics.solve_ba_selfcal(sharded, cfg)
+    local, local_intr = ba_intrinsics.solve_ba_selfcal(start, cfg)
+    np.testing.assert_allclose(intr.numpy(), local_intr.numpy(), rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(res.camera_params.numpy(), local.camera_params.numpy(), rtol=1e-6, atol=1e-8)
+    assert torch.equal(res.camera_params[:2], start.camera_params[:2])
+    cams = res.camera_params.numpy()
+    return f"{float(res.cost)!r} {intr.numpy().tobytes().hex()} {cams.tobytes().hex()} {int(res.iterations)}"
+
+
+WORKERS = {"curve": _curve_worker, "ba": _ba_worker, "cg": _cg_worker, "selfcal": _selfcal_worker}
 
 
 def _worker_main(rank, port, path):
-    """Both cases in one process (the group is initialized once)."""
+    """Every case in one process (the group is initialized once)."""
     sys.path.insert(0, ROOT)
     import torch.distributed as dist
 
@@ -198,7 +234,7 @@ def _run_pair(path):
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
-    """Both processes, run once for both cases: (the BA's JAX problem,
+    """Both processes, run once for every case: (the BA's JAX problem,
     {case: {rank: payload}})."""
     start = _ba_problem()
     path = str(tmp_path_factory.mktemp("multihost") / "ba.npz")
@@ -288,6 +324,28 @@ def test_two_process_sharded_cg_ba(pair):
     cams = np.frombuffer(bytes.fromhex(cams_hex), dtype=np.float64).reshape(6, 6)
     np.testing.assert_allclose(cams, np.asarray(ref.camera_params), rtol=1e-6, atol=1e-8)
     assert np.isfinite(float(cost))
+
+
+def test_two_process_sharded_selfcal(pair):
+    """Both processes bit-equal; the self-calibration over their rows against
+    the JAX package's single-device self-calibration of all rows."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from moptimizer_0_tpu import ba, ba_intrinsics
+
+    start, results = pair[0], pair[1]["selfcal"]
+    assert results[0] == results[1]
+    cost, intr_hex, cams_hex, iterations = results[0].split()
+    wrong = dataclasses.replace(start, intrinsics=start.intrinsics + jnp.asarray(SELFCAL_WRONG))
+    ref, ref_intr = ba_intrinsics.solve_ba_selfcal(wrong, ba.BAConfig(max_iterations=8))
+    intr = np.frombuffer(bytes.fromhex(intr_hex), dtype=np.float64)
+    cams = np.frombuffer(bytes.fromhex(cams_hex), dtype=np.float64).reshape(6, 6)
+    np.testing.assert_allclose(intr, np.asarray(ref_intr), rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(cams, np.asarray(ref.camera_params), rtol=1e-6, atol=1e-8)
+    assert int(iterations) == int(ref.iterations) and np.isfinite(float(cost))
+    assert np.abs(intr - np.asarray(start.intrinsics)).max() < np.abs(SELFCAL_WRONG).max()
 
 
 def test_initialize_failure_is_loud():

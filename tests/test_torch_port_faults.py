@@ -14,9 +14,17 @@ that showed it (float64, the same numpy inputs to both packages).
 * F4: a searcher's idx −1 (the grid's "nothing within the cell") gathers
   the last target point, as JAX's wrapping index does, in a row the gate
   marks invalid.
+* F6: each subpackage ``__init__`` exports the JAX package's names (the
+  models and ``ops.nearest_neighbors`` were missing), with the renames
+  listed in ``RENAMED``.
+* F7: ``nearest_neighbors`` takes the JAX package's ``block_q``,
+  ``block_p`` and ``chunk``, and they change no result.
 """
 
+import ast
+import importlib
 import inspect
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -237,3 +245,51 @@ def test_f4_a_searcher_returning_minus_one_matches_jax():
     assert int(t.iterations) == int(j.iterations)
     np.testing.assert_allclose(t.x.numpy(), np.asarray(j.x), rtol=0, atol=1e-9)
     np.testing.assert_allclose(t.x.numpy()[:3], [-0.05, 0.03, -0.02], atol=1e-6)
+
+
+# JAX package names that the port keeps under another name: the stopwatch
+# times any callable to the card's completion, nothing jitted.
+RENAMED = {"time_jitted": "time_fn"}
+# Subpackages of the JAX package with an __init__, but ``native`` (the C++
+# text-cloud parser, not ported: the port reads clouds with numpy).
+SUBPACKAGES = ["", "core", "lie", "models", "ops", "parallel", "utils"]
+
+
+def _exports(package):
+    """The public names an ``__init__.py`` binds by its imports."""
+    path = pathlib.Path(importlib.import_module(package).__file__)
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES, ids=[s or "top" for s in SUBPACKAGES])
+def test_f6_subpackages_export_the_jax_names(sub):
+    suffix = f".{sub}" if sub else ""
+    want = {RENAMED.get(n, n) for n in _exports("moptimizer_0_tpu" + suffix)}
+    got = _exports("moptimizer_0_tpu_torch" + suffix)
+    if sub:
+        assert got == want
+    else:  # the port also exports icp, icp_batched and parallel at the top
+        assert want <= got
+    module = importlib.import_module("moptimizer_0_tpu_torch" + suffix)
+    assert all(hasattr(module, n) for n in got)
+
+
+def test_f7_nearest_neighbors_takes_the_jax_keywords():
+    def keywords(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items() if p.kind == p.KEYWORD_ONLY}
+
+    assert keywords(nearest_neighbors) == keywords(j_nn)
+    rng = np.random.default_rng(7)
+    q = torch.as_tensor(rng.uniform(0, 10, (300, 3)))
+    p = torch.as_tensor(rng.uniform(0, 10, (200, 3)))
+    lanes = (q.reshape(3, 100, 3), p.reshape(2, 100, 3)[[0, 1, 0]])
+    cases = [("torch", q, p), ("auto", q, p), ("xla", q, p), ("xla", *lanes)]
+    for backend, qq, pp in cases:
+        idx, d2 = nearest_neighbors(qq, pp, backend=backend)
+        for chunk in (1, 7, 1024):
+            i2, e2 = nearest_neighbors(qq, pp, backend=backend, block_q=64, block_p=128, chunk=chunk)
+            assert torch.equal(i2, idx) and torch.equal(e2, d2), (backend, chunk)
