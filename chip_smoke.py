@@ -137,9 +137,22 @@ prints no result):
     both processes bit-equal; the status reported (a NaN trial at the
     float32 floor ends a solve NUMERIC_ERROR, as in the JAX package); walls
     beside 5(c)'s, host reads, mesh reductions and, across processes, the
-    all-reduces of a solve.
+    all-reduces of a solve;
+19. (run after 5) the BA steps as CUDA graphs: on the headline, the CG,
+    dense and self-calibrating solves through their graphs (``host_loop``
+    False and True) must equal their step bodies run eagerly on the card
+    (``ops.device_loop.eager()``) bit for bit, with at most one host read a
+    solve for ``host_loop=False`` and one an outer iteration for
+    ``host_loop=True`` and the self-calibration, one graph launch a step,
+    and the dense solve's replayed K11 launches equal to its trials;
+    walls, host reads, launch calls, device ms and busy share beside the
+    eager body's, and each capture's warm-up, capture and instantiation ms
+    and pool bytes (every capture of the run, the O=1M, C=4,000 one too).
 
-The dense-BA solve runs twice and must repeat itself bit for bit.
+Every BA solve of an unsharded problem (phases 5, 17 and 19) runs its step
+graph: K11's launches there are counted on the card (``replayed``), and a
+capture's warm-up launches it once a trial more. The dense-BA solve runs
+twice and must repeat itself bit for bit.
 
 Each kernel's line also carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -177,7 +190,7 @@ from moptimizer_0_tpu_torch.core.loss import GemanMcClure, TrivialLoss
 from moptimizer_0_tpu_torch.core.residual import make_block, problem
 from moptimizer_0_tpu_torch.core.solver import LMConfig, Status, levenberg_marquardt
 from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
-from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels import build, graph_cond
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
@@ -203,7 +216,7 @@ from moptimizer_0_tpu_torch.parallel import (
     sharded_linearize,
 )
 from moptimizer_0_tpu_torch.parallel import mesh as mesh_module
-from moptimizer_0_tpu_torch.ops import grid_nn, surface
+from moptimizer_0_tpu_torch.ops import device_loop, grid_nn, surface
 from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
 from moptimizer_0_tpu_torch.ops.schur import (
     _schur_corr_pairs_torch,
@@ -428,6 +441,12 @@ CURVE_MINIMUM_64 = [0.29284892, 0.12883951]
 # outside the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+
+
+def _reset_launches():
+    """Every kernel's launch count set to 0 (K11's replayed launches too)."""
+    k_nn.LAUNCHES = k_expand.LAUNCHES = 0
+    k_schur.reset_launches()
 
 
 def _time_ms(fn, reps):
@@ -720,7 +739,7 @@ def run_fleet(srcs, tgts, x_true):
     """The fleet path, as a user calls it: icp_batched with config=None,
     x0s=None, no gate and TrivialLoss. Every lane must recover its transform
     with K6 launched once per pass of the batched loop."""
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = icp_batched(srcs, tgts, loss=TrivialLoss())
@@ -752,7 +771,7 @@ def run_fleet(srcs, tgts, x_true):
         raise AssertionError(f"fleet: lane {int(err.argmax())} off by {float(err.max())} > {X_TOL}")
     if launches != passes or launches == 0:
         raise AssertionError(f"the fleet path launched the expansion kernel {launches} times for {passes} passes")
-    if k_nn.LAUNCHES or k_schur.LAUNCHES:
+    if k_nn.LAUNCHES or k_schur.launches():
         raise AssertionError("the fleet path launched the nn or schur kernel")
     return res, wall_s, launches
 
@@ -973,11 +992,12 @@ def ba_repeat(prob, first, first_wall_s):
 
 def run_ba(prob):
     """The dense-BA main path: one solve_ba_dense call, as a user makes it
-    (host grouping and the S build's plan included); K11 must launch once
-    per trial, one S build for all segments."""
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    (host grouping, the S build's plan and the step graph's capture
+    included); K11 must launch once per trial inside the replayed graph, one
+    S build for all segments, and once a trial of the capture's warm-up."""
+    _reset_launches()
     res, cost, wall_s = _solve_ba(prob)
-    launches = k_schur.LAUNCHES
+    launches, replayed = k_schur.launches(), k_schur.replayed()
     if k_nn.LAUNCHES or k_expand.LAUNCHES:
         raise AssertionError("the BA path launched an nn kernel")
 
@@ -994,7 +1014,8 @@ def run_ba(prob):
         f"({(cost / floor - 1) * 100:+.4f}%)"
     )
     print(f"  cost trace {costs}")
-    print(f"schur kernel launches on the BA path: {launches} for {sum(trials)} trials (S builds)")
+    print(f"schur kernel launches on the BA path: {launches}: {replayed} replayed for {sum(trials)} trials (S "
+          f"builds), {launches - replayed} in the capture's warm-up")
     if status == Status.NUMERIC_ERROR or not np.isfinite(cost):
         raise AssertionError(f"dense BA: status {status.name}, cost {cost}")
     if not torch.equal(res.camera_params[:2], prob.camera_params[:2]):
@@ -1003,9 +1024,9 @@ def run_ba(prob):
         raise AssertionError(f"dense BA: the accepted cost rose: {costs}")
     if abs(cost / floor - 1) > BA_BAND:
         raise AssertionError(f"dense BA: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
-    if launches != sum(trials) or launches == 0:
-        raise AssertionError(f"the BA path launched the schur kernel {launches} times")
-    return res, launches, wall_s
+    if replayed != sum(trials) or replayed == 0:
+        raise AssertionError(f"the BA path launched the schur kernel {replayed} times in its graph")
+    return res, launches, replayed, wall_s
 
 
 def _chi2_floor(O, C, L, extra=0):
@@ -1015,10 +1036,15 @@ def _chi2_floor(O, C, L, extra=0):
 
 
 def _same_bits(a, b):
-    """The same trials, cost trace, cameras, points and final cost, bit for bit."""
+    """The same trials, cost trace (a result with an empty trace, as the
+    self-calibration's, has none), status, iterations, cameras, points and
+    final cost, bit for bit."""
     return (
-        a.trace["trials"].tolist() == b.trace["trials"].tolist()
-        and torch.equal(_bits(a.trace["cost"]), _bits(b.trace["cost"]))
+        a.trace.keys() == b.trace.keys()
+        and all(torch.equal(_bits(a.trace[k]), _bits(b.trace[k])) for k in a.trace if k != "trials")
+        and all(torch.equal(a.trace[k], b.trace[k]) for k in a.trace if k == "trials")
+        and torch.equal(a.status, b.status)
+        and torch.equal(a.iterations, b.iterations)
         and torch.equal(_bits(a.camera_params), _bits(b.camera_params))
         and torch.equal(_bits(a.points), _bits(b.points))
         and torch.equal(_bits(a.cost), _bits(b.cost))
@@ -1028,7 +1054,7 @@ def _same_bits(a, b):
 def _solve_cg(prob, engine="cg"):
     """solve_ba through its entry point: (result, cost, wall s, host reads),
     with every kernel count set to 0 before it; no nn kernel may launch."""
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    _reset_launches()
     reads = ba.HOST_READS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1106,7 +1132,7 @@ def run_ba_cg(prob, dense_res):
     χ² band, fixed cameras unmoved, a non-increasing cost trace, no K11
     launch, and a second solve bit-equal."""
     res, cost, wall_s, reads = _solve_cg(prob)
-    k11 = k_schur.LAUNCHES
+    k11 = k_schur.launches()
     if k11:
         raise AssertionError(f"the CG engine launched the schur kernel {k11} times")
     costs = _check_descent("CG BA", prob, res, cost)
@@ -1143,8 +1169,8 @@ def run_ba_routing(prob, dense_res):
     res, _, wall_s, _ = _solve_cg(prob, engine="auto")
     same = _same_bits(res, dense_res)
     print(f"auto routing, headline: {route}; solve_ba(engine='auto') wall {wall_s:.4f} s, K11 launches "
-          f"{k_schur.LAUNCHES}, bit-equal to solve_ba_dense: {same}")
-    if route != "dense" or not same or k_schur.LAUNCHES != sum(res.trace["trials"].tolist()):
+          f"{k_schur.launches()} ({k_schur.replayed()} replayed), bit-equal to solve_ba_dense: {same}")
+    if route != "dense" or not same or k_schur.replayed() != sum(res.trace["trials"].tolist()):
         raise AssertionError("auto routing: the headline did not run the dense engine's solve")
 
     t0 = time.perf_counter()
@@ -1156,7 +1182,7 @@ def run_ba_routing(prob, dense_res):
     if route != "cg":
         raise AssertionError(f"auto routing: C={BA_CG_C} routed to {route}")
     res, cost, wall_s, reads = _solve_cg(big, engine="auto")
-    k11 = k_schur.LAUNCHES
+    k11 = k_schur.launches()
     if k11:
         raise AssertionError("the CG route launched the schur kernel")
     costs = _check_descent("CG BA (routed)", big, res, cost)
@@ -1192,14 +1218,14 @@ def _solve_selfcal(prob):
     """solve_ba_selfcal through its entry point: (result, θ, cost, wall s,
     host reads, mesh reductions), with every kernel count set to 0 before it;
     no kernel may launch."""
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    _reset_launches()
     reads, reductions = ba.HOST_READS, mesh_module.REDUCTIONS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, intr = ba_intrinsics.solve_ba_selfcal(prob, ba.BAConfig())
     cost = float(res.cost)
     wall_s = time.perf_counter() - t0
-    if k_schur.LAUNCHES or k_nn.LAUNCHES or k_expand.LAUNCHES:
+    if k_schur.launches() or k_nn.LAUNCHES or k_expand.LAUNCHES:
         raise AssertionError("self-calibrating BA launched a kernel of another path")
     return res, intr, cost, wall_s, ba.HOST_READS - reads, mesh_module.REDUCTIONS - reductions
 
@@ -1268,7 +1294,7 @@ def run_selfcal(prob):
     start, the result, θ, the first outer iterations' costs)."""
     wrong = _selfcal_start(prob)
     res, intr, cost, wall_s, reads, _ = _solve_selfcal(wrong)
-    k11 = k_schur.LAUNCHES
+    k11 = k_schur.launches()
     floor, err = _hold_selfcal("self-cal BA", wrong, res, intr, cost, prob.intrinsics)
     status = Status(int(res.status))
     if status == Status.NUMERIC_ERROR:
@@ -1307,6 +1333,139 @@ def ba_steps(prob, grouped, backend, n=3):
         prob = dataclasses.replace(prob, camera_params=cams, points=pts)
     print(f"dense BA steps, schur backend {backend}: wall {[f'{w * 1e3:.2f} ms' for w in walls]}, costs {costs}")
     return costs
+
+
+# Phase 19: the host calls the profiler counts as launches of work on the card.
+LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _launch_profile(fn):
+    """One fn() under torch.profiler: (its result, the host's launch calls
+    by name, the device ms (its device events' durations summed), the
+    wall s of the profiled call). Reads the profiler's raw events: building
+    its event tree for an eager solve's ~50,000 launches takes longer than
+    the solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    calls, device_ns = dict.fromkeys(LAUNCH_CALLS, 0), 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device_ns += e.duration_ns()
+        elif e.name() in calls:
+            calls[e.name()] += 1
+    return out, calls, device_ns / 1e6, wall_s
+
+
+def _timed_solve(fn):
+    """(result, wall s, host reads) of fn(), ending in a synchronisation."""
+    reads = ba.HOST_READS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ba.HOST_READS - reads
+
+
+def _ba_result(r):
+    """The BAResult of a solve (the self-calibration also returns θ)."""
+    return r if isinstance(r, ba.BAResult) else r[0]
+
+
+def _outer_run(res):
+    """Outer iterations a solve ran: the terminal one is not counted in
+    ``iterations``."""
+    return int(res.iterations) + (Status(int(res.status)) != Status.MAXIMUM_ITERATIONS_REACHED)
+
+
+def run_device_loop(prob, wrong):
+    """19: the three BA steps as CUDA-graph replays on the headline. Each
+    engine's solve through the graph (host_loop=False, and host_loop=True
+    where the entry point has it) must equal its step's body run eagerly on
+    the card bit for bit (``device_loop.eager()``), read the device at most
+    once (host_loop=False) or once an outer iteration (host_loop=True), and
+    one step must be one graph launch; the dense solve's replayed K11
+    launches must equal its trials. Reported beside the eager body's
+    figures: walls, host reads, launch calls, device ms and busy share, and
+    every capture's warm-up, capture and instantiation ms and pool bytes."""
+    cfg = ba.BAConfig()
+    # cuSOLVER, not MAGMA (whose calls synchronise and cannot be captured),
+    # must serve the captured factorizations: the default backend does
+    print(f"device loop: linalg backend {torch.backends.cuda.preferred_linalg_library()}")
+    cases = (
+        ("ba_step", lambda **kw: ba.solve_ba(prob, cfg, **kw), lambda: ba.ba_step(prob, -1.0, cfg)),
+        ("ba_step_dense", lambda **kw: ba_dense.solve_ba_dense(prob, **kw),
+         lambda: ba_dense.ba_step_dense(prob, ba_dense._grouping(prob), -1.0)),
+        ("ba_step_selfcal", lambda **kw: ba_intrinsics.solve_ba_selfcal(wrong, cfg),
+         lambda: ba_intrinsics.ba_step_selfcal(wrong, -1.0, cfg)),
+    )
+    out = {}
+    for name, solve, step in cases:
+        solve()  # the graph is captured (or was, in an earlier phase)
+        _reset_launches()
+        graph, graph_s, graph_reads = _timed_solve(solve)
+        replayed = k_schur.replayed()
+        host, host_s, host_reads = _timed_solve(lambda: solve(host_loop=True))
+        _reset_launches()
+        with device_loop.eager():
+            eager, eager_s, eager_reads = _timed_solve(solve)
+        eager_k11 = k_schur.launches()
+        same = [_same_bits(_ba_result(r), _ba_result(eager)) for r in (graph, host)]
+        if name == "ba_step_selfcal":
+            same.append(torch.equal(graph[1], eager[1]) and torch.equal(host[1], eager[1]))
+        run = _outer_run(_ba_result(graph))
+        trials = sum(_ba_result(graph).trace["trials"].tolist()) if _ba_result(graph).trace else None
+        _, g_calls, g_dev_ms, g_prof_s = _launch_profile(solve)
+        with device_loop.eager():
+            _, e_calls, e_dev_ms, e_prof_s = _launch_profile(solve)
+        replays = sum(loop.replays for loop, _ in device_loop._LOOPS.values())
+        step()
+        step_replays = sum(loop.replays for loop, _ in device_loop._LOOPS.values()) - replays
+        row = dict(
+            outer=run, trials=trials, bit_equal=all(same),
+            graph_s=graph_s, host_loop_s=host_s, eager_s=eager_s,
+            reads=dict(graph=graph_reads, host_loop=host_reads, eager=eager_reads),
+            launches=dict(graph=g_calls, eager=e_calls), step_replays=step_replays,
+            device_ms=dict(graph=g_dev_ms, eager=e_dev_ms),
+            busy=dict(graph=g_dev_ms / 1e3 / g_prof_s, eager=e_dev_ms / 1e3 / e_prof_s),
+            profiled_s=dict(graph=g_prof_s, eager=e_prof_s), k11_replayed=replayed, k11_eager=eager_k11,
+        )
+        out[name] = row
+        print(f"device loop, {name} (headline O={BA_O} C={BA_C} L={BA_L} float32): outer iterations {run}, trials "
+              f"{trials}; walls graph {graph_s:.4f} s, host_loop=True {host_s:.4f} s, eager body {eager_s:.4f} s; "
+              f"host reads graph {graph_reads}, host_loop=True {host_reads}, eager {eager_reads}; bit-equal to the "
+              f"eager body: {all(same)}; K11 replayed {replayed}, eager {eager_k11}")
+        print(f"  launch calls a solve: graph {g_calls}, eager {e_calls}; device ms graph {g_dev_ms:.3f} (busy "
+              f"{row['busy']['graph']:.3f} of {g_prof_s:.4f} s profiled), eager {e_dev_ms:.3f} (busy "
+              f"{row['busy']['eager']:.3f} of {e_prof_s:.4f} s); graph replays of one step {step_replays}")
+        if not all(same):
+            raise AssertionError(f"device loop, {name}: the graph's solve differs from its eager body")
+        if name != "ba_step_selfcal" and graph_reads > 1:
+            raise AssertionError(f"device loop, {name}: {graph_reads} host reads with host_loop=False")
+        if host_reads != run:
+            raise AssertionError(f"device loop, {name}: {host_reads} host reads for {run} outer iterations")
+        if name == "ba_step_selfcal" and graph_reads != run:
+            raise AssertionError(f"device loop, {name}: {graph_reads} host reads for {run} outer iterations")
+        # a replay a step: max_iterations of them a device-loop solve, one an
+        # outer iteration run in the self-calibration's host loop
+        replays = run if name == "ba_step_selfcal" else cfg.max_iterations
+        if step_replays != 1 or g_calls["cudaGraphLaunch"] != replays:
+            raise AssertionError(f"device loop, {name}: a step made {step_replays} replays, a solve "
+                                 f"{g_calls['cudaGraphLaunch']} graph launches")
+        if name == "ba_step_dense" and (replayed != trials or eager_k11 != trials):
+            raise AssertionError(f"device loop: K11 replayed {replayed} and eager {eager_k11} for {trials} trials")
+        if name != "ba_step_dense" and (replayed or eager_k11):
+            raise AssertionError(f"device loop, {name}: K11 launched")
+    out["captures"] = list(device_loop.CAPTURES)
+    for c in device_loop.CAPTURES:
+        print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
+              f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
+    return out
 
 
 def _quat_rot(q):
@@ -1597,7 +1756,7 @@ def run_slam(scans, gt, nn_backend, dev):
     reg = _Recorded(config=SLAM_CONFIG, nn_backend=nn_backend, max_corr_dist=SLAM_GATE)
     seq = [sc.to(dev) for sc in scans]
     k_scans = len(seq)
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    _reset_launches()
     grid_nn.HOST_READS = grid_nn.FALLBACKS = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1605,7 +1764,7 @@ def run_slam(scans, gt, nn_backend, dev):
     poses = poses.cpu()
     front_s = time.perf_counter() - t0
     k5, k6, reads, falls = k_nn.LAUNCHES, k_expand.LAUNCHES, grid_nn.HOST_READS, grid_nn.FALLBACKS
-    if k_schur.LAUNCHES:
+    if k_schur.launches():
         raise AssertionError("the SLAM path launched the schur kernel")
 
     pairs = reg.pairs
@@ -1715,7 +1874,7 @@ def run_scan_slam(scans, gt, method, dev):
     seq = [sc.to(dev) for sc in scans]
     k_scans = len(seq)
     with _slam_stages() as (walls, regs, solves):
-        k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+        _reset_launches()
         reads = pose_graph.HOST_READS
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1727,7 +1886,7 @@ def run_scan_slam(scans, gt, method, dev):
         wall_s = time.perf_counter() - t0
         k5, k6 = k_nn.LAUNCHES, k_expand.LAUNCHES
         pgo_reads = pose_graph.HOST_READS - reads
-    if k_schur.LAUNCHES:
+    if k_schur.launches():
         raise AssertionError(f"SLAM {method}: the schur kernel launched")
     (reg,) = regs
     pairs, outer, trials, status = _registrations(regs)
@@ -1972,7 +2131,7 @@ def run_distributed_icp(cloud, single):
     out = {}
     for n in DIST_ICP_SHARDS:
         mesh = make_mesh(n)
-        k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+        _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = distributed_levenberg_marquardt(problem(icp_block(cloud, tgt)), x0, mesh, _icp_config())
@@ -1990,7 +2149,7 @@ def run_distributed_icp(cloud, single):
             raise AssertionError(f"distributed ICP over {n} shards: {status.name}, error {err}")
         if not dx <= DIST_ICP_X_TOL:
             raise AssertionError(f"distributed ICP over {n} shards differs from the single request by {dx}")
-        if launches != n * outer or launches == 0 or k_expand.LAUNCHES or k_schur.LAUNCHES:
+        if launches != n * outer or launches == 0 or k_expand.LAUNCHES or k_schur.launches():
             raise AssertionError(f"distributed ICP over {n} shards: K5 launched {launches} times for {n} x {outer}")
         out[n] = dict(wall_s=wall_s, outer=outer, launches=launches, dx=dx)
     return out
@@ -2065,9 +2224,9 @@ def run_ba_sharded(prob, grouped, dense_res):
     grouping_s = time.perf_counter() - t0
     print(f"sharded dense BA: the solve's own host grouping (one K, landmark order) takes {grouping_s:.4f} s")
     for n in SHARDED_BA_SHARDS:
-        k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+        _reset_launches()
         res, cost, wall_s = _solve_sharded(prob, make_mesh(n), **(dict(grouped=grouped) if n == 2 else {}))
-        launches = k_schur.LAUNCHES
+        launches = k_schur.launches()
         builds = sum(res.trace["trials"].tolist())
         run = int(torch.isfinite(res.trace["cost"]).sum())
         costs = res.trace["cost"][:run].tolist() + [cost]
@@ -2114,7 +2273,7 @@ def run_fleet_sharded(srcs, tgts, fleet, x_true):
     SHARDED_FLEET_TOL of phase 6's unsharded fleet, K6 once per shard per
     pass, and B − 2 = 62 lanes refused."""
     mesh = make_mesh(FLEET_MESH)
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = icp_batched(srcs, tgts, loss=TrivialLoss(), mesh=mesh)
@@ -2136,7 +2295,7 @@ def run_fleet_sharded(srcs, tgts, fleet, x_true):
         raise AssertionError(f"sharded fleet: error {err}")
     if not dx <= SHARDED_FLEET_TOL:
         raise AssertionError(f"sharded fleet: lanes differ from the unsharded fleet by {dx}")
-    if launches != sum(passes) or k_nn.LAUNCHES or k_schur.LAUNCHES:
+    if launches != sum(passes) or k_nn.LAUNCHES or k_schur.launches():
         raise AssertionError(f"sharded fleet: K6 launched {launches} times for passes {passes}")
     try:
         icp_batched(srcs[:-2], tgts[:-2], mesh=mesh)
@@ -2167,7 +2326,7 @@ def _hold_sharded_cg(what, sp, res, cost, single, floor):
     _check_descent(what, sp, res, cost)
     rel = abs(cost / float(single.cost) - 1)
     early = _early_gap(_early_costs(res.trace), _early_costs(single.trace))
-    if k_schur.LAUNCHES:
+    if k_schur.launches():
         raise AssertionError(f"{what}: the CG engine launched the schur kernel")
     if abs(cost / floor - 1) > BA_BAND:
         raise AssertionError(f"{what}: final cost {cost} is not within {BA_BAND:.0%} of {floor}")
@@ -2193,7 +2352,7 @@ def run_ba_cg_sharded(prob, cg_res, big, big_res):
         reductions = mesh_module.REDUCTIONS
         res, cost, wall_s, reads = _solve_cg(sp, engine="cg")
         reductions = mesh_module.REDUCTIONS - reductions
-        k11 = k_schur.LAUNCHES
+        k11 = k_schur.launches()
         rel, early = _hold_sharded_cg(f"sharded CG BA ({key}, {n} shards)", sp, res, cost, single, floor)
         run = int(torch.isfinite(res.trace["cost"]).sum())
         stages = _cg_stage_times(sp)
@@ -2210,8 +2369,8 @@ def run_ba_cg_sharded(prob, cg_res, big, big_res):
         results[key] = res
     sp = _observation_sharded(prob, make_mesh(4))
     again, _, wall_s, _ = _solve_cg(sp, engine="cg")
-    out["4"]["repeat_k11"] = k_schur.LAUNCHES
-    if k_schur.LAUNCHES:
+    out["4"]["repeat_k11"] = k_schur.launches()
+    if k_schur.launches():
         raise AssertionError("sharded CG BA over 4 shards again: the CG engine launched the schur kernel")
     same = _same_bits(again, results[4])
     print(f"sharded CG BA over 4 shards again: wall {wall_s:.4f} s; trials, cost trace, cameras and points "
@@ -2232,7 +2391,7 @@ def run_selfcal_sharded(prob, wrong, single, single_intr, single_early, single_w
         what = f"sharded self-cal BA ({n} shards)"
         sp = _observation_sharded(wrong, make_mesh(n))
         res, intr, cost, wall_s, reads, reductions = _solve_selfcal(sp)
-        k11 = k_schur.LAUNCHES
+        k11 = k_schur.launches()
         floor, err = _hold_selfcal(what, sp, res, intr, cost, prob.intrinsics)
         rel = abs(cost / float(single.cost) - 1)
         early = _early_gap(_selfcal_early(sp), single_early)
@@ -2284,15 +2443,16 @@ def _timed_all_reduces():
 def _example(out, name, fn, **kwargs):
     """An example's main() on the card, with every kernel count set to 0
     before it: its result; its wall and launches go into out[name]."""
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    _reset_launches()
     print(f"--- example {name}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fn(**kwargs)
     torch.cuda.synchronize()
-    out[name] = dict(wall_s=time.perf_counter() - t0, k5=k_nn.LAUNCHES, k6=k_expand.LAUNCHES, k11=k_schur.LAUNCHES)
+    out[name] = dict(wall_s=time.perf_counter() - t0, k5=k_nn.LAUNCHES, k6=k_expand.LAUNCHES, k11=k_schur.launches(),
+                     k11_replayed=k_schur.replayed())
     print(f"--- example {name}: wall {out[name]['wall_s']:.3f} s, launches K5 {k_nn.LAUNCHES}, K6 "
-          f"{k_expand.LAUNCHES}, K11 {k_schur.LAUNCHES}")
+          f"{k_expand.LAUNCHES}, K11 {out[name]['k11']} ({out[name]['k11_replayed']} replayed)")
     return result
 
 
@@ -2320,7 +2480,7 @@ def run_examples():
         moved = not torch.equal(r.camera_params[:2], start.camera_params[:2])
         if Status(int(r.status)) == Status.NUMERIC_ERROR or moved:
             raise AssertionError(f"bundle_adjustment example: {Status(int(r.status)).name} or a fixed camera moved")
-    if route != "dense" or out["bundle_adjustment"]["k11"] != trials:
+    if route != "dense" or out["bundle_adjustment"]["k11_replayed"] != trials:
         raise AssertionError(f"bundle_adjustment example: route {route}, K11 {out['bundle_adjustment']['k11']} "
                              f"for {trials} trials")
     err, _, drift = _example(out, "fleet_and_fixed_lag", fleet_and_fixed_lag.main)
@@ -2345,7 +2505,7 @@ def run_blocked(prob, dense_res, dev):
     BA_COST_RTOL, K11 once a trial), and spd_solve_blocked against one
     cholesky_ex solve at BLOCKED_SIZES: relative residuals and CUDA-event
     times."""
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = ba_dense.solve_ba_dense(prob, ba_dense.DenseBAConfig(schur_solver="blocked"))
@@ -2354,13 +2514,14 @@ def run_blocked(prob, dense_res, dev):
     rel = abs(cost / float(dense_res.cost) - 1)
     early = _early_gap(_early_costs(res.trace), _early_costs(dense_res.trace))
     trials = sum(res.trace["trials"].tolist())
+    k11, replayed = k_schur.launches(), k_schur.replayed()
     print(f"dense BA with schur_solver='blocked': wall {wall_s:.4f} s, trials {trials}, K11 launches "
-          f"{k_schur.LAUNCHES}, final cost {cost:.6e} ({rel:.3e} from phase 5's 'auto' solve); first "
+          f"{k11} ({replayed} replayed), final cost {cost:.6e} ({rel:.3e} from phase 5's 'auto' solve); first "
           f"{SHARDED_BA_TRACE_ITERS} outer iterations' costs {early:.3e} from its (bound {BA_COST_RTOL:g})")
     _check_descent("dense BA (blocked)", prob, res, cost)
-    if not rel <= BA_COST_RTOL or not early <= BA_COST_RTOL or k_schur.LAUNCHES != trials:
-        raise AssertionError(f"dense BA (blocked): {rel}, {early} from phase 5's; K11 {k_schur.LAUNCHES}")
-    out = dict(wall_s=wall_s, cost=cost, rel_auto=rel, early_rel_auto=early, k11=k_schur.LAUNCHES, spd={})
+    if not rel <= BA_COST_RTOL or not early <= BA_COST_RTOL or replayed != trials:
+        raise AssertionError(f"dense BA (blocked): {rel}, {early} from phase 5's; K11 {replayed} replayed")
+    out = dict(wall_s=wall_s, cost=cost, rel_auto=rel, early_rel_auto=early, k11=k11, k11_replayed=replayed, spd={})
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for n in BLOCKED_SIZES:
         M = torch.randn(n, n, device=dev, generator=gen)
@@ -2420,7 +2581,7 @@ def _cg_over_processes(prob, mesh):
         walls.append(wall_s)
         allreduces.append(stats)
         digests.append([_digest(res.cost), _digest(res.camera_params), _digest(res.points)])
-    k11 = k_schur.LAUNCHES
+    k11 = k_schur.launches()
     try:
         ba.solve_ba(sp, engine="dense")
     except ValueError as e:
@@ -2443,7 +2604,7 @@ def _selfcal_over_processes(prob, mesh):
     with _timed_all_reduces() as stats:
         res, intr, cost, wall_s, _, _ = _solve_selfcal(sp)
     return dict(cost=cost, intr=intr.tolist(), iterations=int(res.iterations), status=int(res.status), wall_s=wall_s,
-                allreduces=stats, k11=k_schur.LAUNCHES, early=_selfcal_early(sp),
+                allreduces=stats, k11=k_schur.launches(), early=_selfcal_early(sp),
                 digests=[_digest(res.cost), _digest(res.camera_params), _digest(res.points), _digest(intr)],
                 fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
 
@@ -2486,13 +2647,13 @@ def rank_main(rank, port):
     prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
     walls, digests = [], []
     for _ in range(2):  # the first solve loads the dense engine's CUDA modules and builds the plans
-        k_schur.LAUNCHES = 0
+        k_schur.reset_launches()
         res, cost, wall_s = _solve_sharded(prob, mesh)
         walls.append(wall_s)
         digests.append([_digest(res.cost), _digest(res.camera_params), _digest(res.points)])
     out["ba"] = dict(cost=cost, digests=digests, trials=res.trace["trials"].tolist(), wall_s=walls,
                      early=_early_costs(res.trace),
-                     k11=k_schur.LAUNCHES, fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+                     k11=k_schur.launches(), fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
     out["cg"] = _cg_over_processes(prob, mesh)
     out["selfcal"] = _selfcal_over_processes(prob, mesh)
     s = torch.ones((6 * BA_C) ** 2, dtype=torch.float32, device=dev)
@@ -2632,7 +2793,7 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    kernels = (k_nn, k_expand, k_schur)
+    kernels = (k_nn, k_expand, k_schur, graph_cond)
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
         futures = [pool.submit(build.build, k.NAME, k.SOURCES) for k in kernels]
         built = [f.result() for f in futures]
@@ -2664,7 +2825,7 @@ def main():
         ("B", X_B, {}),
         ("A-gated", X_A, dict(loss=GemanMcClure(tau=1.0), max_corr_dist=1.0)),
     ]
-    k_nn.LAUNCHES = k_expand.LAUNCHES = k_schur.LAUNCHES = 0
+    _reset_launches()
     results, outer_total = {}, 0
     for name, x_true, kw in requests:
         results[name], outer = run_request(name, cloud, x_true, np.random.default_rng(SEED + 1), **kw)
@@ -2673,7 +2834,7 @@ def main():
     print(f"nn kernel launches on the ICP path: {launches} for {outer_total} outer iterations")
     if launches < outer_total or launches == 0:
         raise AssertionError(f"the ICP path launched the nn kernel {launches} times")
-    if k_schur.LAUNCHES or k_expand.LAUNCHES:
+    if k_schur.launches() or k_expand.LAUNCHES:
         raise AssertionError("the ICP path launched the schur or expansion kernel")
 
     plain, _ = run_request("A", cloud, X_A, np.random.default_rng(SEED + 1), nn_backend="torch")
@@ -2684,7 +2845,7 @@ def main():
         raise AssertionError(f"plain search: x differs from the kernel's run by {dx}")
     print(f"request A with the plain search: same iterations, max|dx| {dx:.3e}")
 
-    ba_res, s_launches, ba_wall_s = run_ba(ba_prob)
+    ba_res, s_launches, s_replayed, ba_wall_s = run_ba(ba_prob)
     ba_repeat(ba_prob, ba_res, ba_wall_s)
     ba_steps(ba_prob, ba_grouped, "auto")
     plain_costs = ba_steps(ba_prob, ba_grouped, "torch")
@@ -2698,6 +2859,7 @@ def main():
     ba_cg, cg_res = run_ba_cg(ba_prob, ba_res)
     ba_routing, cg_big, cg_big_res = run_ba_routing(ba_prob, ba_res)
     selfcal, selfcal_start, selfcal_res, selfcal_intr, selfcal_early = run_selfcal(ba_prob)
+    device = run_device_loop(ba_prob, selfcal_start)
 
     fleet, fleet_wall_s, e_launches = run_fleet(srcs, tgts, fleet_x)
     fleet_vs_single(cloud, tgts, fleet, fleet_wall_s)
@@ -2756,6 +2918,8 @@ def main():
         entry("schur_pairs", "moptimizer_0_tpu_torch/csrc/schur.cu",
               "benchmarks/schur_pallas_ab.py:38", s_launches,
               max([s_err] + [r["k11_shard_err"] for r in ba_sharded.values()]), s_t, s_bound,
+              replayed_launches=s_replayed, warmup_launches=s_launches - s_replayed,
+              device_loop_replayed_launches=device["ba_step_dense"]["k11_replayed"],
               ba_cg_launches=ba_cg["k11"], ba_cg_routed_launches=ba_routing["k11"], selfcal_launches=selfcal["k11"],
               sharded_ba_launches={n: r["launches"] for n, r in ba_sharded.items()},
               sharded_ba_shard_ms={n: r["k11_shard_ms"] for n, r in ba_sharded.items()},
@@ -2773,7 +2937,7 @@ def main():
     print(json.dumps({"sharded": dict(linearize_rel=sharded_lin, distributed_icp=dist_icp, ba=ba_sharded,
                                       ba_grouping_s=ba_grouping_s, fleet=fleet_sharded, cg=cg_sharded,
                                       selfcal=selfcal_sharded, two_processes=two)}))
-    print(json.dumps({"examples": examples, "blocked": blocked}))
+    print(json.dumps({"examples": examples, "blocked": blocked, "device_loop": device}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

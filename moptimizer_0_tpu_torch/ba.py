@@ -18,8 +18,14 @@ poses and L landmarks from O pixel observations.
   built, so memory is O(C + L + O) whatever the camera graph;
 * back-substitution δl = V′⁻¹ (−h − Wᵀ δc) per landmark;
 * the reference's LM λ/ν/ρ schedule (src/levenberg_marquadt_dyn.cpp:67-114)
-  over the joint state, as an eager loop with one host read an outer
-  iteration and one a trial (``HOST_READS`` counts them).
+  over the joint state, decided on the device: each trial under
+  ``device_loop.cond(¬stop)``, each PCG iteration under cond(‖r‖² > tol²).
+  On CUDA an outer iteration of an unsharded problem is one replay of a
+  CUDA graph (``ba_step``), and ``solve_ba`` enqueues max_iterations
+  replays with no host read (``ops/device_loop.py``). Eagerly (on the CPU,
+  or for a sharded problem) the same body reads the device once a trial,
+  once every 32 PCG iterations and once an outer iteration (``HOST_READS``
+  counts the reads).
 
 ``solve_ba(engine="dense")`` runs ``ba_dense.solve_ba_dense``, and
 ``engine="auto"`` routes between the two as the JAX package does.
@@ -34,7 +40,10 @@ its device; U, V, g, h and the costs are summed over the mesh
 (L, 3) and Σ_o W_o s (C, 6), where GSPMD inserts its two reductions for the
 JAX engine. Cameras, points and the solver's vectors are replicated, so
 every process reads the same flags and the processes' loops stay in
-lockstep. The unsharded solve is the one-shard case of the same step.
+lockstep. The unsharded solve is the one-shard case of the same step. A
+sharded problem runs the eager loop, in one process or several (its
+reductions, and gloo's all-reduce on the host, are not captured); the
+ROADMAP queues its graph.
 """
 
 import dataclasses
@@ -47,6 +56,7 @@ import torch.distributed as dist
 
 from moptimizer_0_tpu_torch.core.solver import Status
 from moptimizer_0_tpu_torch.lie import se3, so3
+from moptimizer_0_tpu_torch.ops import device_loop
 from moptimizer_0_tpu_torch.ops.pcg import pcg
 from moptimizer_0_tpu_torch.ops.segment_sum import segment_plan, segment_sum
 from moptimizer_0_tpu_torch.parallel.mesh import GlobalArray, Mesh
@@ -58,8 +68,11 @@ HOST_READS = 0
 
 
 def _read(t):
-    """t.tolist(), counted in HOST_READS."""
+    """t.tolist(), counted in HOST_READS; raises inside a CUDA-graph
+    capture, where the device cannot be read."""
     global HOST_READS
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a host read of the device inside a CUDA-graph capture")
     HOST_READS += 1
     return t.tolist()
 
@@ -315,21 +328,24 @@ def _damp_blocks(M, lam):
 
 
 def _lm_init_state_tree(params, lam, y0, dtype):
-    """The trial loop's state before the first trial; ``stop`` and
-    ``terminal`` are Python bools (one host read of |y0| < 8ε)."""
-    converged0 = _read(torch.abs(y0) < 8 * torch.finfo(dtype).eps)
+    """The trial loop's state before the first trial, every entry a tensor
+    that the trials write in place (the parameters and y copied from their
+    starting values); ``stop`` and ``terminal`` start at |y0| < 8ε, on the
+    device."""
+    dev = y0.device
+    converged0 = torch.abs(y0) < 8 * torch.finfo(dtype).eps
     # filled on the device: a tensor copied from a host scalar would add a
     # stream synchronisation per outer iteration on a CUDA device
     return dict(
-        params=params,
-        lam=lam,
-        nu=torch.full((), 2.0, dtype=dtype, device=y0.device),
-        y=y0,
-        rho=torch.full((), torch.nan, dtype=dtype, device=y0.device),
-        status=Status.MAXIMUM_ITERATIONS_REACHED,
+        params=tuple(p.clone() for p in params),
+        lam=lam.clone(),
+        nu=torch.full((), 2.0, dtype=dtype, device=dev),
+        y=y0.clone(),
+        rho=torch.full((), torch.nan, dtype=dtype, device=dev),
+        status=torch.full((), int(Status.MAXIMUM_ITERATIONS_REACHED), dtype=torch.int32, device=dev),
         stop=converged0,
-        terminal=converged0,
-        trials=0,
+        terminal=converged0.clone(),
+        trials=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
 
@@ -341,21 +357,22 @@ def _lm_trials_tree(state, y0, b_flat, params0, solve_fn, cost_fn, inner_iterati
                     rel_cost_tol=0.0, metrics_fn=None):
     """The inner LM trial loop over a tuple of parameter tensors.
 
-    state: from ``_lm_init_state_tree``. solve_fn(λ) → δ tuple shaped like
-    params0; cost_fn(params) → scalar; b_flat: the gradient in the order of
-    the concatenated flattened δ. metrics_fn(δ, λ) → (δ·(λδ − b), max|δ|)
-    replaces the b_flat computation of both (the sharded dense engine sums
-    the landmark part over the mesh); b_flat is then unused. Runs until a
-    trial is accepted or ends the solve, at most ``inner_iterations``
-    trials, reading one small vector of flags back to the host per trial.
-    ``state["trials"]`` counts the damped solves.
+    state: from ``_lm_init_state_tree``, updated in place and returned.
+    solve_fn(λ) → δ tuple shaped like params0; cost_fn(params) → scalar;
+    b_flat: the gradient in the order of the concatenated flattened δ.
+    metrics_fn(δ, λ) → (δ·(λδ − b), max|δ|) replaces the b_flat computation
+    of both (the sharded dense engine sums the landmark part over the mesh);
+    b_flat is then unused. At most ``inner_iterations`` trials, each under
+    ``device_loop.cond(¬stop)``: an IF node under capture, one host read of
+    ¬stop eagerly, where the loop ends at the first trial not taken. A trial
+    decides on the device, branch for branch as the JAX package's
+    ``jnp.where``s; ``state["trials"]`` counts the damped solves.
     """
     dtype = y0.dtype
     eps = torch.finfo(dtype).eps
-    s = dict(state)
-    for _ in range(inner_iterations):
-        if s["stop"]:
-            break
+    s = state
+
+    def trial():
         lam, nu = s["lam"], s["nu"]
         delta = solve_fn(lam)
         params_i = tuple(p + d for p, d in zip(params0, delta))
@@ -368,41 +385,43 @@ def _lm_trials_tree(state, y0, b_flat, params0, solve_fn, cost_fn, inner_iterati
         else:
             denom, max_abs = metrics_fn(delta, lam)
         rho = (y0 - yi) / denom
-        flags = [
-            torch.isnan(yi),
-            rho < 0.0,  # a NaN ρ falls through to accept
-            max_abs < math.sqrt(eps),
-            torch.abs(yi) < 8 * eps,
+        is_nan = torch.isnan(yi)
+        reject = rho < 0.0  # a NaN ρ falls through to accept
+        small = max_abs < math.sqrt(eps)
+        accept = ~is_nan & ~reject
+        term_small = ~is_nan & reject & small
+        retry = ~is_nan & reject & ~small
+        converged = torch.abs(yi) < 8 * eps
+        status = torch.where(
+            is_nan, int(Status.NUMERIC_ERROR),
+            torch.where(term_small, torch.where(converged, int(Status.CONVERGED), int(Status.SMALL_DELTA)),
+                        s["status"]),
+        )
+        terminal = is_nan | term_small
+        if rel_cost_tol > 0.0:
             # an accepted step at the noise floor; yi <= y0 keeps a NaN-ρ
             # acceptance of a cost increase from being labelled CONVERGED
-            (yi <= y0) & ((y0 - yi) <= rel_cost_tol * torch.abs(y0)),
-        ]
-        is_nan, reject, small, cost_small, at_floor = _read(torch.stack(flags))
-        accept = not is_nan and not reject
-        term_small = not is_nan and reject and small
-        retry = not is_nan and reject and not small
+            at_floor = accept & (yi <= y0) & ((y0 - yi) <= rel_cost_tol * torch.abs(y0))
+            terminal = terminal | at_floor
+            status = torch.where(at_floor, int(Status.CONVERGED), status)
+        moved = accept | is_nan | term_small
 
-        if is_nan:
-            s["status"] = Status.NUMERIC_ERROR
-        elif term_small:
-            s["status"] = Status.CONVERGED if cost_small else Status.SMALL_DELTA
-        s["terminal"] = is_nan or term_small
-        if rel_cost_tol > 0.0 and accept and at_floor:
-            s["terminal"] = True
-            s["status"] = Status.CONVERGED
+        for p, p_i in zip(s["params"], params_i):
+            p.copy_(torch.where(accept.to(p.device), p_i, p))
+        # max(1/3, 1 − (2ρ − 1)³); a NaN ρ gives a NaN λ, as in JAX
+        gain = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
+        s["lam"].copy_(torch.where(accept, lam * gain, torch.where(retry, nu * lam, lam)))
+        s["nu"].copy_(torch.where(retry, 2.0 * nu, nu))
+        s["y"].copy_(torch.where(moved, yi, s["y"]))
+        s["rho"].copy_(rho)
+        s["status"].copy_(status)
+        s["terminal"].copy_(terminal)
+        s["stop"].copy_(moved)
+        s["trials"].add_(1)
 
-        if accept:
-            s["params"] = params_i
-            # max(1/3, 1 − (2ρ − 1)³); a NaN ρ gives a NaN λ, as in JAX
-            s["lam"] = lam * torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
-        elif retry:
-            s["lam"] = nu * lam
-            s["nu"] = 2.0 * nu
-        if accept or is_nan or term_small:
-            s["y"] = yi
-        s["rho"] = rho
-        s["stop"] = accept or is_nan or term_small
-        s["trials"] += 1
+    for _ in range(inner_iterations):
+        if not device_loop.cond(~s["stop"], trial, _read):
+            break
     return s
 
 
@@ -414,6 +433,15 @@ def _lm_trials(state, y0, b_flat, cams0, pts0, solve_fn, cost_fn, inner_iteratio
         state, y0, b_flat, (cams0, pts0), solve_fn, lambda p: cost_fn(p[0], p[1]),
         inner_iterations, rel_cost_tol=rel_cost_tol,
     )
+
+
+def _step_result(state, y0, converged0):
+    """(λ′, terminal, status, record) of an outer step from its trial state:
+    a solve converged at its start keeps CONVERGED; record holds cost,
+    cost_new, rho, lam and trials."""
+    status = torch.where(converged0, int(Status.CONVERGED), state["status"])
+    record = dict(cost=y0, cost_new=state["y"], rho=state["rho"], lam=state["lam"], trials=state["trials"])
+    return state["lam"], state["terminal"], status, record
 
 
 def make_ba_problem(O, C, L, seed=0, dtype=torch.float32, device="cuda"):
@@ -591,16 +619,16 @@ def _linearize_shards(mesh, shards, plans, cams, pts):
 def _outer_step(problem, lam, config, mesh, shards, plans):
     """One outer LM iteration at the problem's (replicated) cameras and
     points, over the rows of ``shards`` (``_shards``) with their ``plans``:
-    (cams, pts, λ′, terminal, status, record), ``terminal`` a Python bool,
-    ``status`` a Status, ``record`` the tensors cost, cost_new, rho and lam
-    and the Python int ``trials``."""
+    (cams, pts, λ′, terminal, status, record), all tensors: ``terminal`` a
+    0-dim bool, ``status`` a 0-dim int32, ``record`` cost, cost_new, rho,
+    lam and trials (int32)."""
     dtype = problem.camera_params.dtype
     cams0, pts0 = problem.camera_params, problem.points
     rows, (U, V, g, h, y0) = _linearize_shards(mesh, shards, plans, cams0, pts0)
     lam = _seed_lambda(lam, U, V, config.init_lambda_factor)
 
     state = _lm_init_state(cams0, pts0, lam, y0, dtype)
-    converged0 = state["stop"]
+    converged0 = state["stop"].clone()
 
     def solve_fn(lam_k):
         return _solve_delta(problem, U, V, g, h, lam_k, config, mesh, rows)
@@ -613,22 +641,64 @@ def _outer_step(problem, lam, config, mesh, shards, plans):
         state, y0, b_flat, cams0, pts0, solve_fn, cost_fn,
         config.inner_iterations, rel_cost_tol=config.rel_cost_tol,
     )
-    status = Status.CONVERGED if converged0 else state["status"]
-    record = dict(cost=y0, cost_new=state["y"], rho=state["rho"], lam=state["lam"],
-                  trials=state["trials"])
     cams, pts = state["params"]
-    return cams, pts, state["lam"], state["terminal"], status, record
+    return (cams, pts, *_step_result(state, y0, converged0))
+
+
+def _layout_name(problem):
+    """O, C and L of a problem, for naming its captured step."""
+    return f"O={problem.cam_idx.shape[0]} C={problem.camera_params.shape[0]} L={problem.points.shape[0]}"
+
+
+def _record_dtypes(dtype):
+    """The names and dtypes of an outer iteration's record (its trace row)."""
+    return dict(cost=dtype, cost_new=dtype, rho=dtype, lam=dtype, trials=torch.int32)
+
+
+def _cg_loop(problem, config):
+    """The StepLoop of the CG engine on this problem, its context (mesh,
+    shards). On CUDA an unsharded problem's loop is captured once per layout
+    (the incidence, pixels, intrinsics, loss, gauge, shapes, dtype and
+    config) and kept; an observation-sharded one, or one on the CPU, gets an
+    eager loop."""
+    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
+    graph = device_loop.graphs(problem.camera_params) and _mesh_of(problem) is None
+
+    def make():
+        mesh, shards = _shards(problem)
+        plans = [_plans(s) for s in shards]
+
+        def body(cams, pts, lam):
+            prob = dataclasses.replace(problem, camera_params=cams, points=pts)
+            cams, pts, lam, terminal, status, record = _outer_step(prob, lam, config, mesh, shards, plans)
+            return (cams, pts, lam), terminal, status, record
+
+        carry = (problem.camera_params, problem.points, torch.full((), -1.0, dtype=dtype, device=dev))
+        return device_loop.StepLoop(body, carry, config.max_iterations, _record_dtypes(dtype),
+                                    Status.MAXIMUM_ITERATIONS_REACHED, graph=graph,
+                                    name=f"ba_step {_layout_name(problem)}", context=(mesh, shards))
+
+    if not graph:
+        return make()
+    return device_loop.cached(
+        ("cg", config, problem.loss, problem.n_fixed_cameras, tuple(problem.camera_params.shape),
+         tuple(problem.points.shape), dtype, dev, problem.cam_idx, problem.pt_idx, problem.pixels,
+         problem.intrinsics), make,
+    )
 
 
 def ba_step(problem, lam, config=BAConfig()):
     """One outer LM iteration of the CG engine, for callers that step,
     inspect or persist between iterations: (cams, pts, λ′, terminal, status,
-    record). Pass λ = −1 on the first call to seed λ from the GN diagonal.
-    Takes an observation-sharded problem too."""
-    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    lam = torch.as_tensor(lam, dtype=dtype, device=dev)
-    mesh, shards = _shards(problem)
-    return _outer_step(problem, lam, config, mesh, shards, [_plans(s) for s in shards])
+    record), all tensors (``_outer_step``). Pass λ = −1 on the first call to
+    seed λ from the GN diagonal. On CUDA an unsharded problem's step is one
+    replay of a graph captured at the first call of its layout, with no host
+    read; an observation-sharded problem steps eagerly."""
+    loop = _cg_loop(problem, config)
+    loop.start((problem.camera_params, problem.points, lam))
+    loop.step(_read)
+    (cams, pts, lam), terminal, status, record = loop.outputs()
+    return cams, pts, lam, terminal, status, record
 
 
 # engine="auto" routing: the JAX package's constants, kept so that the port
@@ -700,18 +770,18 @@ def _unsharded(problem):
 TRACE_KEYS = ("cost", "cost_new", "rho", "lam")
 
 
-def _result_trace(records, n_it, dtype, dev):
-    """The solve's trace: cost, cost_new, rho and lam per outer iteration,
-    NaN-filled to n_it, and ``trials``, the damped solves of each."""
-    pad = torch.full((n_it - len(records),), torch.nan, dtype=dtype, device=dev)
-    trace = {
-        k: torch.cat([torch.stack([rec[k] for rec in records]).to(dtype), pad]) if records
-        else pad.clone()
-        for k in TRACE_KEYS
-    }
-    trials = [rec["trials"] for rec in records] + [0] * (n_it - len(records))
-    trace["trials"] = torch.tensor(trials, dtype=torch.int32, device=dev)
-    return trace
+def _loop_result(loop, cams, points, cost):
+    """The BAResult of a finished StepLoop: its status, executed iterations
+    and trace (cost, cost_new, rho and lam per outer iteration, NaN-filled to
+    max_iterations, and ``trials``, the damped solves of each), copied."""
+    return BAResult(
+        camera_params=cams,
+        points=points,
+        status=loop.status.clone(),
+        iterations=loop.it.clone(),
+        cost=cost,
+        trace={k: v.clone() for k, v in loop.trace.items()},
+    )
 
 
 def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
@@ -724,16 +794,20 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
                 (the JAX package passes no other field);
       "auto"  — ``select_engine``.
 
-    ``host_loop`` is accepted for the JAX package's signature and changes
-    nothing: the eager loop is both of its loops. The result's trace holds
-    cost, cost_new, rho and lam per outer iteration (NaN-filled to
-    max_iterations) and ``trials``.
-
-    An observation-sharded problem (module docstring) solves by CG over its
-    mesh, with the cameras and points of the result replicated on every
-    process; "dense" takes it within one process only.
+    On CUDA an unsharded problem's outer iteration is one replay of the
+    ``ba_step`` graph (captured at the first solve of its layout). The
+    default ``host_loop=False`` enqueues max_iterations replays, each under
+    IF(¬done), with the trace written on the device: no host read after
+    the first capture. ``host_loop=True`` reads done after each replay and
+    stops there (one read an outer iteration). Both give the same bits. On
+    the CPU, and for an observation-sharded problem (module docstring), the
+    same step body runs eagerly, reading the device once a trial, once every
+    32 PCG iterations and once an outer iteration, whatever ``host_loop``
+    says; the cameras and points of a sharded solve are replicated on every
+    process, and "dense" takes it within one process only. The result's
+    trace holds cost, cost_new, rho and lam per outer iteration (NaN-filled
+    to max_iterations) and ``trials``.
     """
-    del host_loop
     if engine == "auto":
         engine = select_engine(problem)
     if engine == "dense":
@@ -750,27 +824,8 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
     if engine != "cg":
         raise ValueError(f"unknown engine {engine!r}")
 
-    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    n_it = config.max_iterations
-    mesh, shards = _shards(problem)
-    plans = [_plans(s) for s in shards]
-    lam = torch.full((), -1.0, dtype=dtype, device=dev)
-    status = Status.MAXIMUM_ITERATIONS_REACHED
-    records = []
-    executed = 0
-    for it in range(n_it):
-        cams, pts, lam, terminal, status, record = _outer_step(problem, lam, config, mesh, shards, plans)
-        problem = dataclasses.replace(problem, camera_params=cams, points=pts)
-        records.append(record)
-        if terminal:
-            executed = it  # the terminal iteration is not counted as executed
-            break
-        executed = it + 1
-    return BAResult(
-        camera_params=problem.camera_params,
-        points=problem.points,
-        status=torch.tensor(int(status), dtype=torch.int32, device=dev),
-        iterations=torch.tensor(executed, dtype=torch.int32, device=dev),
-        cost=_mesh_cost(mesh, shards, problem.camera_params, problem.points),
-        trace=_result_trace(records, n_it, dtype, dev),
-    )
+    loop = _cg_loop(problem, config)
+    loop.start((problem.camera_params, problem.points, -1.0))
+    loop.solve(config.max_iterations, _read, host_loop)
+    cams, pts = loop.carry[0].clone(), loop.carry[1].clone()
+    return _loop_result(loop, cams, pts, _mesh_cost(*loop.context, cams, pts))

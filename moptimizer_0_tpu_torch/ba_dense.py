@@ -18,8 +18,11 @@ PyTorch counterpart of ``moptimizer_0_tpu.ba_dense`` (single device):
   permuted i·C + c order) is built explicitly by ``ops.schur``, whose
   correction sum runs in the hand-written CUDA kernel on the card, and the
   camera system is solved by one Cholesky factorization;
-* the LM schedule is ``ba._lm_trials_tree`` (the reference's λ/ν/ρ rules), and
-  the outer loop is a Python loop with one host read per trial.
+* the LM schedule is ``ba._lm_trials_tree`` (the reference's λ/ν/ρ rules),
+  decided on the device; on CUDA an outer iteration is one replay of a
+  CUDA graph with K11 inside (``ops/device_loop.py``), and a solve enqueues
+  max_iterations replays with no host read. On the CPU the same body runs
+  eagerly, one host read a trial.
 
 ``solve_ba_dense_sharded`` shards the landmark axis over a
 ``parallel.mesh.Mesh``: each shard keeps its landmarks' linearization, V, W,
@@ -27,8 +30,11 @@ h and back-substitution, and the camera-space objects (U, g, the costs, the
 S correction, the rhs reduction and the landmark terms of the step's
 metrics) are summed over the mesh, max|diag V| and max|δpt| maxed; the
 (6C)² Cholesky and the camera step run once per process on reduced inputs.
+It runs the eager loop (its reductions, and gloo's all-reduce across
+processes, are not captured), one host read a trial and an outer iteration.
 """
 
+import collections
 import dataclasses
 import functools
 from itertools import combinations
@@ -38,7 +44,7 @@ import torch
 
 from moptimizer_0_tpu_torch import ba
 from moptimizer_0_tpu_torch.core.solver import Status
-from moptimizer_0_tpu_torch.ops import block_cholesky
+from moptimizer_0_tpu_torch.ops import block_cholesky, device_loop
 from moptimizer_0_tpu_torch.ops import schur, segment_sum
 from moptimizer_0_tpu_torch.parallel.mesh import Mesh
 
@@ -520,9 +526,9 @@ def _dense_outer_step(cams, pts, intr, shards, loss, n_fixed, lam, config, mesh=
     ``Mesh.pmax``: JAX's ``axis_name`` sites) and so is the landmark part of
     the step metrics.
 
-    Returns (cams, pts, λ′, terminal, status, record): ``terminal`` a Python
-    bool, ``status`` a Status, record the tensors cost, cost_new, rho, lam and
-    the Python int ``trials`` (damped solves run)."""
+    Returns (cams, pts, λ′, terminal, status, record), all tensors:
+    ``terminal`` a 0-dim bool, ``status`` a 0-dim int32, record cost,
+    cost_new, rho, lam and ``trials`` (int32, the damped solves run)."""
     sharded = mesh is not None
     dtype, dev = cams.dtype, cams.device
     C = cams.shape[0]
@@ -538,7 +544,7 @@ def _dense_outer_step(cams, pts, intr, shards, loss, n_fixed, lam, config, mesh=
     lam = ba._seed_lambda(lam, U, None, config.init_lambda_factor, v_diag_max=v_diag_max)
     fixed_mask = (torch.arange(C, device=dev) >= n_fixed).to(dtype)
     state = ba._lm_init_state_tree((cams, *pts), lam, y0, dtype)
-    converged0 = state["stop"]
+    converged0 = state["stop"].clone()
     landmarks = [(s, b[1], b[2], b[4]) for s, b in zip(shards, blocks)]
 
     def solve_fn(lam_k):
@@ -573,25 +579,71 @@ def _dense_outer_step(cams, pts, intr, shards, loss, n_fixed, lam, config, mesh=
         state, y0, b_flat, (cams, *pts), solve_fn, cost_fn, config.inner_iterations,
         rel_cost_tol=config.rel_cost_tol, metrics_fn=metrics_fn if sharded else None,
     )
-    status = Status.CONVERGED if converged0 else state["status"]
-    record = dict(cost=y0, cost_new=state["y"], rho=state["rho"], lam=state["lam"],
-                  trials=state["trials"])
     cams_out, *pts_out = state["params"]
-    return cams_out, tuple(pts_out), state["lam"], state["terminal"], status, record
+    return (cams_out, tuple(pts_out), *ba._step_result(state, y0, converged0))
+
+
+def _dense_loop(problem, grouped, config, schur_backend):
+    """The StepLoop of the dense engine over one GroupedBA, its points in
+    grid-row order. On CUDA it is captured once per layout (the grouping
+    with its plans, intrinsics, loss, gauge, shapes, dtype, config and S
+    backend: K11 runs inside the graph) and kept; on the CPU it is eager."""
+    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
+    graph = device_loop.graphs(problem.camera_params)
+
+    def make():
+        def body(cams, pts, lam):
+            cams, (pts,), lam, terminal, status, record = _dense_outer_step(
+                cams, (pts,), problem.intrinsics, [grouped], problem.loss, problem.n_fixed_cameras,
+                lam, config, schur_backend=schur_backend,
+            )
+            return (cams, pts, lam), terminal, status, record
+
+        carry = (problem.camera_params, grouped.sort_points(problem.points),
+                 torch.full((), -1.0, dtype=dtype, device=dev))
+        return device_loop.StepLoop(body, carry, config.max_iterations, ba._record_dtypes(dtype),
+                                    Status.MAXIMUM_ITERATIONS_REACHED, graph=graph,
+                                    name=f"ba_step_dense {ba._layout_name(problem)}")
+
+    if not graph:
+        return make()
+    return device_loop.cached(
+        ("dense", grouped, config, schur_backend, problem.loss, problem.n_fixed_cameras,
+         tuple(problem.camera_params.shape), tuple(problem.points.shape), dtype, dev, problem.intrinsics), make,
+    )
 
 
 def ba_step_dense(problem, grouped, lam, config=DenseBAConfig(), *, schur_backend="auto"):
-    """One outer LM iteration: (cams, pts, λ′, terminal, status, record), with
-    points in the problem's own landmark order. Pass λ = −1 on the first call
-    to seed λ from the GN diagonal. ``schur_backend`` routes the S build
-    (``ops.schur``)."""
-    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    lam = torch.as_tensor(lam, dtype=dtype, device=dev)
-    cams, (pts,), lam, terminal, status, record = _dense_outer_step(
-        problem.camera_params, (grouped.sort_points(problem.points),), problem.intrinsics, [grouped],
-        problem.loss, problem.n_fixed_cameras, lam, config, schur_backend=schur_backend,
-    )
+    """One outer LM iteration: (cams, pts, λ′, terminal, status, record), all
+    tensors, with points in the problem's own landmark order. Pass λ = −1 on
+    the first call to seed λ from the GN diagonal. ``schur_backend`` routes
+    the S build (``ops.schur``). On CUDA the step is one replay of a graph
+    captured at the first call of its layout, K11 inside, with no host
+    read."""
+    loop = _dense_loop(problem, grouped, config, schur_backend)
+    loop.start((problem.camera_params, grouped.sort_points(problem.points), lam))
+    loop.step(ba._read)
+    (cams, pts, lam), terminal, status, record = loop.outputs()
     return cams, grouped.unsort_points(pts), lam, terminal, status, record
+
+
+# host groupings kept for the solves that are not given one: a second solve of
+# the same observations reuses the grid, its plans and its captured graph
+MAX_GROUPINGS = 4
+_GROUPINGS = collections.OrderedDict()
+
+
+def _grouping(problem):
+    """``group_by_landmark(problem, segments="auto")``, kept on CUDA for the
+    problem's incidence and pixels (their identity and version), the last
+    MAX_GROUPINGS of them."""
+    if not device_loop.graphs(problem.camera_params):
+        return group_by_landmark(problem, segments="auto")
+    return device_loop.lookup(
+        _GROUPINGS, (problem.cam_idx, problem.pt_idx, problem.pixels, problem.points.shape[0],
+                     problem.camera_params.shape[0], problem.points.device),
+        lambda: group_by_landmark(problem, segments="auto"), MAX_GROUPINGS,
+    )
 
 
 def solve_ba_dense(problem, config=DenseBAConfig(), grouped=None, host_loop=False, *,
@@ -599,64 +651,27 @@ def solve_ba_dense(problem, config=DenseBAConfig(), grouped=None, host_loop=Fals
     """Full LM solve with the dense-Schur engine.
 
     Groups the observations by landmark on the host (segments="auto") unless
-    ``grouped`` is given, then runs the outer loop in Python; ``host_loop``
-    is accepted for the JAX package's signature and changes nothing (both of
-    its loops are this one loop here). The result's trace holds cost,
-    cost_new, rho and lam per outer iteration (NaN-filled to
-    max_iterations) and ``trials``, the damped solves of each iteration.
-    ``schur_backend`` routes the S build: "auto" (the CUDA kernel for CUDA
-    tensors), "cuda" or "torch" (its plain version).
+    ``grouped`` is given; on CUDA the groupings of the last MAX_GROUPINGS
+    problems are kept, so a second solve reuses the grid and its captured
+    graph. On CUDA an outer iteration is one replay of the
+    ``ba_step_dense`` graph: the default ``host_loop=False`` enqueues
+    max_iterations replays, each under IF(¬done), and reads nothing back
+    after the first capture; ``host_loop=True`` reads done after each replay
+    (one read an outer iteration). Both give the same bits. On the CPU the
+    same body runs eagerly, one host read a trial and an outer iteration.
+    The result's trace holds cost, cost_new, rho and lam per outer iteration
+    (NaN-filled to max_iterations) and ``trials``, the damped solves of each
+    iteration. ``schur_backend`` routes the S build: "auto" (the CUDA kernel
+    for CUDA tensors), "cuda" or "torch" (its plain version).
     """
-    del host_loop
     if grouped is None:
-        grouped = group_by_landmark(problem, segments="auto")
-    return _solve_dense_host(problem, grouped, config, schur_backend)
-
-
-def _outer_loop(step, cams, pts, n_it):
-    """At most n_it outer iterations of step(cams, pts, λ) → (cams, pts, λ′,
-    terminal, status, record), from λ = −1. Returns (cams, pts, status,
-    executed iterations, records)."""
-    lam = torch.full((), -1.0, dtype=cams.dtype, device=cams.device)
-    status = Status.MAXIMUM_ITERATIONS_REACHED
-    records = []
-    executed = 0
-    for it in range(n_it):
-        cams, pts, lam, terminal, status, record = step(cams, pts, lam)
-        records.append(record)
-        if terminal:
-            executed = it  # the terminal iteration is not counted as executed
-            break
-        executed = it + 1
-    return cams, pts, status, executed, records
-
-
-def _result(cams, points, status, executed, cost, records, n_it):
-    dev = cams.device
-    return ba.BAResult(
-        camera_params=cams,
-        points=points,
-        status=torch.tensor(int(status), dtype=torch.int32, device=dev),
-        iterations=torch.tensor(executed, dtype=torch.int32, device=dev),
-        cost=cost,
-        trace=ba._result_trace(records, n_it, cams.dtype, dev),
-    )
-
-
-def _solve_dense_host(problem, grouped, config, schur_backend="auto"):
-    def step(cams, pts, lam):
-        return _dense_outer_step(
-            cams, pts, problem.intrinsics, [grouped], problem.loss, problem.n_fixed_cameras,
-            lam, config, schur_backend=schur_backend,
-        )
-
-    # landmark state in grid-row order for the whole loop: sorted once here,
-    # unsorted once at the end
-    cams, (pts,), status, executed, records = _outer_loop(
-        step, problem.camera_params, (grouped.sort_points(problem.points),), config.max_iterations
-    )
+        grouped = _grouping(problem)
+    loop = _dense_loop(problem, grouped, config, schur_backend)
+    loop.start((problem.camera_params, grouped.sort_points(problem.points), -1.0))
+    loop.solve(config.max_iterations, ba._read, host_loop)
+    cams, pts = loop.carry[0].clone(), loop.carry[1].clone()
     cost = _cost_grouped(cams, pts, problem.intrinsics, grouped)
-    return _result(cams, grouped.unsort_points(pts), status, executed, cost, records, config.max_iterations)
+    return ba._loop_result(loop, cams, grouped.unsort_points(pts), cost)
 
 
 def _shard_layout(problem, mesh, grouped, n_shards):
@@ -709,15 +724,21 @@ def solve_ba_dense_sharded(problem, mesh, config=DenseBAConfig(), axis="data", g
     shards = [s for s, _ in layout]
     intr = problem.intrinsics
 
-    def step(cams, pts, lam):
-        return _dense_outer_step(cams, pts, intr, shards, problem.loss, problem.n_fixed_cameras, lam, config, mesh)
+    def body(cams, *rest):
+        *pts, lam = rest
+        cams, pts, lam, terminal, status, record = _dense_outer_step(
+            cams, tuple(pts), intr, shards, problem.loss, problem.n_fixed_cameras, lam, config, mesh
+        )
+        return (cams, *pts, lam), terminal, status, record
 
-    cams, pts, status, executed, records = _outer_loop(
-        step, problem.camera_params, tuple(p for _, p in layout), config.max_iterations
-    )
-    dev = cams.device
+    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
+    start = (problem.camera_params, *(p for _, p in layout), torch.full((), -1.0, dtype=dtype, device=dev))
+    loop = device_loop.StepLoop(body, start, config.max_iterations, ba._record_dtypes(dtype),
+                                Status.MAXIMUM_ITERATIONS_REACHED)
+    loop.solve(config.max_iterations, ba._read)
+    cams, *pts, _ = (t.clone() for t in loop.carry)
     cost = mesh.psum(
         [_cost_grouped(cams.to(d), p, intr.to(d), s) for p, s, d in zip(pts, shards, mesh.devices)], device=dev
     )
     points = mesh.gather_rows(torch.cat([p.to(dev) for p in pts]))[:L]
-    return _result(cams, points, status, executed, cost, records, config.max_iterations)
+    return ba._loop_result(loop, cams, points, cost)

@@ -17,8 +17,44 @@ from moptimizer_0_tpu_torch.kernels import build
 NAME = "schur"
 SOURCES = ("schur.cu",)
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import, or since ``reset_launches()``: LAUNCHES
+# counts the launches made eagerly. A launch captured into a CUDA graph
+# (``ops.device_loop``) adds one to a counter on the card each time a replay
+# runs it, IF nodes included; ``launches()`` sums both.
 LAUNCHES = 0
+_REPLAYED = {}  # device → 0-dim int64 counter
+
+
+def replayed():
+    """Launches made by graph replays (one host read a device)."""
+    return sum(int(c.item()) for c in _REPLAYED.values())
+
+
+def launches():
+    """Every launch: the eager ones and the replayed ones."""
+    return LAUNCHES + replayed()
+
+
+def reset_launches():
+    global LAUNCHES
+    LAUNCHES = 0
+    for c in _REPLAYED.values():
+        c.zero_()
+
+
+def _count(device):
+    """One launch on ``device``: counted on the host eagerly, on the card
+    when captured (its counter is made at the first eager launch there;
+    a graph's warm-up makes one before every capture)."""
+    global LAUNCHES
+    if torch.cuda.is_current_stream_capturing():
+        if device not in _REPLAYED:
+            raise RuntimeError("schur_corr_cuda: captured before any eager launch on its device")
+        _REPLAYED[device].add_(1)
+    else:
+        LAUNCHES += 1
+        if device not in _REPLAYED:
+            _REPLAYED[device] = torch.zeros((), dtype=torch.int64, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,8 +95,9 @@ def schur_corr_cuda(plan, G):
     camera pairs of ``plan`` (``ops.schur.PairPlan``) and G (plan.n_slots,
     6, 3) float32, every segment's W·L⁻ᵀ in the plan's flat slot layout. One
     launch for all segments (none when the plan is empty), on the current
-    stream; does not synchronise."""
-    global LAUNCHES
+    stream; does not synchronise. Captured into a CUDA graph, the launch's
+    error code is checked at capture only: a fault at replay shows at the
+    next synchronisation."""
     C, P, E = plan.C, plan.block_cam.shape[0], plan.pairs.shape[0]
     _check("G", G, torch.float32, (plan.n_slots, 6, 3), G.device)
     _check("pairs", plan.pairs, torch.int32, (E, 2), G.device)
@@ -80,5 +117,5 @@ def schur_corr_cuda(plan, G):
         )
     if err != 0:
         raise RuntimeError(f"schur_corr_f32 launch failed with CUDA error {err}")
-    LAUNCHES += 1
+    _count(G.device)
     return S_corr

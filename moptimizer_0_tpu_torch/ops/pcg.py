@@ -1,16 +1,19 @@
-"""Preconditioned conjugate gradients with a stopping test read every few
-iterations.
+"""Preconditioned conjugate gradients, with the JAX package's stopping test.
 
 The JAX package's ``_pcg`` is a ``lax.while_loop`` that tests ‖r‖² > tol²
-before every iteration. Read on the host at every iteration, that test
-would stop the device once an iteration. Here it is read every ``check``
-iterations; once it fails, the iterations up to the next read are computed
-and discarded (x, r, p and rz are frozen by ``torch.where``), so x is what a
-test at every iteration gives. The BA CG engines and the pose graph's CG
-solve share it.
+before every iteration. Under a CUDA-graph capture (``ops.device_loop``)
+each iteration is the body of an IF node on that test: the device decides,
+and an iteration past it is skipped. Run eagerly, a host read at every
+iteration would stop the device once an iteration, so the test is read every
+``check`` iterations; once it fails, the iterations up to the next read are
+computed and discarded (x, r, p and rz are frozen by ``torch.where``). Both
+give the x of a test at every iteration, bit for bit. The BA CG engines and
+the pose graph's CG solve share it.
 """
 
 import torch
+
+from moptimizer_0_tpu_torch.ops import device_loop
 
 # iterations between two host reads of the stopping test
 CHECK = 32
@@ -23,25 +26,37 @@ def pcg(matvec, b, precond, iters, tol, read, check=CHECK):
     counts it). Both divisions are guarded by the dtype's ``tiny``."""
     tiny = torch.full((), torch.finfo(b.dtype).tiny, dtype=b.dtype, device=b.device)
     tol_sq = tol * tol
+
+    def advance(x, r, p, rz):
+        """One iteration's (x, r, p, rz)."""
+        Ap = matvec(p)
+        alpha = rz / torch.maximum(torch.sum(p * Ap), tiny)
+        r_n = r - alpha * Ap
+        z = precond(r_n)
+        rz_n = torch.sum(r_n * z)
+        beta = rz_n / torch.maximum(rz, tiny)
+        return x + alpha * p, r_n, z + beta * p, rz_n
+
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
     p = z
     rz = torch.sum(r * z)
     active = torch.sum(r * r) > tol_sq
+    if device_loop.tracing():
+        state = (x, r.clone(), p.clone(), rz)
+
+        def iteration():
+            for old, new in zip(state, advance(*state)):
+                old.copy_(new)
+            active.copy_(torch.sum(state[1] * state[1]) > tol_sq)
+
+        for _ in range(iters):
+            device_loop.cond(active, iteration)
+        return x
     for k in range(iters):
         if k % check == 0 and not read(active):
             break
-        Ap = matvec(p)
-        alpha = rz / torch.maximum(torch.sum(p * Ap), tiny)
-        x_n = x + alpha * p
-        r_n = r - alpha * Ap
-        z = precond(r_n)
-        rz_n = torch.sum(r_n * z)
-        beta = rz_n / torch.maximum(rz, tiny)
-        p_n = z + beta * p
-        x, r, p, rz = (
-            torch.where(active, new, old) for new, old in ((x_n, x), (r_n, r), (p_n, p), (rz_n, rz))
-        )
+        x, r, p, rz = (torch.where(active, new, old) for new, old in zip(advance(x, r, p, rz), (x, r, p, rz)))
         active = active & (torch.sum(r * r) > tol_sq)
     return x
