@@ -202,7 +202,8 @@ def main():
         walls.append((time.perf_counter() - t0) * 1e3)
     print(f"{what}, host clock ending in a host read: {[f'{w:.3f}' for w in walls]} ms")
 
-    k_nn.LAUNCHES = k_expand.LAUNCHES = 0
+    k_nn.reset_launches()
+    k_expand.reset_launches()
     reads = grid_nn.HOST_READS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -225,7 +226,8 @@ def main():
         f"profiled {what}: host {wall_ms:.3f} ms, device time {busy_ms:.3f} ms in {len(device)} device "
         f"events (busy {busy_ms / wall_ms:.1%} of the host time, idle {1 - busy_ms / wall_ms:.1%}), "
         f"{launches} cudaLaunchKernel, {syncs} stream/device syncs, {copies} cudaMemcpyAsync; K5 launches "
-        f"{k_nn.LAUNCHES}, K6 launches {k_expand.LAUNCHES}, grid host reads {grid_nn.HOST_READS - reads}"
+        f"{k_nn.launches()}, K6 launches {k_expand.launches()} (replayed and eager), grid host reads "
+        f"{grid_nn.HOST_READS - reads}"
     )
     if kernel is not None:
         # the search kernel and its merge: every __global__ function of its source

@@ -39,7 +39,8 @@ prints no result):
 6. the fleet path: ``icp_batched`` on 64 lanes of the full fachada scan in
    float32, each lane with its own shuffled target and known transform to
    be recovered to 2e-3, with one launch of the expansion kernel K6 per
-   pass of the batched loop; lanes 0, 1 and 63 are repeated as single
+   pass of the batched loop, replayed by its graph (and one more, eager, in
+   the capture's warm-up); lanes 0, 1 and 63 are repeated as single
    ``icp(..., nn_backend="pallas_mxu")`` solves and must agree to 1e-5;
 7. the hash grid (``ops/grid_nn.py``, plain PyTorch) on one 32,768-point
    scan of the SLAM sequence and on the fachada scan at a 0.5 m cell: the
@@ -147,12 +148,27 @@ prints no result):
     and the dense solve's replayed K11 launches equal to its trials;
     walls, host reads, launch calls, device ms and busy share beside the
     eager body's, and each capture's warm-up, capture and instantiation ms
-    and pool bytes (every capture of the run, the O=1M, C=4,000 one too).
+    and pool bytes (every capture of the run, the O=1M, C=4,000 one too);
+20. (run after 13) the LM solves as CUDA graphs: request A's ICP (K5), the
+    64-lane fleet (K6), a multistart, ``lm_step`` from λ = −1, the reference
+    problems of (d) in float32 (the state and Sphere fits are the manifold
+    solves), one registrar pair with the grid and one by brute force (K5),
+    point2plane and GICP, each through its graph and through its step's
+    body run eagerly on the card (``device_loop.eager()``): bit-equal, 0
+    host reads by the graph, K5's (K6's) replayed launches equal to the
+    eager body's and to the outer iterations run (passes); walls, and for
+    the ICP request, the fleet and the two pairs launch calls, device ms
+    and busy share beside the eager body's; then ``scan_slam`` icp over the
+    64 scans from an empty layout cache, by its graphs and eagerly
+    (frames/s each), whose captures must all come from its first two
+    registrations (its first pair's coarse multistart runs eagerly); and
+    every capture's warm-up, capture and instantiation ms and pool bytes.
 
-Every BA solve of an unsharded problem (phases 5, 17 and 19) runs its step
-graph: K11's launches there are counted on the card (``replayed``), and a
-capture's warm-up launches it once a trial more. The dense-BA solve runs
-twice and must repeat itself bit for bit.
+Every LM and BA solve of an unsharded problem runs its step graph (outside
+phase 19's and 20's eager runs): the launches of K5, K6 and K11 there are
+counted on the card (``replayed``), and a capture's warm-up launches each
+kernel of the step once more, eagerly. The dense-BA solve runs twice and
+must repeat itself bit for bit.
 
 Each kernel's line also carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -169,6 +185,7 @@ before the last is a JSON object describing each kernel; the last is
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import inspect
 import json
@@ -183,12 +200,12 @@ import numpy as np
 import torch
 
 import moptimizer_0_tpu_torch  # noqa: F401  (sets fp32 matmul precision)
-from moptimizer_0_tpu_torch import ba, ba_dense, ba_intrinsics, odometry, pose_graph
-from moptimizer_0_tpu_torch.core import manifold
+from moptimizer_0_tpu_torch import ba, ba_dense, ba_intrinsics, odometry, pose_graph, registration
+from moptimizer_0_tpu_torch.core import manifold, solver
 from moptimizer_0_tpu_torch.core.linearize import compute_cost, linearize
 from moptimizer_0_tpu_torch.core.loss import GemanMcClure, TrivialLoss
 from moptimizer_0_tpu_torch.core.residual import make_block, problem
-from moptimizer_0_tpu_torch.core.solver import LMConfig, Status, levenberg_marquardt
+from moptimizer_0_tpu_torch.core.solver import LMConfig, Status, levenberg_marquardt, lm_step, solve_multistart
 from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
 from moptimizer_0_tpu_torch.kernels import build, graph_cond
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
@@ -208,6 +225,7 @@ from moptimizer_0_tpu_torch.examples import (
     sfm_reconstruct,
 )
 from moptimizer_0_tpu_torch.ops.block_cholesky import spd_solve, spd_solve_blocked
+from moptimizer_0_tpu_torch.ops.small_solve import capturable_linalg
 from moptimizer_0_tpu_torch.parallel import (
     distributed_levenberg_marquardt,
     make_mesh,
@@ -235,7 +253,9 @@ from moptimizer_0_tpu_torch.registration import (
     icp,
     icp_batched,
     icp_block,
+    point2plane,
 )
+from moptimizer_0_tpu_torch.registration import gicp as gicp_solve
 from moptimizer_0_tpu_torch.utils.pointcloud import load_txt_cloud
 
 ROOT = Path(__file__).resolve().parent
@@ -444,9 +464,9 @@ PEAK_BYTES = 3.35e12
 
 
 def _reset_launches():
-    """Every kernel's launch count set to 0 (K11's replayed launches too)."""
-    k_nn.LAUNCHES = k_expand.LAUNCHES = 0
-    k_schur.reset_launches()
+    """Every kernel's launch count set to 0, its replayed launches too."""
+    for k in (k_nn, k_expand, k_schur):
+        k.reset_launches()
 
 
 def _time_ms(fn, reps):
@@ -745,7 +765,7 @@ def run_fleet(srcs, tgts, x_true):
     res = icp_batched(srcs, tgts, loss=TrivialLoss())
     x = res.x.cpu()
     wall_s = time.perf_counter() - t0
-    launches = k_expand.LAUNCHES
+    launches, replayed = k_expand.launches(), k_expand.replayed()
     tr = res.trace
     passes = int(torch.isfinite(tr["cost"]).any(0).sum())
     # trials run in each pass: the most any lane ran (a trial writes its λ)
@@ -764,23 +784,25 @@ def run_fleet(srcs, tgts, x_true):
         f"max {int(res.iterations.max())}; running lane-passes {lane_passes} of {passes * srcs.shape[0]} "
         f"searched; statuses {names}; max|x - x_true| over lanes {float(err.max()):.3e} (lane {int(err.argmax())})"
     )
-    print(f"expansion kernel launches on the fleet path: {launches} for {passes} passes")
+    print(f"expansion kernel launches on the fleet path: {launches} for {passes} passes ({replayed} replayed; "
+          f"the rest a capture's warm-up)")
     if (status == Status.NUMERIC_ERROR).any() or not torch.isfinite(x).all():
         raise AssertionError(f"fleet: statuses {names}")
     if float(err.max()) > X_TOL:
         raise AssertionError(f"fleet: lane {int(err.argmax())} off by {float(err.max())} > {X_TOL}")
-    if launches != passes or launches == 0:
-        raise AssertionError(f"the fleet path launched the expansion kernel {launches} times for {passes} passes")
-    if k_nn.LAUNCHES or k_schur.launches():
+    if replayed != passes or launches == 0 or launches - replayed > 1:
+        raise AssertionError(f"the fleet path launched the expansion kernel {launches} times ({replayed} replayed) "
+                             f"for {passes} passes")
+    if k_nn.launches() or k_schur.launches():
         raise AssertionError("the fleet path launched the nn or schur kernel")
-    return res, wall_s, launches
+    return res, wall_s, launches, replayed
 
 
 def fleet_vs_single(cloud, tgts, fleet, fleet_wall_s):
     """Lanes of the fleet repeated as single icp(..., "pallas_mxu") solves:
     healthy, x within FLEET_X_TOL of the lane; K6 at B = 1."""
     for b in FLEET_SINGLES:
-        k_expand.LAUNCHES = 0
+        k_expand.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = icp(cloud, tgts[b], loss=TrivialLoss(), nn_backend="pallas_mxu")
@@ -791,11 +813,11 @@ def fleet_vs_single(cloud, tgts, fleet, fleet_wall_s):
         print(
             f"lane {b} as a single solve: wall {wall_s:.4f} s (fleet {fleet_wall_s / tgts.shape[0]:.4f} s "
             f"a lane), max|x - x_lane| {dx:.3e}, status {st.name} (lane {st_lane.name}), iterations "
-            f"{int(res.iterations)} (lane {int(fleet.iterations[b])}), K6 launches {k_expand.LAUNCHES}"
+            f"{int(res.iterations)} (lane {int(fleet.iterations[b])}), K6 launches {k_expand.launches()}"
         )
         if Status.NUMERIC_ERROR in (st, st_lane) or not dx <= FLEET_X_TOL:
             raise AssertionError(f"lane {b}: single solve differs from the fleet by {dx}, {st.name}")
-        if k_expand.LAUNCHES == 0:
+        if k_expand.launches() == 0:
             raise AssertionError(f"lane {b}: the single pallas_mxu solve did not launch K6")
 
 
@@ -998,7 +1020,7 @@ def run_ba(prob):
     _reset_launches()
     res, cost, wall_s = _solve_ba(prob)
     launches, replayed = k_schur.launches(), k_schur.replayed()
-    if k_nn.LAUNCHES or k_expand.LAUNCHES:
+    if k_nn.launches() or k_expand.launches():
         raise AssertionError("the BA path launched an nn kernel")
 
     status = Status(int(res.status))
@@ -1061,7 +1083,7 @@ def _solve_cg(prob, engine="cg"):
     res = ba.solve_ba(prob, ba.BAConfig(), engine=engine)
     cost = float(res.cost)
     wall_s = time.perf_counter() - t0
-    if k_nn.LAUNCHES or k_expand.LAUNCHES:
+    if k_nn.launches() or k_expand.launches():
         raise AssertionError("the BA path launched an nn kernel")
     return res, cost, wall_s, ba.HOST_READS - reads
 
@@ -1225,7 +1247,7 @@ def _solve_selfcal(prob):
     res, intr = ba_intrinsics.solve_ba_selfcal(prob, ba.BAConfig())
     cost = float(res.cost)
     wall_s = time.perf_counter() - t0
-    if k_schur.launches() or k_nn.LAUNCHES or k_expand.LAUNCHES:
+    if k_schur.launches() or k_nn.launches() or k_expand.launches():
         raise AssertionError("self-calibrating BA launched a kernel of another path")
     return res, intr, cost, wall_s, ba.HOST_READS - reads, mesh_module.REDUCTIONS - reductions
 
@@ -1463,6 +1485,161 @@ def run_device_loop(prob, wrong):
             raise AssertionError(f"device loop, {name}: K11 launched")
     out["captures"] = list(device_loop.CAPTURES)
     for c in device_loop.CAPTURES:
+        print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
+              f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
+    return out
+
+
+# Phase 20: the starts of the multistart, the rational problem's basins (as
+# tests/test_torch_batched_solver.py's), and the paths that are profiled.
+LM_MULTISTART_X0 = [[0.9, 0.2], [1.9, 1.5], [50.0, -40.0], [-3.0, 0.01]]
+LM_PROFILED = ("icp_A", "fleet", "pair_grid", "pair_brute")
+
+
+def _same_result(a, b):
+    """Two results (dataclasses, dicts, sequences of tensors) equal bit for
+    bit; what is not a tensor compares by ==."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            _bits(a) if a.is_floating_point() else a, _bits(b) if b.is_floating_point() else b)
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return type(a) is type(b) and all(_same_result(getattr(a, f.name), getattr(b, f.name))
+                                          for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_result(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_result(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _lm_timed(fn):
+    """(result, wall s, host reads of the LM loops) of fn(), between two
+    synchronisations."""
+    reads = solver.HOST_READS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, solver.HOST_READS - reads
+
+
+def _lm_cases(cloud, srcs, tgts, scans, dev):
+    """Phase 20's paths: (name, fn, the kernel the path must launch or None,
+    the runs it must launch it: a function of the result)."""
+    tgt_a = _transformed(cloud, X_A, np.random.default_rng(SEED + 1))
+    refs = reference_problems(dev)
+    curve = refs[0][1]
+    rat = rational.rational_block(torch.as_tensor(rational.SIMPLE_X, device=dev),
+                                  torch.as_tensor(rational.SIMPLE_Y, device=dev), analytic=True, dtype=torch.float32)
+    starts = torch.as_tensor(LM_MULTISTART_X0, dtype=torch.float32, device=dev)
+    zero2 = torch.zeros(2, dtype=torch.float32, device=dev)
+
+    def passes(res):
+        return int(torch.isfinite(res.trace["cost"]).any(0).sum())
+
+    cases = [
+        ("icp_A", lambda: icp(cloud, tgt_a), k_nn, _outer_run),
+        ("fleet", lambda: icp_batched(srcs, tgts, loss=TrivialLoss()), k_expand, passes),
+        ("multistart", lambda: solve_multistart(rat, starts, LMConfig(max_iterations=40)), None, None),
+        ("lm_step", lambda: lm_step(curve, zero2, -1.0, LMConfig(linear_solver="cholesky")), None, None),
+    ]
+    for name, block, x0, fields, man, _ in refs:  # state_model and sphere_quaternion: manifold solves
+        cfg = LMConfig(diff_mode="auto", linear_solver="cholesky", **fields)
+        x0 = torch.as_tensor(np.asarray(x0, np.float32), device=dev)
+        cases.append((f"reference_{name}", functools.partial(levenberg_marquardt, block, x0, cfg, manifold=man),
+                      None, None))
+    seq = [sc.to(dev) for sc in scans[:3]]
+    seed = None
+    for search, backend in (("grid", "grid"), ("brute", "auto")):  # "auto": K5 at 32,768 targets
+        reg = PairwiseRegistrar(config=SLAM_CONFIG, max_corr_dist=SLAM_GATE, nn_backend=backend)
+        seed = reg.register(seq[1], seq[0]).x  # the stream's first pair: its grid capacities, a seed
+        cases.append((f"pair_{search}", functools.partial(reg.register, seq[2], seq[1], x0=seed),
+                      k_nn if search == "brute" else None, _outer_run))
+    for name, fn in (("point2plane", point2plane), ("gicp", gicp_solve)):
+        cases.append((name, functools.partial(fn, seq[2], seq[1], seed, max_corr_dist=SLAM_GATE), k_nn, _outer_run))
+    return cases
+
+
+def run_lm_device_loop(cloud, srcs, tgts, scans, gt, dev):
+    """20: the LM solves as CUDA-graph replays. Each path's solve through its
+    graph (captured at its layout's first solve) must equal its step's body
+    run eagerly on the card (``device_loop.eager()``, on the capture's
+    cuSOLVER and cuBLAS routes: ``capturable_linalg``) bit for bit, read
+    the device 0 times, and replay K5 (K6) as often as the eager body
+    launches it: once an outer iteration run (a pass). Reported beside the eager
+    body's: walls, host reads, and for the paths of LM_PROFILED launch calls,
+    device ms and busy share. Then ``scan_slam`` icp over the 64 scans from
+    an empty layout cache, by its graphs and eagerly: frames/s each, and
+    the run's captures, all made by its first two registrations (the
+    registrar's coarse multistart runs eagerly: MAGMA's batched Cholesky
+    solve cannot be captured); and every capture's warm-up, capture and
+    instantiation ms and pool bytes."""
+    print(f"LM device loop: linalg backend {torch.backends.cuda.preferred_linalg_library()} (the LM loops capture "
+          f"on cuSOLVER and cuBLAS)")
+    out, first_capture = {}, len(device_loop.CAPTURES)
+    for name, fn, kernel, runs in _lm_cases(cloud, srcs, tgts, scans, dev):
+        n0 = len(device_loop.CAPTURES)
+        _, first_s, _ = _lm_timed(fn)  # the layout's capture, unless an earlier phase made it
+        captured = len(device_loop.CAPTURES) - n0
+        _reset_launches()
+        graph, graph_s, graph_reads = _lm_timed(fn)
+        replayed = kernel.replayed() if kernel else 0
+        eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES
+        _reset_launches()
+        with device_loop.eager(), capturable_linalg(dev):
+            eager, eager_s, eager_reads = _lm_timed(fn)
+        eager_k = kernel.launches() if kernel else 0
+        expect = runs(graph) if runs else 0
+        same = _same_result(graph, eager)
+        row = dict(first_s=first_s, captured=captured, graph_s=graph_s, eager_s=eager_s,
+                   reads=dict(graph=graph_reads, eager=eager_reads), bit_equal=same,
+                   kernel_replayed=replayed, kernel_eager=eager_k, kernel_runs=expect)
+        if name in LM_PROFILED:
+            _, g_calls, g_ms, g_s = _launch_profile(fn)
+            with device_loop.eager(), capturable_linalg(dev):
+                _, e_calls, e_ms, e_s = _launch_profile(fn)
+            row.update(launches=dict(graph=g_calls, eager=e_calls), device_ms=dict(graph=g_ms, eager=e_ms),
+                       busy=dict(graph=g_ms / 1e3 / g_s, eager=e_ms / 1e3 / e_s))
+        if name == "fleet":
+            row["alignments_per_s"] = dict(graph=srcs.shape[0] / graph_s, eager=srcs.shape[0] / eager_s)
+        out[name] = row
+        print(f"LM device loop, {name}: first call {first_s:.4f} s ({captured} captures), graph {graph_s:.4f} s, "
+              f"eager body {eager_s:.4f} s; host reads graph {graph_reads}, eager {eager_reads}; bit-equal "
+              f"{same}" + (f"; {kernel.NAME} replayed {replayed}, eager {eager_k}, runs {expect}" if kernel else "")
+              + (f"; launch calls graph {row['launches']['graph']}, eager {row['launches']['eager']}; device ms "
+                 f"graph {row['device_ms']['graph']:.3f} (busy {row['busy']['graph']:.3f}), eager "
+                 f"{row['device_ms']['eager']:.3f} (busy {row['busy']['eager']:.3f})" if "launches" in row else ""))
+        if not same:
+            raise AssertionError(f"LM device loop, {name}: the graph's solve differs from its eager body")
+        if graph_reads != 0 or eager_in_graph:
+            raise AssertionError(f"LM device loop, {name}: {graph_reads} host reads, {eager_in_graph} eager "
+                                 f"kernel launches by the graph's solve")
+        if kernel and not replayed == eager_k == expect > 0:
+            raise AssertionError(f"LM device loop, {name}: {kernel.NAME} replayed {replayed}, eager {eager_k}, "
+                                 f"for {expect} outer iterations (passes)")
+    if out["fleet"]["alignments_per_s"]["graph"] <= 0:
+        raise AssertionError("LM device loop: no fleet wall")
+
+    # a SLAM run's captures: made by its first registrations, not one a pair
+    device_loop.clear()
+    registration._MATCHERS.clear()
+    n0 = len(device_loop.CAPTURES)
+    _, _, _, graph_run = run_scan_slam(scans, gt, "icp", dev)
+    made = [p["captures"] - n0 for p in graph_run["reg"].pairs]
+    with device_loop.eager():
+        _, _, _, eager_run = run_scan_slam(scans, gt, "icp", dev)
+    slam = dict(fps=dict(graph=graph_run["fps"], eager=eager_run["fps"]),
+                steady_ms=dict(graph=graph_run["steady_ms"], eager=eager_run["steady_ms"]),
+                captures=made[-1], captures_after_pair=made[:3], registrations=len(made))
+    out["scan_slam_icp"] = slam
+    print(f"LM device loop, scan_slam icp over {len(scans)} scans: frames/s graph {slam['fps']['graph']:.2f}, eager "
+          f"body {slam['fps']['eager']:.2f}; steady ms a pair graph {slam['steady_ms']['graph']:.2f}, eager "
+          f"{slam['steady_ms']['eager']:.2f}; captures {made[-1]} for {len(made)} registrations (after the first "
+          f"three: {made[:3]})")
+    if made[-1] != made[1] or made[-1] > 4:
+        raise AssertionError(f"LM device loop: the SLAM run's captures grew with its pairs: {made}")
+    out["captures"] = device_loop.CAPTURES[first_capture:]
+    for c in out["captures"]:
         print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
               f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
     return out
@@ -1725,8 +1902,10 @@ def check_grid(cloud, scans, gt, rng):
 
 class _Recorded(PairwiseRegistrar):
     """A PairwiseRegistrar that keeps, for each registration, its host wall
-    time, its result and the K5 and K6 launches and grid host reads it made
-    (Python counters: nothing is read from the card while it runs)."""
+    time, its result, the grid host reads it made and the captures of the
+    run so far (Python counters: nothing is read from the card while it
+    runs), and for the first registration the K5 and K6 launches it made
+    (counted on the card when replayed: read after its wall is taken)."""
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -1734,13 +1913,18 @@ class _Recorded(PairwiseRegistrar):
         self.redos = 0
 
     def register(self, src, tgt_cloud, x0=None, *, defer_overflow=False):
-        k5, k6, reads = k_nn.LAUNCHES, k_expand.LAUNCHES, grid_nn.HOST_READS
+        first = not self.pairs
+        if first:
+            k5, k6 = k_nn.launches(), k_expand.launches()
+        reads = grid_nn.HOST_READS
         t0 = time.perf_counter()
         out = super().register(src, tgt_cloud, x0, defer_overflow=defer_overflow)
         self.pairs.append(dict(
             wall=time.perf_counter() - t0, res=out[0] if defer_overflow else out, deferred=defer_overflow,
-            k5=k_nn.LAUNCHES - k5, k6=k_expand.LAUNCHES - k6, grid_reads=grid_nn.HOST_READS - reads,
+            grid_reads=grid_nn.HOST_READS - reads, captures=len(device_loop.CAPTURES),
         ))
+        if first:
+            self.pairs[0].update(k5=k_nn.launches() - k5, k6=k_expand.launches() - k6)
         return out
 
     def _redo_overflow(self, src, tgt_cloud, x0, covs):
@@ -1763,7 +1947,7 @@ def run_slam(scans, gt, nn_backend, dev):
     poses, rels = scan_odometry(seq, registrar=reg)
     poses = poses.cpu()
     front_s = time.perf_counter() - t0
-    k5, k6, reads, falls = k_nn.LAUNCHES, k_expand.LAUNCHES, grid_nn.HOST_READS, grid_nn.FALLBACKS
+    k5, k6, reads, falls = k_nn.launches(), k_expand.launches(), grid_nn.HOST_READS, grid_nn.FALLBACKS
     if k_schur.launches():
         raise AssertionError("the SLAM path launched the schur kernel")
 
@@ -1884,7 +2068,7 @@ def run_scan_slam(scans, gt, method, dev):
                                                nn_backend="auto", max_corr_dist=SLAM_GATE)
         poses = result.poses.cpu()
         wall_s = time.perf_counter() - t0
-        k5, k6 = k_nn.LAUNCHES, k_expand.LAUNCHES
+        k5, k6 = k_nn.launches(), k_expand.launches()
         pgo_reads = pose_graph.HOST_READS - reads
     if k_schur.launches():
         raise AssertionError(f"SLAM {method}: the schur kernel launched")
@@ -1998,13 +2182,13 @@ def run_fixed_lag(scans, gt, dev):
     FIXED_LAG_WINDOW, icp, the bench's registrar settings)."""
     seq = [sc.to(dev) for sc in scans[:FIXED_LAG_SCANS]]
     with _slam_stages() as (walls, regs, solves):
-        k_nn.LAUNCHES = k_expand.LAUNCHES = 0
+        _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         poses = odometry.scan_slam_fixed_lag(seq, window=FIXED_LAG_WINDOW, method="icp", config=SLAM_CONFIG,
                                              nn_backend="auto", max_corr_dist=SLAM_GATE).cpu()
         wall_s = time.perf_counter() - t0
-        k5, k6 = k_nn.LAUNCHES, k_expand.LAUNCHES
+        k5, k6 = k_nn.launches(), k_expand.launches()
     pairs, outer, _, status = _registrations(regs)
     pgo_status = [Status(int(out.status)) for _, _, out in solves]
     ate = float(ate_rmse(poses.double(), gt[:FIXED_LAG_SCANS].double(), align=False))
@@ -2137,7 +2321,7 @@ def run_distributed_icp(cloud, single):
         res = distributed_levenberg_marquardt(problem(icp_block(cloud, tgt)), x0, mesh, _icp_config())
         x = res.x.cpu()
         wall_s = time.perf_counter() - t0
-        launches = k_nn.LAUNCHES
+        launches = k_nn.launches()
         outer = int(torch.isfinite(res.trace["cost"]).sum())
         err = float((x.double() - torch.tensor(X_A, dtype=torch.float64)).abs().max())
         dx = float((x - single.x.cpu()).abs().max())
@@ -2149,7 +2333,7 @@ def run_distributed_icp(cloud, single):
             raise AssertionError(f"distributed ICP over {n} shards: {status.name}, error {err}")
         if not dx <= DIST_ICP_X_TOL:
             raise AssertionError(f"distributed ICP over {n} shards differs from the single request by {dx}")
-        if launches != n * outer or launches == 0 or k_expand.LAUNCHES or k_schur.launches():
+        if launches != n * outer or launches == 0 or k_expand.launches() or k_schur.launches():
             raise AssertionError(f"distributed ICP over {n} shards: K5 launched {launches} times for {n} x {outer}")
         out[n] = dict(wall_s=wall_s, outer=outer, launches=launches, dx=dx)
     return out
@@ -2249,7 +2433,7 @@ def run_ba_sharded(prob, grouped, dense_res):
         if not early <= BA_COST_RTOL:
             raise AssertionError(f"sharded BA over {n} shards: the first iterations' costs are {early} from "
                                  "solve_ba_dense's")
-        if launches != n * builds or launches == 0 or k_nn.LAUNCHES or k_expand.LAUNCHES:
+        if launches != n * builds or launches == 0 or k_nn.launches() or k_expand.launches():
             raise AssertionError(f"sharded BA over {n} shards: K11 launched {launches} times for {n} x {builds}")
         out[n] = dict(wall_s=wall_s, outer=run, builds=builds, launches=launches, cost=cost, rel_dense=rel,
                       early_rel_dense=early)
@@ -2279,7 +2463,7 @@ def run_fleet_sharded(srcs, tgts, fleet, x_true):
     res = icp_batched(srcs, tgts, loss=TrivialLoss(), mesh=mesh)
     x = res.x.cpu()
     wall_s = time.perf_counter() - t0
-    launches = k_expand.LAUNCHES
+    launches, replayed = k_expand.launches(), k_expand.replayed()
     lanes = srcs.shape[0] // FLEET_MESH
     finite = torch.isfinite(res.trace["cost"]).cpu()
     passes = [int(finite[j * lanes:(j + 1) * lanes].any(0).sum()) for j in range(FLEET_MESH)]
@@ -2288,14 +2472,15 @@ def run_fleet_sharded(srcs, tgts, fleet, x_true):
     err = float((x.double() - x_true).abs().max())
     status = res.status.cpu()
     print(f"sharded fleet B={srcs.shape[0]} over {FLEET_MESH} shards of {lanes} lanes: wall {wall_s:.4f} s, "
-          f"{srcs.shape[0] / wall_s:.2f} alignments/s; passes per shard {passes}, K6 launches {launches}; "
+          f"{srcs.shape[0] / wall_s:.2f} alignments/s; passes per shard {passes}, K6 launches {launches} "
+          f"({replayed} replayed, the shards' one layout replaying one graph); "
           f"max|x - x_unsharded| {dx:.3e} (bound {SHARDED_FLEET_TOL:g}), lanes bit-equal {bit_equal}; "
           f"max|x - x_true| {err:.3e}")
     if (status == Status.NUMERIC_ERROR).any() or not torch.isfinite(x).all() or err > X_TOL:
         raise AssertionError(f"sharded fleet: error {err}")
     if not dx <= SHARDED_FLEET_TOL:
         raise AssertionError(f"sharded fleet: lanes differ from the unsharded fleet by {dx}")
-    if launches != sum(passes) or k_nn.LAUNCHES or k_schur.launches():
+    if replayed != sum(passes) or launches - replayed > 1 or k_nn.launches() or k_schur.launches():
         raise AssertionError(f"sharded fleet: K6 launched {launches} times for passes {passes}")
     try:
         icp_batched(srcs[:-2], tgts[:-2], mesh=mesh)
@@ -2449,10 +2634,10 @@ def _example(out, name, fn, **kwargs):
     t0 = time.perf_counter()
     result = fn(**kwargs)
     torch.cuda.synchronize()
-    out[name] = dict(wall_s=time.perf_counter() - t0, k5=k_nn.LAUNCHES, k6=k_expand.LAUNCHES, k11=k_schur.launches(),
-                     k11_replayed=k_schur.replayed())
-    print(f"--- example {name}: wall {out[name]['wall_s']:.3f} s, launches K5 {k_nn.LAUNCHES}, K6 "
-          f"{k_expand.LAUNCHES}, K11 {out[name]['k11']} ({out[name]['k11_replayed']} replayed)")
+    out[name] = dict(wall_s=time.perf_counter() - t0, k5=k_nn.launches(), k6=k_expand.launches(),
+                     k11=k_schur.launches(), k11_replayed=k_schur.replayed())
+    print(f"--- example {name}: wall {out[name]['wall_s']:.3f} s, launches K5 {out[name]['k5']}, K6 "
+          f"{out[name]['k6']}, K11 {out[name]['k11']} ({out[name]['k11_replayed']} replayed)")
     return result
 
 
@@ -2830,11 +3015,12 @@ def main():
     for name, x_true, kw in requests:
         results[name], outer = run_request(name, cloud, x_true, np.random.default_rng(SEED + 1), **kw)
         outer_total += outer
-    launches = k_nn.LAUNCHES
-    print(f"nn kernel launches on the ICP path: {launches} for {outer_total} outer iterations")
+    launches, k5_replayed = k_nn.launches(), k_nn.replayed()
+    print(f"nn kernel launches on the ICP path: {launches} ({k5_replayed} replayed) for {outer_total} outer "
+          f"iterations")
     if launches < outer_total or launches == 0:
         raise AssertionError(f"the ICP path launched the nn kernel {launches} times")
-    if k_schur.launches() or k_expand.LAUNCHES:
+    if k_schur.launches() or k_expand.launches():
         raise AssertionError("the ICP path launched the schur or expansion kernel")
 
     plain, _ = run_request("A", cloud, X_A, np.random.default_rng(SEED + 1), nn_backend="torch")
@@ -2861,7 +3047,7 @@ def main():
     selfcal, selfcal_start, selfcal_res, selfcal_intr, selfcal_early = run_selfcal(ba_prob)
     device = run_device_loop(ba_prob, selfcal_start)
 
-    fleet, fleet_wall_s, e_launches = run_fleet(srcs, tgts, fleet_x)
+    fleet, fleet_wall_s, e_launches, e_replayed = run_fleet(srcs, tgts, fleet_x)
     fleet_vs_single(cloud, tgts, fleet, fleet_wall_s)
 
     rels_grid, k5_grid, k6_grid = run_slam(scans, gt, "grid", dev)
@@ -2882,6 +3068,7 @@ def main():
     lag = run_fixed_lag(scans, gt, dev)
     ring = {n: run_ring(dev, n, bound) for n, bound in RING_BOUNDS.items()}
     references = run_reference_problems(dev)
+    lm_loop = run_lm_device_loop(cloud, srcs, tgts, scans, gt, dev)
 
     sharded_lin = run_sharded_linearize(cloud)
     dist_icp = run_distributed_icp(cloud, results["A"])
@@ -2905,12 +3092,15 @@ def main():
     kernels = [
         entry("nn_bruteforce", "moptimizer_0_tpu_torch/csrc/nn_search.cu",
               "moptimizer_0_tpu/ops/nn_search.py:136", launches, max_abs_err, nn_t, nn_bound,
-              splits=nn_splits, slam_launches=dict(grid=k5_grid, auto=k5_auto),
+              replayed_launches=k5_replayed, splits=nn_splits,
+              device_loop_replayed_launches={k: r["kernel_replayed"] for k, r in lm_loop.items()
+                                             if isinstance(r, dict) and r.get("kernel_replayed") and k != "fleet"}, slam_launches=dict(grid=k5_grid, auto=k5_auto),
               scan_slam_launches={m: r["k5"] for m, r in slam.items()}, fixed_lag_launches=lag["k5"],
               distributed_icp_launches={n: r["launches"] for n, r in dist_icp.items()},
               examples_launches={k: v["k5"] for k, v in examples.items() if v["k5"]}),
         entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
               "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound,
+              replayed_launches=e_replayed, device_loop_replayed_launches=lm_loop["fleet"]["kernel_replayed"],
               slam_launches=dict(grid=k6_grid, auto=k6_auto),
               scan_slam_launches={m: r["k6"] for m, r in slam.items()}, fixed_lag_launches=lag["k6"],
               sharded_fleet_launches=fleet_sharded["launches"],
@@ -2937,7 +3127,7 @@ def main():
     print(json.dumps({"sharded": dict(linearize_rel=sharded_lin, distributed_icp=dist_icp, ba=ba_sharded,
                                       ba_grouping_s=ba_grouping_s, fleet=fleet_sharded, cg=cg_sharded,
                                       selfcal=selfcal_sharded, two_processes=two)}))
-    print(json.dumps({"examples": examples, "blocked": blocked, "device_loop": device}))
+    print(json.dumps({"examples": examples, "blocked": blocked, "device_loop": device, "lm_device_loop": lm_loop}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -75,7 +75,9 @@ def _as_dtype(dtype, default):
 def _split_valid(out):
     if isinstance(out, tuple):
         r, valid = out
-        return torch.atleast_1d(r), torch.as_tensor(valid, device=r.device).bool()
+        if not isinstance(valid, torch.Tensor):  # filled on the device, no host copy
+            return torch.atleast_1d(r), torch.full((), bool(valid), device=r.device)
+        return torch.atleast_1d(r), valid.to(r.device).bool()
     r = torch.atleast_1d(out)
     return r, torch.ones((), dtype=torch.bool, device=r.device)
 

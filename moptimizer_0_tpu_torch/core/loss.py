@@ -12,7 +12,12 @@ import torch
 
 
 def _param(value, like):
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    """A loss parameter in like's dtype on its device: a number is filled on
+    the device (a host copy would synchronise, and cannot be captured into
+    a CUDA graph), a tensor converted."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=like.dtype, device=like.device)
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 @dataclasses.dataclass

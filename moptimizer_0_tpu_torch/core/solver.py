@@ -1,4 +1,4 @@
-"""Levenberg-Marquardt with the reference schedule, as an eager Python loop.
+"""Levenberg-Marquardt with the reference schedule, decided on the device.
 
 PyTorch counterpart of ``moptimizer_0_tpu.core.solver``:
 
@@ -20,12 +20,32 @@ With ``manifold=`` (``core.manifold``) the step lives in the tangent space:
 H and b come from ``linearize_tangent`` and x ⊞ δ is ``manifold.retract``
 (lane by lane in the batched solver); without one, x ⊞ δ = x + δ.
 
-The arithmetic stays in tensors on the device of x; the loop reads one small
-vector of flags back to the host per inner trial to decide where to go.
+Every decision is a flag on the device, as in the JAX package's jitted
+``while_loop``s: each trial runs under ``device_loop.cond(¬stop)`` (a pass
+of the batched solver under cond(any lane running)) and writes its results
+in place into tensors made before it. An outer iteration is the body of an
+``ops.device_loop.StepLoop`` whose carry holds x, λ and every block's data
+leaves (the ones the update hooks rewrite, such as ICP's matches, and the
+weight matrices), and on CUDA it is one replay of a CUDA graph captured
+once per layout: the config, the manifold, each block's functions by
+identity, its loss by value, and the shapes, dtypes and device of x and of
+the data leaves, which ``start`` copies into the loop's buffers. A solve
+enqueues max_iterations replays, each under IF(¬done), and reads nothing
+back after the layout's first capture. Eagerly, on the CPU or inside
+``device_loop.eager()``, the same body reads the device through the
+counted ``_read`` (``HOST_READS``) once before each trial and once an outer
+iteration. ``verbose=True`` prints every trial, so it runs the eager body
+on the card too; so does a problem sharded over a mesh
+(``parallel.sharded``), whose sums go through ``Mesh.psum`` on the host.
+A capture records PyTorch's factorizations on cuSOLVER and cuBLAS
+(``ops.small_solve.capturable_linalg``); the eager body runs on PyTorch's
+default routes, which send a batched Cholesky solve to MAGMA, and equals
+the graph bit for bit inside ``capturable_linalg``.
 """
 
 import dataclasses
 import enum
+import functools
 from typing import Any
 
 import torch
@@ -43,7 +63,21 @@ from moptimizer_0_tpu_torch.core.linearize import (
     linearize_tangent_batched,
 )
 from moptimizer_0_tpu_torch.core.residual import Problem
-from moptimizer_0_tpu_torch.ops.small_solve import cholesky_solve_unrolled
+from moptimizer_0_tpu_torch.ops import device_loop
+from moptimizer_0_tpu_torch.ops.small_solve import capturable_linalg, cholesky_solve_unrolled
+
+# Reads of the device by the LM loops (a Python counter).
+HOST_READS = 0
+
+
+def _read(t):
+    """t.tolist(), counted in HOST_READS; raises inside a CUDA-graph
+    capture, where the device cannot be read."""
+    global HOST_READS
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a host read of the device inside a CUDA-graph capture")
+    HOST_READS += 1
+    return t.tolist()
 
 
 class Status(enum.IntEnum):
@@ -135,6 +169,18 @@ def _trace_dtype(config, x):
     return _as_dtype(config.accum_dtype, x.dtype)
 
 
+def _lam_dtype(problem, x, config):
+    """λ's dtype: the accumulation dtype, or without one x's promoted with
+    the problem's floating data, the dtype that H comes out in."""
+    dtype = _trace_dtype(config, x)
+    if config.accum_dtype is None:
+        for b in getattr(problem, "shards", None) or (problem,):
+            for leaf in (leaf for blk in b.blocks for leaf in _leaves(blk.data)):
+                if leaf.is_floating_point():
+                    dtype = torch.promote_types(dtype, leaf.dtype)
+    return dtype
+
+
 def _nan(shape, dtype, device):
     return torch.full(shape, torch.nan, dtype=dtype, device=device)
 
@@ -144,11 +190,25 @@ def _full(value, dtype, device):
     return torch.full((), value, dtype=dtype, device=device)
 
 
-def _outer_iteration(problem, x, lam, config, manifold=None):
+def _rows(shape, dtype, dev):
+    """NaN-filled per-trial records of the given shape."""
+    return dict(
+        cost_new=_nan(shape, dtype, dev),
+        rho=_nan(shape, dtype, dev),
+        lam=_nan(shape, dtype, dev),
+        nu=_nan(shape, dtype, dev),
+        accepted=torch.zeros(shape, dtype=torch.bool, device=dev),
+    )
+
+
+def _outer_iteration(problem, x, lam, config, manifold=None, read=None):
     """One outer LM iteration.
 
-    Returns (problem', x', λ', terminal, status, record): ``terminal`` a
-    Python bool, ``status`` a `Status`, the rest tensors on x's device.
+    Returns (problem', x', λ', terminal, status, record), all tensors on x's
+    device: ``terminal`` a 0-dim bool, ``status`` a 0-dim int32, ``record``
+    the iteration's trace row (``inner`` the per-trial (inner_iterations,)
+    rows). Each trial runs under ``device_loop.cond(¬stop)``; ``read`` is
+    the eager loop's read of that flag.
     """
     dtype = _trace_dtype(config, x)
     dev = x.device
@@ -166,123 +226,83 @@ def _outer_iteration(problem, x, lam, config, manifold=None):
     if config.grad_tol > 0.0:
         converged0 = converged0 | (torch.max(torch.abs(b)) < config.grad_tol)
     lam = torch.where(lam < 0.0, config.init_lambda_factor * torch.max(torch.abs(diag_H)), lam)
-    converged0 = bool(converged0)
 
     n_inner = config.inner_iterations
-    inner_trace = _trial_rows((n_inner,), dtype, dev)
-    nu = _full(2.0, dtype, dev)
-    y = y0
-    rho = _full(torch.nan, dtype, dev)
-    status = Status.MAXIMUM_ITERATIONS_REACHED
-    terminal = converged0
-    accepted = False
-    x_out = x
+    s = dict(
+        x=x.clone(),
+        lam=lam.clone(),
+        nu=_full(2.0, dtype, dev),
+        y=y0.clone(),
+        rho=_full(torch.nan, dtype, dev),
+        status=_full(int(Status.MAXIMUM_ITERATIONS_REACHED), torch.int32, dev),
+        stop=converged0.clone(),  # converged before the trials: skip them
+        terminal=converged0.clone(),
+        accepted=torch.zeros((), dtype=torch.bool, device=dev),
+        inner=_rows((n_inner,), dtype, dev),
+    )
 
-    for k in range(0 if converged0 else n_inner):
-        delta = _solve_damped(H, diag_H, lam, b, config.linear_solver)
+    def trial(k):
+        lam_k, nu_k = s["lam"], s["nu"]
+        delta = _solve_damped(H, diag_H, lam_k, b, config.linear_solver)
         xi = _retract(manifold, x, delta.to(x.dtype))
         yi = compute_cost(problem, xi, accum_dtype=config.accum_dtype)
 
-        rho = (y0 - yi) / torch.dot(delta, lam * delta - b)
-        flags = [
-            torch.isnan(yi),
-            rho < 0.0,  # a NaN ρ falls through to accept
-            torch.max(torch.abs(delta)) < sqrt_eps,
-            torch.abs(yi) < eight_eps,
-        ]
-        if config.rel_cost_tol > 0.0:
-            flags.append((yi <= y0) & ((y0 - yi) <= config.rel_cost_tol * torch.abs(y0)))
-        flags = torch.stack(flags).tolist()
-        is_nan, reject, small, cost_small = flags[:4]
-
-        accept = not is_nan and not reject
-        term_small = not is_nan and reject and small
-        retry = not is_nan and reject and not small
+        rho = (y0 - yi) / torch.dot(delta, lam_k * delta - b)
+        is_nan = torch.isnan(yi)
+        reject = rho < 0.0  # a NaN ρ falls through to accept
+        small = torch.max(torch.abs(delta)) < sqrt_eps
+        accept = ~is_nan & ~reject
+        term_small = ~is_nan & reject & small
+        retry = ~is_nan & reject & ~small
 
         if config.verbose:
             print(
                 f"[DEBUG] lm inner: {k + 1}/{n_inner} {float(y0)} {float(yi)} "
-                f"{float(rho)} {float(lam)} {float(nu)}"
+                f"{float(rho)} {float(lam_k)} {float(nu_k)}"
             )
 
-        if is_nan:
-            status = Status.NUMERIC_ERROR
-        elif term_small:
-            status = Status.CONVERGED if cost_small else Status.SMALL_DELTA
-        terminal = is_nan or term_small
-        # an accepted step that improved the cost by less than tol·|y0|: the
-        # solve sits at its noise floor. yi <= y0 keeps a NaN-ρ acceptance of
-        # a cost increase from being labelled CONVERGED.
-        if config.rel_cost_tol > 0.0 and accept and flags[4]:
-            terminal = True
-            status = Status.CONVERGED
+        converged = torch.abs(yi) < eight_eps
+        status = torch.where(
+            is_nan, int(Status.NUMERIC_ERROR),
+            torch.where(term_small, torch.where(converged, int(Status.CONVERGED), int(Status.SMALL_DELTA)),
+                        s["status"]),
+        )
+        terminal = is_nan | term_small
+        if config.rel_cost_tol > 0.0:
+            # an accepted step that improved the cost by less than tol·|y0|:
+            # the solve sits at its noise floor. yi <= y0 keeps a NaN-ρ
+            # acceptance of a cost increase from being labelled CONVERGED.
+            at_floor = accept & (yi <= y0) & ((y0 - yi) <= config.rel_cost_tol * torch.abs(y0))
+            terminal = terminal | at_floor
+            status = torch.where(at_floor, int(Status.CONVERGED), status)
 
-        inner_trace["cost_new"][k] = yi
-        inner_trace["rho"][k] = rho
-        inner_trace["lam"][k] = lam
-        inner_trace["nu"][k] = nu
-        inner_trace["accepted"][k] = accept
+        # the trial's slot: λ and ν as this trial used them
+        for key, value in dict(cost_new=yi, rho=rho, lam=lam_k, nu=nu_k, accepted=accept).items():
+            s["inner"][key][k].copy_(value)
+        gain = torch.maximum(_full(1.0 / 3.0, dtype, dev), 1.0 - (2.0 * rho - 1.0) ** 3)
+        moved = accept | terminal
+        s["x"].copy_(torch.where(accept, xi, s["x"]))
+        s["lam"].copy_(torch.where(accept, lam_k * gain, torch.where(retry, nu_k * lam_k, lam_k)))
+        s["nu"].copy_(torch.where(retry, 2.0 * nu_k, nu_k))
+        s["y"].copy_(torch.where(moved, yi, s["y"]))
+        s["rho"].copy_(rho)
+        s["status"].copy_(status)
+        s["terminal"].copy_(terminal)
+        s["accepted"].copy_(accept)
+        s["stop"].copy_(moved)
 
-        if accept:
-            x_out = xi
-            gain = torch.maximum(_full(1.0 / 3.0, dtype, dev), 1.0 - (2.0 * rho - 1.0) ** 3)
-            lam = lam * gain
-        elif retry:
-            lam = nu * lam
-            nu = 2.0 * nu
-        if accept or terminal:
-            y = yi
-        accepted = accept
-        if accept or terminal:
+    for k in range(n_inner):
+        if not device_loop.cond(~s["stop"], functools.partial(trial, k), read):
             break
 
-    if converged0:
-        status = Status.CONVERGED
+    status = torch.where(converged0, int(Status.CONVERGED), s["status"]).to(torch.int32)
     record = dict(
-        cost=y0,
-        cost_new=y,
-        rho=rho,
-        lam=lam,
-        nu=nu,
-        accepted=_full(accepted, torch.bool, dev),
-        inner=inner_trace,
+        cost=y0, cost_new=s["y"], rho=s["rho"], lam=s["lam"], nu=s["nu"], accepted=s["accepted"],
+        inner=s["inner"],
     )
     if config.trace_block_costs:
         record["block_costs"] = compute_block_costs(problem, x, accum_dtype=config.accum_dtype)
-    return problem, x_out, lam, terminal, status, record
-
-
-def _trial_rows(shape, dtype, dev):
-    """NaN-filled per-trial records of the given shape."""
-    return dict(
-        cost_new=_nan(shape, dtype, dev),
-        rho=_nan(shape, dtype, dev),
-        lam=_nan(shape, dtype, dev),
-        nu=_nan(shape, dtype, dev),
-        accepted=torch.zeros(shape, dtype=torch.bool, device=dev),
-    )
-
-
-def _new_trace(lanes, config, n_blocks, dtype, dev):
-    """The NaN-filled trace: (*lanes, max_iterations) per-iteration records
-    and (*lanes, max_iterations, inner_iterations) per-trial ones."""
-    n_it, n_inner = config.max_iterations, config.inner_iterations
-    trace = dict(
-        cost=_nan((*lanes, n_it), dtype, dev),
-        **_trial_rows((*lanes, n_it), dtype, dev),
-        inner=_trial_rows((*lanes, n_it, n_inner), dtype, dev),
-    )
-    if config.trace_block_costs:
-        trace["block_costs"] = _nan((*lanes, n_it, n_blocks), dtype, dev)
-    return trace
-
-
-def _write_record(trace, it, record):
-    for key, value in record.items():
-        if isinstance(value, dict):
-            _write_record(trace[key], it, value)
-        else:
-            trace[key][it] = value
+    return problem, s["x"], s["lam"], s["terminal"], status, record
 
 
 def _as_problem(problem):
@@ -293,45 +313,226 @@ def _as_problem(problem):
     return problem
 
 
+def _sharded(problem):
+    """Whether the problem's rows are sharded over a mesh
+    (``parallel.sharded.ShardedProblem``)."""
+    return getattr(problem, "over_shards", None) is not None
+
+
+def _on_device(problem, x):
+    """The problem with each weight matrix a tensor on x's device, made once
+    a solve (linearize converts it to its dtype there, with no host copy)."""
+    if _sharded(problem):
+        return problem
+    return Problem(blocks=tuple(
+        b if b.weight_matrix is None
+        else dataclasses.replace(b, weight_matrix=torch.as_tensor(b.weight_matrix, device=x.device))
+        for b in problem.blocks
+    ))
+
+
+# A block's data: a tensor, None, or dicts, tuples and lists of them.
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return []
+
+
+def _refill(tree, leaves):
+    """tree with its tensors taken in order from the iterator ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if isinstance(tree, dict):
+        return {k: _refill(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_refill(v, leaves) for v in tree)
+    return tree
+
+
+def _structure(tree):
+    """The layout of a tree: its containers, and each tensor's shape, dtype
+    and device."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _structure(v)) for k, v in tree.items()))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_structure(v) for v in tree))
+    return device_loop.key_part(tree)
+
+
+def _block_tree(block):
+    return (block.data, block.weight_matrix)
+
+
+def _data_leaves(problem):
+    """Every data leaf and weight matrix of the problem's blocks (of every
+    shard's blocks, for a sharded problem)."""
+    shards = getattr(problem, "shards", None)
+    if shards:
+        return [leaf for p in shards for leaf in _data_leaves(p)]
+    return [leaf for b in problem.blocks for leaf in _leaves(_block_tree(b))]
+
+
+def _with_data(problem, leaves):
+    """The problem with its data leaves taken in order from ``leaves``."""
+    it = iter(leaves)
+
+    def refill(p):
+        shards = getattr(p, "shards", None)
+        if shards:
+            return dataclasses.replace(p, shards=tuple(refill(q) for q in shards))
+        blocks = []
+        for b in p.blocks:
+            data, weight_matrix = _refill(_block_tree(b), it)
+            blocks.append(dataclasses.replace(b, data=data, weight_matrix=weight_matrix))
+        return dataclasses.replace(p, blocks=tuple(blocks))
+
+    return refill(problem)
+
+
+def _loss_key(loss):
+    """A loss by value: its type and parameters (a tensor parameter by
+    identity). Its parameters are filled into the captured step."""
+    if dataclasses.is_dataclass(loss):
+        return (type(loss),) + tuple(device_loop.key_part(getattr(loss, f.name)) for f in dataclasses.fields(loss))
+    return device_loop.key_part(loss)
+
+
+_BLOCK_FUNCTIONS = ("residual_fn", "prepare_fn", "jacobian_fn", "update_fn", "linearize_fn", "weight_fn",
+                    "batch_update_fn")
+
+
+def _layout(kind, problem, x, config, manifold, *extra):
+    """The key of a solve's StepLoop, as the JAX package's jit cache keys its
+    program: the kind of loop, the config, the manifold, each block's
+    functions by identity, its loss by value and the layout of its data,
+    and x's shape, dtype and device."""
+    blocks = tuple(
+        (*(getattr(b, f) for f in _BLOCK_FUNCTIONS), b.weighted_cost, _loss_key(b.loss),
+         _structure(_block_tree(b)))
+        for b in problem.blocks
+    )
+    return (kind, config, manifold, tuple(x.shape), x.dtype, x.device, *extra, blocks)
+
+
+def _flat(record, prefix=""):
+    """A record with its ``inner`` dict flattened to "inner/<name>" keys."""
+    out = {}
+    for k, v in record.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _nested(flat):
+    out = {}
+    for k, v in flat.items():
+        if "/" in k:
+            outer, inner = k.split("/", 1)
+            out.setdefault(outer, {})[inner] = v
+        else:
+            out[k] = v
+    return out
+
+
+def _record_spec(config, n_blocks, dtype, lanes=()):
+    """The names, dtypes and shapes of an outer iteration's record."""
+    scalar = dict(cost=dtype, cost_new=dtype, rho=dtype, lam=dtype, nu=dtype, accepted=torch.bool)
+    spec = {k: (dt, lanes) for k, dt in scalar.items()}
+    for k, dt in scalar.items():
+        if k != "cost":
+            spec[f"inner/{k}"] = (dt, (*lanes, config.inner_iterations))
+    if config.trace_block_costs:
+        spec["block_costs"] = (dtype, (*lanes, n_blocks))
+    return spec
+
+
+def _graphs(problem, x, config):
+    """Whether this solve's step is a CUDA graph: on the card, outside
+    ``device_loop.eager()``, unless it prints every trial or its problem is
+    sharded."""
+    return device_loop.graphs(x) and not config.verbose and not _sharded(problem)
+
+
+def _single_loop(problem, x, config, manifold):
+    """The StepLoop of ``levenberg_marquardt`` and ``lm_step`` on this
+    problem: cached per layout when its step is a graph, made anew (eager)
+    otherwise. Its carry: x, λ and the problem's data leaves."""
+    dtype, dev = _trace_dtype(config, x), x.device
+    graph = _graphs(problem, x, config)
+
+    def make():
+        def body(x, lam, *data):
+            prob, x, lam, terminal, status, record = _outer_iteration(
+                _with_data(problem, data), x, lam, config, manifold, _read
+            )
+            return (x, lam, *_data_leaves(prob)), terminal, status, _flat(record)
+
+        carry = (x, _full(-1.0, _lam_dtype(problem, x, config), dev), *_data_leaves(problem))
+        return device_loop.StepLoop(
+            body, carry, config.max_iterations, _record_spec(config, len(problem.blocks), dtype),
+            Status.MAXIMUM_ITERATIONS_REACHED, graph=graph, name=f"lm_step P={x.shape[0]}", context=problem,
+        )
+
+    if not graph:
+        return make()
+    with capturable_linalg(dev):  # the routes the capture records
+        return device_loop.cached(_layout("lm", problem, x, config, manifold), make)
+
+
+def _trace_of(loop):
+    return _nested({k: v.clone() for k, v in loop.trace.items()})
+
+
 def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
-    """Minimize a Problem (or a single block) from x0; x0 is not modified."""
+    """Minimize a Problem (or a single block) from x0; x0 is not modified.
+
+    On CUDA the solve is max_iterations replays of its step's graph, with no
+    host read after the first solve of its layout (module docstring); on
+    the CPU, inside ``device_loop.eager()``, with ``verbose=True`` (which
+    prints every trial from the host) or for a sharded problem the same
+    step runs eagerly."""
     problem = _as_problem(problem)
     x = torch.as_tensor(x0)
-    dtype = _trace_dtype(config, x)
-    dev = x.device
-    n_it = config.max_iterations
-    trace = _new_trace((), config, len(problem.blocks), dtype, dev)
-
-    lam = _full(-1.0, dtype, dev)
-    status = Status.MAXIMUM_ITERATIONS_REACHED
-    it = 0
-    while it < n_it:
-        problem, x, lam, terminal, status, record = _outer_iteration(
-            problem, x, lam, config, manifold
-        )
-        _write_record(trace, it, record)
-        # the terminal iteration is not counted as executed
-        if terminal:
-            break
-        it += 1
-
+    problem = _on_device(problem, x)
+    loop = _single_loop(problem, x, config, manifold)
+    loop.start((x, -1.0, *_data_leaves(problem)))
+    loop.solve(config.max_iterations, _read)
+    x, lam, *data = (t.clone() for t in loop.carry)
     return LMResult(
         x=x,
-        status=_full(int(status), torch.int32, dev),
-        iterations=_full(it, torch.int32, dev),
-        cost=compute_cost(problem, x, accum_dtype=config.accum_dtype),
+        status=loop.status.clone(),
+        iterations=loop.it.clone(),
+        cost=compute_cost(_with_data(loop.context, data), x, accum_dtype=config.accum_dtype),
         lam=lam,
-        trace=trace,
+        trace=_trace_of(loop),
     )
 
 
 def lm_step(problem, x, lam, config=LMConfig(), manifold=None):
-    """One outer LM iteration: (problem', x', λ', terminal, status, record).
-    Pass λ = −1 on the first call to seed λ from diag(H)."""
+    """One outer LM iteration: (problem', x', λ', terminal, status, record),
+    ``terminal`` a 0-dim bool and ``status`` a 0-dim int32 tensor, as the
+    JAX package's jitted step returns them. Pass λ = −1 on the first call to
+    seed λ from diag(H). On CUDA one replay of the step's graph (the one
+    ``levenberg_marquardt`` captures for this layout)."""
     problem = _as_problem(problem)
     x = torch.as_tensor(x)
-    lam = torch.as_tensor(lam, dtype=_trace_dtype(config, x), device=x.device)
-    return _outer_iteration(problem, x, lam, config, manifold)
+    problem = _on_device(problem, x)
+    dtype = _lam_dtype(problem, x, config)
+    lam = lam.to(dtype=dtype, device=x.device) if isinstance(lam, torch.Tensor) else _full(float(lam), dtype, x.device)
+    loop = _single_loop(problem, x, config, manifold)
+    loop.start((x, lam, *_data_leaves(problem)))
+    loop.step(_read)
+    (x, lam, *data), terminal, status, record = loop.outputs()
+    return _with_data(problem, data), x, lam, terminal, status, _nested(record)
 
 
 def _lanes(mask, like):
@@ -353,12 +554,180 @@ def _broadcast_lanes(data, B):
     return data.expand(B, *data.shape)
 
 
-def _write_lanes(trace, it, record, active):
-    for key, value in record.items():
-        if isinstance(value, dict):
-            _write_lanes(trace[key], it, value, active)
-        else:
-            trace[key][:, it] = torch.where(_lanes(active, value), value, trace[key][:, it])
+def _fill_like(v):
+    return torch.full_like(v, torch.nan) if v.is_floating_point() else torch.zeros_like(v)
+
+
+def _batched_pass(problem, x, lam, status, it, done, config, manifold, hooked, lane_data, read=None):
+    """One pass of the batched outer loop over lanes x (B, P).
+
+    Every lane not done does what ``_outer_iteration`` does alone; a done
+    lane, and the data of its blocks, stay as they were. Returns (problem',
+    x', λ', status', it', done', record): status, it (executed iterations)
+    and done per lane, the record (B, ...) with the fill of an untouched
+    trace row (NaN, False) in done lanes. The trials run under
+    ``device_loop.cond(any lane running)``; ``read`` is the eager loop's
+    read of that flag."""
+    B = x.shape[0]
+    dtype = _trace_dtype(config, x)
+    dev = x.device
+    eps = _full(torch.finfo(dtype).eps, dtype, dev)
+    sqrt_eps = torch.sqrt(eps)
+    eight_eps = 8 * eps
+    third = _full(1.0 / 3.0, dtype, dev)
+    n_inner = config.inner_iterations
+    adt = config.accum_dtype
+
+    def full(value, dt=dtype):
+        return torch.full((B,), value, dtype=dt, device=dev)
+
+    active = ~done
+    updated = problem.update_batched(x)
+    problem = Problem(
+        blocks=tuple(
+            dataclasses.replace(new, data=_select(active, new.data, old.data)) if h else old
+            for new, old, h in zip(updated.blocks, problem.blocks, hooked)
+        )
+    )
+    if manifold is None:
+        y0, H, b = linearize_batched(problem, x, config.diff_mode, adt, lane_data)
+    else:
+        y0, H, b = linearize_tangent_batched(problem, x, _retract_fn(manifold), config.diff_mode, adt, lane_data)
+    diag_H = torch.diagonal(H, dim1=-2, dim2=-1)
+
+    converged0 = torch.abs(y0) < eight_eps
+    if config.grad_tol > 0.0:
+        converged0 = converged0 | (torch.amax(torch.abs(b), dim=-1) < config.grad_tol)
+    seed = config.init_lambda_factor * torch.amax(torch.abs(diag_H), dim=-1)
+    lam = torch.where(active & (lam < 0.0), seed, lam)
+
+    running = active & ~converged0
+    s = dict(
+        x=x.clone(),
+        lam=lam.clone(),
+        nu=full(2.0),
+        y=y0.clone(),
+        rho=full(torch.nan),
+        accepted=full(False, torch.bool),
+        status=full(int(Status.MAXIMUM_ITERATIONS_REACHED), torch.int32),
+        terminal=converged0.clone(),
+        running=running,
+        any=running.any(),  # is any lane left to try?
+        inner=_rows((B, n_inner), dtype, dev),
+    )
+
+    def trial(k):
+        running, lam_k, nu_k = s["running"], s["lam"], s["nu"]
+        delta = _solve_damped(H, diag_H, lam_k, b, config.linear_solver)
+        if manifold is None:
+            xi = x + delta.to(x.dtype)
+        else:  # the retraction lane by lane
+            xi = vmap(manifold.retract)(x, delta.to(x.dtype))
+        yi = compute_cost_batched(problem, xi, adt, lane_data)
+        rho_k = (y0 - yi) / torch.sum(delta * (lam_k[:, None] * delta - b), dim=-1)
+
+        is_nan = running & torch.isnan(yi)
+        ok = running & ~torch.isnan(yi)
+        reject = rho_k < 0.0  # a NaN ρ falls through to accept
+        small = torch.amax(torch.abs(delta), dim=-1) < sqrt_eps
+        accept = ok & ~reject
+        term_small = ok & reject & small
+        retry = ok & reject & ~small
+
+        small_status = torch.where(
+            torch.abs(yi) < eight_eps, int(Status.CONVERGED), int(Status.SMALL_DELTA)
+        ).to(torch.int32)
+        lane_status = torch.where(term_small, small_status, s["status"])
+        lane_status = torch.where(is_nan, int(Status.NUMERIC_ERROR), lane_status).to(torch.int32)
+        term = is_nan | term_small
+        if config.rel_cost_tol > 0.0:
+            rel = accept & (yi <= y0) & ((y0 - yi) <= config.rel_cost_tol * torch.abs(y0))
+            term = term | rel
+            lane_status = torch.where(rel, int(Status.CONVERGED), lane_status).to(torch.int32)
+
+        if config.verbose:
+            print(
+                f"[DEBUG] lm inner (lanes): {k + 1}/{n_inner} {y0.tolist()} {yi.tolist()} "
+                f"{rho_k.tolist()} {lam_k.tolist()} {nu_k.tolist()} running {running.tolist()}"
+            )
+
+        for key, value in dict(cost_new=yi, rho=rho_k, lam=lam_k, nu=nu_k, accepted=accept).items():
+            slot = s["inner"][key][:, k]
+            slot.copy_(torch.where(running, value, slot))
+
+        gain = torch.maximum(third, 1.0 - (2.0 * rho_k - 1.0) ** 3)
+        s["x"].copy_(torch.where(accept[:, None], xi, s["x"]))
+        s["lam"].copy_(torch.where(accept, lam_k * gain, torch.where(retry, nu_k * lam_k, lam_k)))
+        s["nu"].copy_(torch.where(retry, 2.0 * nu_k, nu_k))
+        s["y"].copy_(torch.where(accept | term, yi, s["y"]))
+        s["rho"].copy_(torch.where(running, rho_k, s["rho"]))
+        s["accepted"].copy_(torch.where(running, accept, s["accepted"]))
+        s["status"].copy_(lane_status)
+        s["terminal"].copy_(s["terminal"] | term)
+        left = running & ~(accept | term)
+        s["running"].copy_(left)
+        s["any"].copy_(left.any())
+
+    for k in range(n_inner):
+        if not device_loop.cond(s["any"], functools.partial(trial, k), read):
+            break
+
+    lane_status = torch.where(converged0, int(Status.CONVERGED), s["status"]).to(torch.int32)
+    record = dict(
+        cost=y0, cost_new=s["y"], rho=s["rho"], lam=s["lam"], nu=s["nu"], accepted=s["accepted"],
+        inner=s["inner"],
+    )
+    if config.trace_block_costs:
+        record["block_costs"] = compute_block_costs_batched(problem, x, adt, lane_data)
+    record = {k: torch.where(_lanes(active, v), v, _fill_like(v)) for k, v in _flat(record).items()}
+    terminal = s["terminal"]
+    return (
+        problem,
+        s["x"],
+        s["lam"],
+        torch.where(active, lane_status, status),
+        # the terminal iteration is not counted as executed
+        torch.where(active & ~terminal, it + 1, it),
+        done | terminal,
+        record,
+    )
+
+
+def _batched_loop(problem, x, config, manifold, hooked, lane_data, batch_data):
+    """The StepLoop of ``levenberg_marquardt_batched``: one pass an
+    iteration, terminal when every lane is done. Its carry: x, λ, each
+    lane's status, executed iterations and done, and the data leaves."""
+    B = x.shape[0]
+    dtype, dev = _trace_dtype(config, x), x.device
+    graph = _graphs(problem, x, config)
+
+    def make():
+        def body(x, lam, status, it, done, *data):
+            prob, *lanes, record = _batched_pass(
+                _with_data(problem, data), x, lam, status, it, done, config, manifold, hooked, lane_data, _read
+            )
+            done = lanes[-1]
+            return ((*lanes, *_data_leaves(prob)), done.all(),
+                    _full(int(Status.MAXIMUM_ITERATIONS_REACHED), torch.int32, dev), record)
+
+        carry = (
+            x,
+            torch.full((B,), -1.0, dtype=_lam_dtype(problem, x, config), device=dev),
+            torch.full((B,), int(Status.MAXIMUM_ITERATIONS_REACHED), dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=torch.bool, device=dev),
+            *_data_leaves(problem),
+        )
+        return device_loop.StepLoop(
+            body, carry, config.max_iterations, _record_spec(config, len(problem.blocks), dtype, (B,)),
+            Status.MAXIMUM_ITERATIONS_REACHED, graph=graph, name=f"lm_pass B={B} P={x.shape[1]}",
+            context=problem, lanes=1,
+        )
+
+    if not graph:
+        return make()
+    with capturable_linalg(dev):  # the routes the capture records
+        return device_loop.cached(_layout("lm_batched", problem, x, config, manifold, batch_data), make)
 
 
 def levenberg_marquardt_batched(problem, x0_batch, config=LMConfig(), manifold=None, batch_data=True):
@@ -370,26 +739,19 @@ def levenberg_marquardt_batched(problem, x0_batch, config=LMConfig(), manifold=N
     batch_data=True: every data leaf has a leading B; False: the data is
     shared and only x0 varies (multistart). A data=None block is shared.
     Update hooks run once per pass of the outer loop for all lanes together
-    (``ResidualBlock.update_batched``); the loop reads the host once per
-    pass and once per inner trial for the whole batch, and ends when every
-    lane is done.
+    (``ResidualBlock.update_batched``). "Any lane running" and "every lane
+    done" are flags on the device: on CUDA a pass is one replay of a graph
+    captured once per layout and a solve reads nothing back after it; the
+    eager loop (the CPU, ``device_loop.eager()``, ``verbose=True``) reads
+    the device once before each trial and once a pass.
 
     Returns an LMResult with a leading B on every field: the trace is
     (B, max_iterations) and (B, max_iterations, inner_iterations).
     """
     problem = _as_problem(problem)
     x = torch.as_tensor(x0_batch)
+    problem = _on_device(problem, x)
     B = x.shape[0]
-    dtype = _trace_dtype(config, x)
-    dev = x.device
-    # constants filled on the device: torch.tensor(scalar, device=cuda)
-    # copies from pageable host memory and synchronises
-    eps = torch.full((), torch.finfo(dtype).eps, dtype=dtype, device=dev)
-    sqrt_eps = torch.sqrt(eps)
-    eight_eps = 8 * eps
-    third = torch.full((), 1.0 / 3.0, dtype=dtype, device=dev)
-    n_it, n_inner = config.max_iterations, config.inner_iterations
-    adt = config.accum_dtype
 
     # a block with an update hook gets per-lane data from its first update on
     hooked = tuple(
@@ -404,124 +766,17 @@ def levenberg_marquardt_batched(problem, x0_batch, config=LMConfig(), manifold=N
         )
     lane_data = tuple(batch_data or h for h in hooked)
 
-    trace = _new_trace((B,), config, len(problem.blocks), dtype, dev)
-    lam = torch.full((B,), -1.0, dtype=dtype, device=dev)
-    status = torch.full((B,), int(Status.MAXIMUM_ITERATIONS_REACHED), dtype=torch.int32, device=dev)
-    it = torch.zeros((B,), dtype=torch.int32, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-
-    def full(value, dt=dtype):
-        return torch.full((B,), value, dtype=dt, device=dev)
-
-    for p in range(n_it):
-        active = ~done
-        updated = problem.update_batched(x)
-        problem = Problem(
-            blocks=tuple(
-                dataclasses.replace(new, data=_select(active, new.data, old.data)) if h else old
-                for new, old, h in zip(updated.blocks, problem.blocks, hooked)
-            )
-        )
-        if manifold is None:
-            y0, H, b = linearize_batched(problem, x, config.diff_mode, adt, lane_data)
-        else:
-            y0, H, b = linearize_tangent_batched(
-                problem, x, _retract_fn(manifold), config.diff_mode, adt, lane_data
-            )
-        diag_H = torch.diagonal(H, dim1=-2, dim2=-1)
-
-        converged0 = torch.abs(y0) < eight_eps
-        if config.grad_tol > 0.0:
-            converged0 = converged0 | (torch.amax(torch.abs(b), dim=-1) < config.grad_tol)
-        seed = config.init_lambda_factor * torch.amax(torch.abs(diag_H), dim=-1)
-        lam = torch.where(active & (lam < 0.0), seed, lam)
-
-        inner = _trial_rows((B, n_inner), dtype, dev)
-        nu = full(2.0)
-        y = y0
-        rho = full(torch.nan)
-        accepted = full(False, torch.bool)
-        lane_status = full(int(Status.MAXIMUM_ITERATIONS_REACHED), torch.int32)
-        terminal = converged0
-        x_out = x
-        running = active & ~converged0
-        # the one read of this pass before its trials: is any lane left to try?
-        all_done = not bool(running.any())
-
-        for k in range(0 if all_done else n_inner):
-            delta = _solve_damped(H, diag_H, lam, b, config.linear_solver)
-            if manifold is None:
-                xi = x + delta.to(x.dtype)
-            else:  # the retraction lane by lane
-                xi = vmap(manifold.retract)(x, delta.to(x.dtype))
-            yi = compute_cost_batched(problem, xi, adt, lane_data)
-            rho_k = (y0 - yi) / torch.sum(delta * (lam[:, None] * delta - b), dim=-1)
-
-            is_nan = running & torch.isnan(yi)
-            ok = running & ~torch.isnan(yi)
-            reject = rho_k < 0.0  # a NaN ρ falls through to accept
-            small = torch.amax(torch.abs(delta), dim=-1) < sqrt_eps
-            accept = ok & ~reject
-            term_small = ok & reject & small
-            retry = ok & reject & ~small
-
-            small_status = torch.where(
-                torch.abs(yi) < eight_eps, int(Status.CONVERGED), int(Status.SMALL_DELTA)
-            ).to(torch.int32)
-            lane_status = torch.where(term_small, small_status, lane_status)
-            lane_status = torch.where(is_nan, int(Status.NUMERIC_ERROR), lane_status).to(torch.int32)
-            term = is_nan | term_small
-            if config.rel_cost_tol > 0.0:
-                rel = accept & (yi <= y0) & ((y0 - yi) <= config.rel_cost_tol * torch.abs(y0))
-                term = term | rel
-                lane_status = torch.where(rel, int(Status.CONVERGED), lane_status).to(torch.int32)
-
-            if config.verbose:
-                print(
-                    f"[DEBUG] lm inner (lanes): {k + 1}/{n_inner} {y0.tolist()} {yi.tolist()} "
-                    f"{rho_k.tolist()} {lam.tolist()} {nu.tolist()} running {running.tolist()}"
-                )
-
-            trial = dict(cost_new=yi, rho=rho_k, lam=lam, nu=nu, accepted=accept)
-            for key, value in trial.items():
-                inner[key][:, k] = torch.where(running, value, inner[key][:, k])
-
-            x_out = torch.where(accept[:, None], xi, x_out)
-            gain = torch.maximum(third, 1.0 - (2.0 * rho_k - 1.0) ** 3)
-            lam = torch.where(accept, lam * gain, torch.where(retry, nu * lam, lam))
-            nu = torch.where(retry, 2.0 * nu, nu)
-            y = torch.where(accept | term, yi, y)
-            rho = torch.where(running, rho_k, rho)
-            accepted = torch.where(running, accept, accepted)
-            terminal = terminal | term
-            running = running & ~(accept | term)
-            # the trial's one read, for the whole batch
-            any_running, all_done = torch.stack([running.any(), (done | terminal).all()]).tolist()
-            if not any_running:
-                break
-
-        lane_status = torch.where(converged0, int(Status.CONVERGED), lane_status).to(torch.int32)
-        record = dict(
-            cost=y0, cost_new=y, rho=rho, lam=lam, nu=nu, accepted=accepted, inner=inner
-        )
-        if config.trace_block_costs:
-            record["block_costs"] = compute_block_costs_batched(problem, x, adt, lane_data)
-        _write_lanes(trace, p, record, active)
-        x = x_out
-        status = torch.where(active, lane_status, status)
-        # the terminal iteration is not counted as executed
-        it = torch.where(active & ~terminal, it + 1, it)
-        done = done | terminal
-        if all_done:
-            break
-
+    loop = _batched_loop(problem, x, config, manifold, hooked, lane_data, batch_data)
+    loop.start((x, -1.0, int(Status.MAXIMUM_ITERATIONS_REACHED), 0, False, *_data_leaves(problem)))
+    loop.solve(config.max_iterations, _read)
+    x, lam, status, it, _, *data = (t.clone() for t in loop.carry)
     return LMResult(
         x=x,
         status=status,
         iterations=it,
-        cost=compute_cost_batched(problem, x, adt, lane_data),
+        cost=compute_cost_batched(_with_data(loop.context, data), x, config.accum_dtype, lane_data),
         lam=lam,
-        trace=trace,
+        trace=_trace_of(loop),
     )
 
 
@@ -529,14 +784,17 @@ def solve_multistart(problem, x0_batch, config=LMConfig(), manifold=None, batch_
     """Best-of-B multistart: the B starts solved batched, and the lane with
     the lowest final cost among those not in NUMERIC_ERROR returned as a
     single LMResult; if every lane failed, the lowest raw cost (the caller
-    checks ``.status``). Returns (best, the batched LMResult)."""
+    checks ``.status``). The lane is picked on the device. Returns (best,
+    the batched LMResult)."""
     res = levenberg_marquardt_batched(problem, x0_batch, config, manifold, batch_data=batch_data)
     bad = res.status == int(Status.NUMERIC_ERROR)
     cost = torch.where(bad, torch.inf, res.cost)
-    i = int(torch.argmin(torch.where(bad.all(), res.cost, cost)))
+    i = torch.argmin(torch.where(bad.all(), res.cost, cost)).reshape(1)
 
     def pick(value):
-        return {k: pick(v) for k, v in value.items()} if isinstance(value, dict) else value[i]
+        if isinstance(value, dict):
+            return {k: pick(v) for k, v in value.items()}
+        return torch.index_select(value, 0, i)[0]
 
     best = LMResult(**{f.name: pick(getattr(res, f.name)) for f in dataclasses.fields(res)})
     return best, res

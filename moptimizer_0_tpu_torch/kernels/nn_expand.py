@@ -12,12 +12,36 @@ import math
 import torch
 
 from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels.launches import ReplayCounter
 
 NAME = "nn_expand"
 SOURCES = ("nn_expand.cu",)
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import, or since ``reset_launches()``: LAUNCHES
+# counts the launches made eagerly, ``replayed()`` those that CUDA-graph
+# replays made (``kernels.launches``), ``launches()`` both.
 LAUNCHES = 0
+_REPLAYED = ReplayCounter("nn_expand_cuda")
+
+
+def replayed():
+    return _REPLAYED.total()
+
+
+def launches():
+    return LAUNCHES + replayed()
+
+
+def reset_launches():
+    global LAUNCHES
+    LAUNCHES = 0
+    _REPLAYED.reset()
+
+
+def _count(device):
+    global LAUNCHES
+    if not _REPLAYED.captured(device):
+        LAUNCHES += 1
 
 _MAX_LANES = 65535  # the grid's y dimension
 # A grid of fewer than this many blocks per SM has its targets split.
@@ -94,8 +118,9 @@ def nn_expand_cuda(query, points):
     (Q, 3) or (B, Q, 3), points (M, 3) or (B, M, 3) with the same B.
     Returns two tensors of shape query.shape[:-1]. One search launch for all
     lanes (and a merge launch when ``target_splits`` splits the targets),
-    on the current stream; does not synchronise."""
-    global LAUNCHES
+    on the current stream; does not synchronise. Captured into a CUDA
+    graph, the launch's error code is checked at capture only, and each
+    replay that runs it counts it on the card (``replayed()``)."""
     _check("query", query)
     _check("points", points)
     if query.ndim != points.ndim or query.shape[:-2] != points.shape[:-2]:
@@ -132,5 +157,5 @@ def nn_expand_cuda(query, points):
         )
     if err != 0:
         raise RuntimeError(f"nn_expand_f32 launch failed with CUDA error {err}")
-    LAUNCHES += 1
+    _count(query.device)
     return idx, d2

@@ -10,13 +10,37 @@ import functools
 import torch
 
 from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels.launches import ReplayCounter
 from moptimizer_0_tpu_torch.kernels.nn_expand import n_splits
 
 NAME = "nn_search"
 SOURCES = ("nn_search.cu",)
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import, or since ``reset_launches()``: LAUNCHES
+# counts the launches made eagerly, ``replayed()`` those that CUDA-graph
+# replays made (``kernels.launches``), ``launches()`` both.
 LAUNCHES = 0
+_REPLAYED = ReplayCounter("nn_cuda")
+
+
+def replayed():
+    return _REPLAYED.total()
+
+
+def launches():
+    return LAUNCHES + replayed()
+
+
+def reset_launches():
+    global LAUNCHES
+    LAUNCHES = 0
+    _REPLAYED.reset()
+
+
+def _count(device):
+    global LAUNCHES
+    if not _REPLAYED.captured(device):
+        LAUNCHES += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,8 +89,9 @@ def nn_cuda(query, points):
     """For each query point, (index int32, squared distance float32) of its
     nearest point in ``points``. One search launch (and a merge launch when
     ``target_splits`` splits the targets) on the current stream; does not
-    synchronise."""
-    global LAUNCHES
+    synchronise. Captured into a CUDA graph, the launch's error code is
+    checked at capture only, and each replay that runs it counts it on the
+    card (``replayed()``)."""
     _check("query", query)
     _check("points", points)
     if query.device != points.device:
@@ -95,5 +120,5 @@ def nn_cuda(query, points):
         )
     if err != 0:
         raise RuntimeError(f"nn_bruteforce_f32 launch failed with CUDA error {err}")
-    LAUNCHES += 1
+    _count(query.device)
     return idx, d2

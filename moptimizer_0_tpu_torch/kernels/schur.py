@@ -13,48 +13,36 @@ import functools
 import torch
 
 from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels.launches import ReplayCounter
 
 NAME = "schur"
 SOURCES = ("schur.cu",)
 
 # Kernel launches since import, or since ``reset_launches()``: LAUNCHES
-# counts the launches made eagerly. A launch captured into a CUDA graph
-# (``ops.device_loop``) adds one to a counter on the card each time a replay
-# runs it, IF nodes included; ``launches()`` sums both.
+# counts the launches made eagerly, ``replayed()`` those that CUDA-graph
+# replays made (``kernels.launches``), ``launches()`` both.
 LAUNCHES = 0
-_REPLAYED = {}  # device → 0-dim int64 counter
+_REPLAYED = ReplayCounter("schur_corr_cuda")
 
 
 def replayed():
-    """Launches made by graph replays (one host read a device)."""
-    return sum(int(c.item()) for c in _REPLAYED.values())
+    return _REPLAYED.total()
 
 
 def launches():
-    """Every launch: the eager ones and the replayed ones."""
     return LAUNCHES + replayed()
 
 
 def reset_launches():
     global LAUNCHES
     LAUNCHES = 0
-    for c in _REPLAYED.values():
-        c.zero_()
+    _REPLAYED.reset()
 
 
 def _count(device):
-    """One launch on ``device``: counted on the host eagerly, on the card
-    when captured (its counter is made at the first eager launch there;
-    a graph's warm-up makes one before every capture)."""
     global LAUNCHES
-    if torch.cuda.is_current_stream_capturing():
-        if device not in _REPLAYED:
-            raise RuntimeError("schur_corr_cuda: captured before any eager launch on its device")
-        _REPLAYED[device].add_(1)
-    else:
+    if not _REPLAYED.captured(device):
         LAUNCHES += 1
-        if device not in _REPLAYED:
-            _REPLAYED[device] = torch.zeros((), dtype=torch.int64, device=device)
 
 
 @functools.lru_cache(maxsize=None)

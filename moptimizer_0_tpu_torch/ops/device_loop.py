@@ -1,10 +1,11 @@
 """An outer LM iteration as one CUDA-graph replay, with IF nodes inside it.
 
-The JAX package jits ``ba_step`` (one dispatch an outer iteration) and runs
-``solve_ba`` as one ``lax.while_loop`` over that body, whose LM trials and
-PCG iterations are ``while_loop``s that test their flag on the device. The
-port's counterpart on CUDA is a graph captured once per layout and
-replayed:
+The JAX package jits ``ba_step`` and ``lm_step`` (one dispatch an outer
+iteration) and runs ``solve_ba`` and ``levenberg_marquardt`` as one
+``lax.while_loop`` over that body, whose LM trials and PCG iterations are
+``while_loop``s that test their flag on the device. The port's counterpart
+on CUDA, for the BA engines and the LM solver (``core.solver``), is a graph
+captured once per layout and replayed:
 
 * ``cond(pred, fn, read)`` runs ``fn`` where the 0-dim bool ``pred`` holds.
   Under capture it is an IF node (``kernels/graph_cond.py``) whose body is
@@ -12,9 +13,10 @@ replayed:
   ``pred`` through the caller's counted ``read``. fn writes its results in
   place into tensors made before it, so a skipped body leaves them as they
   were.
-* ``StepLoop`` keeps the carry of an outer LM loop (parameters and λ), the
-  iteration counter, ``done``, the status and the trace in fixed buffers,
-  and advances them by one outer iteration under IF(¬done). With
+* ``StepLoop`` keeps the carry of an outer LM loop (parameters, λ, and
+  the problem's data leaves that update hooks rewrite), the iteration
+  counter, ``done``, the status and the trace in fixed buffers, and
+  advances them by one outer iteration under IF(¬done). With
   ``graph=True`` that iteration is captured once and every step is one
   replay: a solve enqueues max_iterations replays and reads nothing back.
 * ``cached(parts, make)`` keeps the StepLoops of the last few layouts.
@@ -143,19 +145,22 @@ class StepLoop:
     """An outer LM loop's state in fixed buffers and one iteration over it.
 
     body(*carry) → (carry′, terminal, status, record) is one outer
-    iteration: carry′ like carry, terminal a 0-dim bool, status a 0-dim
-    int32, record a dict of 0-dim tensors. ``record`` gives the record's
-    names and dtypes, ``n_trace`` the trace's length (max_iterations),
-    ``status0`` the status before any iteration. An iteration, under
-    IF(¬done), runs the body, writes the carry, the record and its row of
-    the trace (at the device counter ``it``), the status and done, and
-    advances ``it`` unless the iteration was terminal (that one is not
-    counted as executed). With ``graph=True`` (CUDA) it is captured at
-    construction; otherwise it runs eagerly, reading ¬done before each.
-    ``context``: what the engine keeps beside the loop (its mesh and
-    shards)."""
+    iteration: carry′ like carry (an entry may be the carry's own buffer,
+    left as it is), terminal a 0-dim bool, status a 0-dim int32, record a
+    dict of tensors. ``record`` gives the record's names and dtypes, or
+    (dtype, shape) for a record that is not 0-dim; ``lanes`` leading axes
+    of every shape are lanes, and the trace puts its iteration axis after
+    them: a record of shape (B, n) has a trace of (B, n_trace, n).
+    ``n_trace`` is the trace's length (max_iterations), ``status0`` the
+    status before any iteration. An iteration, under IF(¬done), runs the
+    body, writes the carry, the record and its row of the trace (at the
+    device counter ``it``), the status and done, and advances ``it`` unless
+    the iteration was terminal (that one is not counted as executed). With
+    ``graph=True`` (CUDA) it is captured at construction; otherwise it runs
+    eagerly, reading ¬done before each. ``context``: what the engine keeps
+    beside the loop (its mesh and shards, or its layout)."""
 
-    def __init__(self, body, carry, n_trace, record, status0, graph=False, name="", context=None):
+    def __init__(self, body, carry, n_trace, record, status0, graph=False, name="", context=None, lanes=0):
         self.body = body
         self.context = context
         self.carry = [torch.empty_like(t) for t in carry]
@@ -164,8 +169,11 @@ class StepLoop:
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.it = torch.zeros((), dtype=torch.int32, device=dev)
         self.status = torch.full((), self.status0, dtype=torch.int32, device=dev)
-        self.record = {k: torch.zeros((), dtype=dt, device=dev) for k, dt in record.items()}
-        self.trace = {k: torch.zeros((n_trace,), dtype=dt, device=dev) for k, dt in record.items()}
+        spec = {k: v if isinstance(v, tuple) else (v, ()) for k, v in record.items()}
+        self.record = {k: torch.zeros(shape, dtype=dt, device=dev) for k, (dt, shape) in spec.items()}
+        self.trace = {k: torch.zeros((*shape[:lanes], n_trace, *shape[lanes:]), dtype=dt, device=dev)
+                      for k, (dt, shape) in spec.items()}
+        self._lanes = lanes
         self._slots = torch.arange(n_trace, dtype=torch.int32, device=dev)
         self.graph = self.bodies = None
         self.replays = 0
@@ -191,11 +199,14 @@ class StepLoop:
     def _advance(self):
         new, terminal, status, record = self.body(*self.carry)
         for s, t in zip(self.carry, new):
-            s.copy_(t)
+            if t is not s:
+                s.copy_(t)
         at = self._slots == self.it
+        n = self._lanes
         for k, v in record.items():
             self.record[k].copy_(v)
-            self.trace[k].copy_(torch.where(at, v, self.trace[k]))
+            row = at.reshape((1,) * n + at.shape + (1,) * (v.ndim - n))
+            self.trace[k].copy_(torch.where(row, v.unsqueeze(n), self.trace[k]))
         self.status.copy_(status)
         self.it.copy_(torch.where(terminal, self.it, self.it + 1))
         self.done.copy_(terminal)
@@ -281,7 +292,9 @@ class StepLoop:
         self.graph = self.bodies = None
 
 
-def _key_part(p):
+def key_part(p):
+    """p as a part of a cache key: a tensor by its identity, version, shape,
+    dtype and device, a hashable object as itself, any other by identity."""
     if isinstance(p, torch.Tensor):
         return ("tensor", id(p), p._version, tuple(p.shape), p.dtype, p.device)
     try:
@@ -297,7 +310,7 @@ def lookup(store, parts, make, size, drop=None):
     parts stands for its identity, version (an in-place change is a new
     key), shape, dtype and device, an unhashable object for its identity;
     the entry keeps parts alive, so no identity is reused while it lives."""
-    key = tuple(_key_part(p) for p in parts)
+    key = tuple(key_part(p) for p in parts)
     entry = store.pop(key, None)
     if entry is None:
         entry = (make(), parts)

@@ -263,9 +263,11 @@ def build_hash_grid_fixed(points, cell_size, n_slots, K, max_cell_occupancy=0):
     return _grid(table_idx, table_pts, cell_size, max_cell_occupancy, pts.shape[0]), overflow
 
 
-def _neighbor_offsets(rings):
-    r = np.arange(-rings, rings + 1)
-    return np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1).reshape(-1, 3)
+def _neighbor_offsets(rings, device):
+    """The (2·rings+1)³ cell offsets (k³, 3) int64, made on ``device`` (a
+    host copy would synchronise, and cannot be captured into a CUDA graph)."""
+    r = torch.arange(-rings, rings + 1, device=device)
+    return torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
 
 
 def _radius_sq(grid, rings):
@@ -330,7 +332,7 @@ def grid_nearest_neighbors(query, grid, *, rings=1, chunk=4096, mode="auto", que
     global HOST_READS, FALLBACKS
     Q = query.shape[0]
     qf = query.to(torch.float32)
-    offsets = torch.as_tensor(_neighbor_offsets(rings), device=qf.device)  # (k³, 3) int64
+    offsets = _neighbor_offsets(rings, qf.device)  # (k³, 3) int64
     if mode == "auto":
         mode = _auto_mode(qf.device)
     if mode == "query" or Q < 2:

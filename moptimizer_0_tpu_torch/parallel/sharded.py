@@ -98,7 +98,10 @@ def distributed_levenberg_marquardt(problem, x0, mesh, config=LMConfig(), manifo
 
     Blocks with data are padded to the shard count and split; a block
     without data counts once, on the mesh's first shard. The damped solve of
-    the small (P, P) system runs on every process, on reduced inputs."""
+    the small (P, P) system runs on every process, on reduced inputs. The
+    loop runs the LM step's eager body, one read a trial, on the card too:
+    its sums go through ``Mesh.psum`` on the host, which a CUDA graph
+    cannot capture."""
     if not isinstance(problem, Problem):
         problem = Problem(blocks=(problem,))
     mesh.check_axis(axis)

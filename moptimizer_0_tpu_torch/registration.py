@@ -16,6 +16,7 @@ end) with any of the three methods, searching through the hash grid
 (``utils.device``).
 """
 
+import collections
 import dataclasses
 import math
 
@@ -31,6 +32,7 @@ from moptimizer_0_tpu_torch.core.solver import (
 )
 from moptimizer_0_tpu_torch.lie import se3
 from moptimizer_0_tpu_torch.models.gicp import gicp_block
+from moptimizer_0_tpu_torch.ops import device_loop
 from moptimizer_0_tpu_torch.ops.grid_nn import (
     build_hash_grid,
     build_hash_grid_device,
@@ -90,6 +92,25 @@ def _grid_cell(tgt_cloud, max_corr_dist):
     return 5.0 * estimate_spacing(tgt_cloud)
 
 
+def _search_plan(tgt_cloud, nn_backend, max_corr_dist):
+    """(backend, grid): the brute-force backend to search tgt_cloud with, or
+    "grid" and the voxel hash grid built here (``make_searcher``)."""
+    if nn_backend == "auto":
+        if tgt_cloud.shape[0] >= GRID_AUTO_MIN_TARGETS and max_corr_dist is not None:
+            nn_backend = "grid"
+    if nn_backend != "grid":
+        return nn_backend, None
+    big = tgt_cloud.shape[0] >= GRID_DEVICE_BUILD_MIN_TARGETS
+    build = build_hash_grid_device if big else build_hash_grid
+    return "grid", build(tgt_cloud, _grid_cell(tgt_cloud, max_corr_dist))
+
+
+def _searcher(backend, tgt_cloud, grid):
+    if grid is not None:
+        return lambda warped: grid_nearest_neighbors(warped, grid)
+    return lambda warped: nearest_neighbors(warped, tgt_cloud, backend=backend)
+
+
 def make_searcher(tgt_cloud, nn_backend, max_corr_dist):
     """Correspondence searcher over a fixed target cloud: warped → (idx, d²).
 
@@ -104,15 +125,8 @@ def make_searcher(tgt_cloud, nn_backend, max_corr_dist):
     the correspondence decisions of gated brute force. Ungated searches stay
     brute force.
     """
-    if nn_backend == "auto":
-        if tgt_cloud.shape[0] >= GRID_AUTO_MIN_TARGETS and max_corr_dist is not None:
-            nn_backend = "grid"
-    if nn_backend != "grid":
-        return lambda warped: nearest_neighbors(warped, tgt_cloud, backend=nn_backend)
-    big = tgt_cloud.shape[0] >= GRID_DEVICE_BUILD_MIN_TARGETS
-    build = build_hash_grid_device if big else build_hash_grid
-    grid = build(tgt_cloud, _grid_cell(tgt_cloud, max_corr_dist))
-    return lambda warped: grid_nearest_neighbors(warped, grid)
+    backend, grid = _search_plan(tgt_cloud, nn_backend, max_corr_dist)
+    return _searcher(backend, tgt_cloud, grid)
 
 
 def _prepare(x):
@@ -165,20 +179,110 @@ def _placeholder(src, tgt_cloud):
     )
 
 
-def _icp_block_with_searcher(
-    src, tgt_cloud, searcher, *, loss=None, max_corr_dist=None, weight_matrix=None
-):
-    """Build the ICP block around a given searcher."""
+class _Matcher:
+    """The update hook of a registration block: warp the source by x,
+    search the target, gather the matches (for point2plane their normals
+    too, for gicp their covariances) and gate them.
+
+    ``tgt``, ``extra`` (the target's normals or covariances) and ``grid``
+    are the matcher's own: the buffers of a layout that ``_matcher`` keeps
+    and ``load`` fills before each solve, or the caller's tensors and
+    searcher (``icp_block``). The solver captures a step once per update
+    hook (``core.solver``), so every solve of one layout goes through one
+    matcher and replays one graph."""
+
+    def __init__(self, method, tgt, extra, search, max_corr_dist, grid=None):
+        self.method = method
+        self.tgt, self.extra, self.grid = tgt, extra, grid
+        self.search = search  # warped → (idx, d²)
+        self.max_corr_dist = max_corr_dist
+
+    def load(self, tgt, extra, grid):
+        """Copy a pair's target side into the buffers (on the stream, after
+        the solves already queued there)."""
+        self.tgt.copy_(tgt)
+        if extra is not None:
+            self.extra.copy_(extra)
+        if grid is not None:
+            for f in ("table_idx", "table_pts", "cell_size"):
+                getattr(self.grid, f).copy_(getattr(grid, f))
+
+    def __call__(self, x, data):
+        idx, d2 = self.search(_warp(x, data["src"]))
+        new = dict(matched=_take(self.tgt, idx), valid=_gate(d2, self.max_corr_dist))
+        if self.method == "point2plane":
+            new["normal"] = _take(self.extra, idx)
+        elif self.method == "gicp":
+            new["matched_cov"] = self.extra[_wrap(idx, self.extra.shape[0])]
+        return dict(data, **new)
+
+
+class _FleetMatcher:
+    """The ``batch_update_fn`` of the ICP fleet block: every lane's source
+    warped by that lane's estimate and searched against its own target, all
+    lanes with one expansion search ("xla": K6 for CUDA tensors, its plain
+    version for CPU tensors). ``tgts``: (B, M, 3), or one (M, 3) shared by
+    the lanes of a multistart; a buffer of the layout ``_matcher`` keeps."""
+
+    def __init__(self, tgts, max_corr_dist):
+        self.tgts = tgts
+        self.max_corr_dist = max_corr_dist
+
+    def load(self, tgts):
+        self.tgts.copy_(tgts)
+
+    def __call__(self, x, data):
+        T = se3.transform_from_params6(x)  # (B, 4, 4)
+        warped = data["src"] @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
+        tgts = self.tgts.expand(x.shape[0], *self.tgts.shape[-2:])
+        idx, d2 = nearest_neighbors(warped, tgts, backend="xla")
+        return dict(data, matched=_take(tgts, idx), valid=_gate(d2, self.max_corr_dist))
+
+
+# The matchers of the last few layouts (``_matcher``), the least recently
+# used dropped first.
+_MATCHERS = collections.OrderedDict()
+
+
+def _spec(t):
+    return None if t is None else (tuple(t.shape), t.dtype, t.device)
+
+
+def _matcher(kind, tgt, *, extra=None, grid=None, backend=None, max_corr_dist=None):
+    """The matcher of a layout, loaded with this pair's target side: kind
+    "fleet" (``_FleetMatcher``) or a method of METHODS (``_Matcher``). A
+    layout is the kind, the search (backend, or the grid's table shapes),
+    the gate and the shapes, dtypes and device of the target side; its
+    matcher, and with it its update hook and buffers, is made at its first
+    use and kept (``device_loop.lookup``), as the JAX package jits its
+    registration solves once per configuration."""
+    grid_spec = None if grid is None else (
+        _spec(grid.table_idx), _spec(grid.table_pts), grid.max_cell_occupancy, grid.n_points)
+    parts = (kind, backend, max_corr_dist, _spec(tgt), _spec(extra), grid_spec)
+
+    def make():
+        tgt_b = torch.empty_like(tgt)
+        if kind == "fleet":
+            return _FleetMatcher(tgt_b, max_corr_dist)
+        grid_b = None if grid is None else dataclasses.replace(
+            grid, **{f: torch.empty_like(getattr(grid, f)) for f in ("table_idx", "table_pts", "cell_size")})
+        extra_b = None if extra is None else torch.empty_like(extra)
+        return _Matcher(kind, tgt_b, extra_b, _searcher(backend, tgt_b, grid_b), max_corr_dist, grid_b)
+
+    m = device_loop.lookup(_MATCHERS, parts, make, device_loop.MAX_LOOPS)
+    if kind == "fleet":
+        m.load(tgt)
+    else:
+        m.load(tgt, extra, grid)
+    return m
+
+
+def _icp_block(src, tgt_cloud, update_fn, *, loss=None, weight_matrix=None):
+    """The point-to-point ICP block whose matches ``update_fn`` finds."""
     src = torch.as_tensor(src)
-    tgt_cloud = torch.as_tensor(tgt_cloud)
-
-    def update_fn(x, data):
-        idx, d2 = searcher(_warp(x, data["src"]))
-        return dict(data, matched=_take(tgt_cloud, idx), valid=_gate(d2, max_corr_dist))
-
     return make_block(
         _residual,
-        data=_placeholder(src, tgt_cloud),
+        data=_placeholder(src, torch.as_tensor(tgt_cloud)),
         prepare_fn=_prepare,
         update_fn=update_fn,
         loss=loss,
@@ -186,6 +290,13 @@ def _icp_block_with_searcher(
         linearize_fn=fused_point2point_linearizer if weight_matrix is None else None,
         name="icp",
     )
+
+
+def _icp_block_with_searcher(src, tgt_cloud, searcher, *, loss=None, max_corr_dist=None, weight_matrix=None):
+    """Build the ICP block around a given searcher."""
+    tgt_cloud = torch.as_tensor(tgt_cloud)
+    matcher = _Matcher("icp", tgt_cloud, None, searcher, max_corr_dist)
+    return _icp_block(src, tgt_cloud, matcher, loss=loss, weight_matrix=weight_matrix)
 
 
 def icp_block(src, tgt_cloud, *, loss=None, max_corr_dist=None, nn_backend="auto", weight_matrix=None):
@@ -204,19 +315,12 @@ def _point2plane_residual(T, d):
     return torch.dot(d["normal"], warped - d["matched"])[None], d["valid"]
 
 
-def _point2plane_block_with_searcher(src, tgt_cloud, tgt_normals, searcher, *, loss=None, max_corr_dist=None):
+def _point2plane_block(src, tgt_cloud, tgt_normals, update_fn, *, loss=None):
     """Point-to-plane ICP block, r = n·(T·s − q): the matched target point q
     and its normal n gathered again at every outer iteration."""
     src = torch.as_tensor(src)
     tgt_cloud = torch.as_tensor(tgt_cloud)
-    tgt_normals = torch.as_tensor(tgt_normals).to(src.dtype)
     n = src.shape[0]
-
-    def update_fn(x, data):
-        idx, d2 = searcher(_warp(x, data["src"]))
-        return dict(data, matched=_take(tgt_cloud, idx), normal=_take(tgt_normals, idx),
-                    valid=_gate(d2, max_corr_dist))
-
     data = _placeholder(src, tgt_cloud)
     data["normal"] = tgt_normals[:n] if tgt_cloud.shape[0] >= n else tgt_normals[:1].expand(n, 3)
     return make_block(
@@ -224,18 +328,12 @@ def _point2plane_block_with_searcher(src, tgt_cloud, tgt_normals, searcher, *, l
     )
 
 
-def _gicp_block_with_searcher(src, tgt_cloud, src_cov, tgt_cov, searcher, *, loss=None, max_corr_dist=None):
+def _gicp_block(src, tgt_cloud, src_cov, tgt_cov, update_fn, *, loss=None):
     """GICP block (``models.gicp``) whose matches, and the matches'
     covariances, are gathered again at every outer iteration."""
     src = torch.as_tensor(src)
     tgt_cloud = torch.as_tensor(tgt_cloud)
     n = src.shape[0]
-
-    def update_fn(x, data):
-        idx, d2 = searcher(_warp(x, data["src"]))
-        return dict(data, matched=_take(tgt_cloud, idx), matched_cov=tgt_cov[_wrap(idx, tgt_cov.shape[0])],
-                    valid=_gate(d2, max_corr_dist))
-
     big = tgt_cloud.shape[0] >= n
     return gicp_block(
         src,
@@ -248,27 +346,30 @@ def _gicp_block_with_searcher(src, tgt_cloud, src_cov, tgt_cov, searcher, *, los
     )
 
 
+def _pair_block(method, src, tgt_cloud, covs, search, *, loss=None, max_corr_dist=None, grid=None):
+    """The block of ``method`` for one pair, around the matcher of its
+    layout. ``covs``: the target's normals (point2plane), the (source,
+    target) GICP covariances (gicp) or None (icp); ``search``: the
+    brute-force backend, or "grid" with the pair's ``grid``."""
+    extra = covs[1] if method == "gicp" else covs
+    matcher = _matcher(method, tgt_cloud, extra=extra, grid=grid, backend=search, max_corr_dist=max_corr_dist)
+    if method == "icp":
+        return _icp_block(src, tgt_cloud, matcher, loss=loss)
+    if method == "point2plane":
+        return _point2plane_block(src, tgt_cloud, covs, matcher, loss=loss)
+    return _gicp_block(src, tgt_cloud, covs[0], covs[1], matcher, loss=loss)
+
+
 def _icp_fleet_block(srcs, tgt_clouds, *, loss=None, max_corr_dist=None):
     """The ICP block of B lanes: srcs (B, N, 3) and tgt_clouds (B, M, 3), or
     one src (N, 3) and target (M, 3) shared by the lanes of a multistart
-    (solved with ``batch_data=False``).
-
-    Its ``batch_update_fn`` warps every lane's source with that lane's
-    estimate and searches all lanes together with the expansion ("xla":
-    K6 for CUDA tensors, its plain version for CPU tensors)."""
-
-    def batch_update_fn(x, data):
-        T = se3.transform_from_params6(x)  # (B, 4, 4)
-        warped = data["src"] @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
-        tgts = tgt_clouds.expand(x.shape[0], *tgt_clouds.shape[-2:])
-        idx, d2 = nearest_neighbors(warped, tgts, backend="xla")
-        return dict(data, matched=_take(tgts, idx), valid=_gate(d2, max_corr_dist))
-
+    (solved with ``batch_data=False``), searched by the fleet matcher of
+    its layout."""
     return make_block(
         _residual,
         data=_placeholder(srcs, tgt_clouds),
         prepare_fn=_prepare,
-        batch_update_fn=batch_update_fn,
+        batch_update_fn=_matcher("fleet", tgt_clouds, max_corr_dist=max_corr_dist),
         loss=loss,
         linearize_fn=fused_point2point_linearizer,
         name="icp",
@@ -293,16 +394,19 @@ def _yaw_starts(src, tgt_cloud, B):
 class PairwiseRegistrar:
     """Pairwise registration for scan streams: the SLAM front end.
 
-    The JAX package's registrar exists to trace its solve once per stream;
-    eager PyTorch has nothing to compile, and the registrar keeps the rest
-    of its contract:
+    The JAX package's registrar jits its solves once per instance. Here a
+    pair's block is built around the matcher of its layout (``_matcher``),
+    whose update hook reads the pair's target side from buffers, so on the
+    card every pair of one layout replays one captured step: the captures
+    of a stream do not grow with its pairs. The registrar's contract:
 
     * an unseeded pair with a gate is seeded by a coarse ungated pass on
       clouds stride-subsampled to COARSE_MAX_POINTS: ``coarse_multistart``
       yaw starts (8 with "auto" when a gate is set) solved batched, all B
       starts searched against the shared target in one expansion search per
       pass (K6 on the card), the lowest cost not in NUMERIC_ERROR kept; or,
-      with ``coarse_multistart=0``, one start;
+      with ``coarse_multistart=0``, one start. The batched solve runs its
+      eager body (``_coarse_multistart_seed``);
     * grid search (``nn_backend="grid"``, or "auto" on a gated target of
       GRID_AUTO_MIN_TARGETS points or more), with a capacity policy: the
       first pair's adaptive build learns (S, K, cell occupancy), and later
@@ -351,32 +455,28 @@ class PairwiseRegistrar:
             return m >= GRID_AUTO_MIN_TARGETS and self.max_corr_dist is not None
         return False
 
-    def _solve(self, src, tgt_cloud, searcher, x0, covs):
-        """The method's block around ``searcher``, solved from x0. ``covs``:
-        ``_covs_for``'s surface statistics of the pair."""
-        kw = dict(loss=self.loss, max_corr_dist=self.max_corr_dist)
-        if self.method == "icp":
-            blk = _icp_block_with_searcher(src, tgt_cloud, searcher, **kw)
-        elif self.method == "point2plane":
-            blk = _point2plane_block_with_searcher(src, tgt_cloud, covs, searcher, **kw)
-        else:
-            blk = _gicp_block_with_searcher(src, tgt_cloud, *covs, searcher, **kw)
+    def _solve(self, src, tgt_cloud, x0, covs, search, grid=None):
+        """The method's block for the pair, searched by ``search`` (a
+        brute-force backend, or "grid" with ``grid``), solved from x0.
+        ``covs``: ``_covs_for``'s surface statistics of the pair. Every pair
+        of one layout goes through one matcher, and its solve replays one
+        graph on the card."""
+        blk = _pair_block(self.method, src, tgt_cloud, covs, search, loss=self.loss,
+                          max_corr_dist=self.max_corr_dist, grid=grid)
         return levenberg_marquardt(problem(blk), x0, self.config)
 
     def _solve_grid(self, src, tgt_cloud, grid, x0, covs):
-        return self._solve(src, tgt_cloud, lambda warped: grid_nearest_neighbors(warped, grid), x0, covs)
+        return self._solve(src, tgt_cloud, x0, covs, "grid", grid)
 
     def _solve_grid_fused(self, src, tgt_cloud, x0, covs, S, K, occ):
         """Build at fixed capacities and solve, with no host read for the
-        build: (result, device overflow flag)."""
+        build: (result, device overflow flag). The capacities keep one
+        layout, and one graph, across a stream."""
         grid, overflow = build_hash_grid_fixed(tgt_cloud, self.max_corr_dist, S, K, occ)
         return self._solve_grid(src, tgt_cloud, grid, x0, covs), overflow
 
     def _solve_brute(self, src, tgt_cloud, x0, covs):
-        backend = "pallas" if tgt_cloud.is_cuda else "xla"
-        return self._solve(
-            src, tgt_cloud, lambda warped: nearest_neighbors(warped, tgt_cloud, backend=backend), x0, covs
-        )
+        return self._solve(src, tgt_cloud, x0, covs, "pallas" if tgt_cloud.is_cuda else "xla")
 
     def _covs_for(self, src, tgt_cloud):
         """The pair's surface statistics: (source, target) GICP covariances,
@@ -457,9 +557,14 @@ class PairwiseRegistrar:
         Always point-to-point."""
         x0s = _yaw_starts(src, tgt_cloud, self.coarse_multistart)
         blk = _icp_fleet_block(src, tgt_cloud)
-        res = levenberg_marquardt_batched(problem(blk), x0s, self.config, batch_data=False)
+        # eagerly, on PyTorch's default routes: its batched Cholesky solves
+        # go to MAGMA, which a graph cannot capture, and a capturable route
+        # (cuSOLVER) gives other bits, which would change every pose of a
+        # stream downstream (a stream's first pair only)
+        with device_loop.eager():
+            res = levenberg_marquardt_batched(problem(blk), x0s, self.config, batch_data=False)
         cost = torch.where(res.status == int(Status.NUMERIC_ERROR), torch.inf, res.cost)
-        return res.x[torch.argmin(cost)]
+        return torch.index_select(res.x, 0, torch.argmin(cost).reshape(1))[0]  # no host read
 
     def _build_grid(self, tgt_cloud, force_adaptive=False):
         cell = _grid_cell(tgt_cloud, self.max_corr_dist)
@@ -505,8 +610,7 @@ def icp(
         x0 = as_input(x0, src.device)
     if config is None:
         config = _icp_config()
-    blk = icp_block(src, tgt_cloud, loss=loss, max_corr_dist=max_corr_dist, nn_backend=nn_backend)
-    return levenberg_marquardt(problem(blk), x0, config)
+    return _solve_pair("icp", src, tgt_cloud, None, x0, config, loss, max_corr_dist, nn_backend)
 
 
 def icp_batched(
@@ -575,6 +679,15 @@ def icp_batched(
     })
 
 
+def _solve_pair(method, src, tgt_cloud, covs, x0, config, loss, max_corr_dist, nn_backend):
+    """``icp``/``point2plane``/``gicp``'s solve: the method's block around
+    the matcher of the pair's layout, so that two requests of one shape,
+    config, loss and search capture one graph (``core.solver``)."""
+    search, grid = _search_plan(tgt_cloud, nn_backend, max_corr_dist)
+    blk = _pair_block(method, src, tgt_cloud, covs, search, loss=loss, max_corr_dist=max_corr_dist, grid=grid)
+    return levenberg_marquardt(problem(blk), x0, config)
+
+
 def _centroid_seed(src, tgt_cloud):
     """x0 = [median(tgt) − median(src), 0]."""
     x0 = torch.zeros(6, dtype=src.dtype, device=src.device)
@@ -593,9 +706,7 @@ def point2plane(src, tgt_cloud, x0=None, *, k=10, config=None, loss=None, max_co
     if config is None:
         config = _icp_config()
     normals = estimate_normals(tgt_cloud, k=k).to(src.dtype)
-    searcher = make_searcher(tgt_cloud, nn_backend, max_corr_dist)
-    blk = _point2plane_block_with_searcher(src, tgt_cloud, normals, searcher, loss=loss, max_corr_dist=max_corr_dist)
-    return levenberg_marquardt(problem(blk), x0, config)
+    return _solve_pair("point2plane", src, tgt_cloud, normals, x0, config, loss, max_corr_dist, nn_backend)
 
 
 def gicp(src, tgt_cloud, x0=None, *, k=10, epsilon=1e-3, config=None, loss=None, max_corr_dist=None,
@@ -609,8 +720,5 @@ def gicp(src, tgt_cloud, x0=None, *, k=10, epsilon=1e-3, config=None, loss=None,
     x0 = _centroid_seed(src, tgt_cloud) if x0 is None else as_input(x0, src.device)
     if config is None:
         config = _icp_config()
-    src_cov = gicp_covariances(src, k=k, epsilon=epsilon).to(src.dtype)
-    tgt_cov = gicp_covariances(tgt_cloud, k=k, epsilon=epsilon).to(src.dtype)
-    searcher = make_searcher(tgt_cloud, nn_backend, max_corr_dist)
-    blk = _gicp_block_with_searcher(src, tgt_cloud, src_cov, tgt_cov, searcher, loss=loss, max_corr_dist=max_corr_dist)
-    return levenberg_marquardt(problem(blk), x0, config)
+    covs = tuple(gicp_covariances(c, k=k, epsilon=epsilon).to(src.dtype) for c in (src, tgt_cloud))
+    return _solve_pair("gicp", src, tgt_cloud, covs, x0, config, loss, max_corr_dist, nn_backend)

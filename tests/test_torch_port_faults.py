@@ -19,6 +19,9 @@ that showed it (float64, the same numpy inputs to both packages).
   listed in ``RENAMED``.
 * F7: ``nearest_neighbors`` takes the JAX package's ``block_q``,
   ``block_p`` and ``chunk``, and they change no result.
+* F8: ``lm_step`` returns ``terminal`` and ``status`` as 0-dim tensors (a
+  bool and an int32), as the JAX package's jitted step returns arrays, and
+  they equal JAX's.
 """
 
 import ast
@@ -293,3 +296,25 @@ def test_f7_nearest_neighbors_takes_the_jax_keywords():
         for chunk in (1, 7, 1024):
             i2, e2 = nearest_neighbors(qq, pp, backend=backend, block_q=64, block_p=128, chunk=chunk)
             assert torch.equal(i2, idx) and torch.equal(e2, d2), (backend, chunk)
+
+
+@pytest.mark.parametrize("x0,terminal", [([0.0, 0.0], False), ([1.2, 2.0], False), ([0.0, 0.0], True)],
+                         ids=["start", "far", "nan"])
+def test_f8_lm_step_terminal_and_status_are_0_dim_tensors(x0, terminal):
+    """From λ = −1: the first step from 0, one from far off,
+    and a step on data with a NaN (terminal, NUMERIC_ERROR)."""
+    from moptimizer_0_tpu.models.curve_fitting import CERES_CURVE_DATA
+
+    data = CERES_CURVE_DATA.copy()
+    if terminal:
+        data[5, 1] = np.nan
+    tb = tres.make_block(lambda x, d: torch.stack([d[1] - torch.exp(x[0] * d[0] + x[1])]),
+                         data=torch.as_tensor(data))
+    jb = jres.make_block(lambda x, d: jnp.array([d[1] - jnp.exp(x[0] * d[0] + x[1])]), data=jnp.asarray(data))
+    t = tsol.lm_step(tres.problem(tb), torch.as_tensor(x0), -1.0, tsol.LMConfig(linear_solver="cholesky"))
+    j = jsol.lm_step(jres.problem(jb), jnp.asarray(x0), -1.0, jsol.LMConfig(linear_solver="cholesky"))
+    for tv, jv in zip(t[3:5], j[3:5]):
+        assert isinstance(tv, torch.Tensor) and tv.shape == () == np.shape(jv)
+    assert t[3].dtype == torch.bool and t[4].dtype == torch.int32
+    assert bool(t[3]) == bool(j[3]) == terminal
+    assert int(t[4]) == int(j[4])
