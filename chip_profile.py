@@ -27,12 +27,15 @@ trial costs and the damped solves, with the weight inverse (Ω = (C_q + R C_s
 Rᵀ)⁻¹, inside the linearization and the trial costs) shown on its own.
 ``--path pgo`` builds no kernel; the step is the first five outer
 iterations of the dense ``solve_pgo`` of ``chip_smoke.py``'s 2,000-pose ring
-graph in float32, split between the edge plans, the per-edge linearization,
-the 12,000² assembly, the costs and the damped Cholesky solves.
+graph in float32, profiled twice: by its CUDA graph (five replays), then
+by its step's body run eagerly on the capture's routes
+(``device_loop.eager()``, ``capturable_linalg``), split between the edge
+plans, the per-edge linearization, the 12,000² assembly, the costs and the
+damped Cholesky solves.
 Prints the card, those host times and the traced one, the device time and busy share, the kernel
 launches and host syncs, the search kernel's share of device time and the
 kernels by device time, and writes the chrome trace to DIR (default
-``build/profile``).
+``build/profile``; the PGO path writes two).
 """
 
 import argparse
@@ -53,7 +56,8 @@ from moptimizer_0_tpu_torch.core.solver import LMConfig
 from moptimizer_0_tpu_torch.kernels import build
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
-from moptimizer_0_tpu_torch.ops import grid_nn
+from moptimizer_0_tpu_torch.ops import device_loop, grid_nn
+from moptimizer_0_tpu_torch.ops.small_solve import capturable_linalg
 from moptimizer_0_tpu_torch.registration import PairwiseRegistrar, icp, icp_batched
 
 
@@ -192,8 +196,22 @@ def main():
         setattr(module, attr, _ranged(name, getattr(module, attr)))
     cloud = torch.as_tensor(cs.load_txt_cloud(cs.FACHADA), dtype=torch.float32, device="cuda")
     step = make(cloud)
-    step()
+    if args.path != "pgo":
+        profile_step(what, step, kernel, stages, Path(args.out) / f"{args.path}_trace.json")
+        return
+    # the solve by its graph (a replay an outer iteration: no stage ranges
+    # inside), then its step's body eagerly on the capture's routes
+    profile_step(f"{what} by its graph", step, None, None, Path(args.out) / "pgo_graph_trace.json")
+    with device_loop.eager(), capturable_linalg(cloud.device):
+        profile_step(f"{what} by its eager body", step, None, stages, Path(args.out) / "pgo_eager_trace.json")
 
+
+def profile_step(what, step, kernel, stages, trace):
+    """step() once to warm up, five times on the host clock, then once under
+    torch.profiler: the host and device times, launches and syncs, the
+    kernel's and each stage's share, the kernels by device time; the chrome
+    trace to ``trace``."""
+    step()
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -204,7 +222,7 @@ def main():
 
     k_nn.reset_launches()
     k_expand.reset_launches()
-    reads = grid_nn.HOST_READS
+    reads, pgo_reads = grid_nn.HOST_READS, pose_graph.HOST_READS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -216,6 +234,7 @@ def main():
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     launches = sum(e.name == "cudaLaunchKernel" for e in events)
+    graph_launches = sum(e.name == "cudaGraphLaunch" for e in events)
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for e in events)
     copies = sum(e.name == "cudaMemcpyAsync" for e in events)
     by_name = {}
@@ -225,9 +244,9 @@ def main():
     print(
         f"profiled {what}: host {wall_ms:.3f} ms, device time {busy_ms:.3f} ms in {len(device)} device "
         f"events (busy {busy_ms / wall_ms:.1%} of the host time, idle {1 - busy_ms / wall_ms:.1%}), "
-        f"{launches} cudaLaunchKernel, {syncs} stream/device syncs, {copies} cudaMemcpyAsync; K5 launches "
-        f"{k_nn.launches()}, K6 launches {k_expand.launches()} (replayed and eager), grid host reads "
-        f"{grid_nn.HOST_READS - reads}"
+        f"{launches} cudaLaunchKernel, {graph_launches} cudaGraphLaunch, {syncs} stream/device syncs, {copies} "
+        f"cudaMemcpyAsync; K5 launches {k_nn.launches()}, K6 launches {k_expand.launches()} (replayed and eager), "
+        f"grid host reads {grid_nn.HOST_READS - reads}, PGO host reads {pose_graph.HOST_READS - pgo_reads}"
     )
     if kernel is not None:
         # the search kernel and its merge: every __global__ function of its source
@@ -256,9 +275,7 @@ def main():
     print("device time by kernel (ms, launches, share):")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {t:9.3f} ms {n:6d}  {t / busy_ms:6.1%}  {name[:110]}")
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    trace = out / f"{args.path}_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
     print(f"chrome trace: {trace}")
 

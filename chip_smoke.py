@@ -65,12 +65,18 @@ prints no result):
    the front end's, the closures' and the PGO's walls, frames/s as the
    bench computes it, ATE < 0.05 m for the odometry and < 0.01 m after PGO
    (and below the odometry's for icp and point2plane), no NUMERIC_ERROR, K5
-   once per outer iteration and K6 on the first pair; the ICP graph's PGO is
-   solved again (bit-equal) and by CG (within 1e-4 of the dense poses);
+   once per outer iteration and K6 on the first pair, replayed by the
+   coarse multistart's graph; the ICP graph's PGO is solved again
+   (bit-equal), by CG and in float64 on the card: the float32 dense and CG
+   poses each within √ε_f32 (their stopping rule's reach,
+   ``PGO_F64_BOUND``) of the float64 optimum; from a drifted start the full
+   float32 solve inside it and the one stopped after one outer iteration
+   outside; the CG-against-dense gap shown;
 10. K9 (``gicp_covariances``, ``estimate_normals``) at 32,768 points and the
     host reads of one GICP pair;
 11. ``scan_slam_fixed_lag`` (window 8, icp) on the first 24 scans: ATE <
-    0.05 m, poses (24, 6), one marginalization a scan past the window;
+    0.05 m, poses (24, 6), one marginalization a scan past the window, one
+    PGO capture a window layout and fewer layouts than solves;
 12. the pose graph of ``tests/test_pose_graph.py`` rebuilt at 300 and 2,000
     poses in float32, solved by CG and by the dense Cholesky, each below its
     cost bound (``RING_BOUNDS``);
@@ -160,12 +166,25 @@ prints no result):
     the ICP request, the fleet and the two pairs launch calls, device ms
     and busy share beside the eager body's; then ``scan_slam`` icp over the
     64 scans from an empty layout cache, by its graphs and eagerly
-    (frames/s each), whose captures must all come from its first two
-    registrations (its first pair's coarse multistart runs eagerly); and
-    every capture's warm-up, capture and instantiation ms and pool bytes.
+    (frames/s each), whose registrations' captures must all come from its
+    first two registrations (the first pair's coarse multistart and pair
+    solve); and every capture's warm-up, capture and instantiation ms and
+    pool bytes;
+21. (run after 12) the PGO solves as CUDA graphs: the SLAM graph of 9
+    (icp) dense and CG, the rings of 12 at 300 and 2,000 poses dense and
+    CG, and the 23 window solves of 11's fixed-lag stream, each through its
+    graph and through its step's body run eagerly on the card: bit-equal
+    (poses, iterations, status, trace), no host read but the edge plan's,
+    max_iterations graph launches a solve; walls, launch calls, captures,
+    each layout's warm-up, capture and instantiation ms and pool bytes; the
+    fixed-lag stream's captures, one a layout (the windows of 2…9 poses,
+    then the window with its marginal prior); and for ``scan_slam`` (icp,
+    point2plane, GICP) frames/s, the PGO term and the first pair's wall
+    with its replayed K6 launches.
 
-Every LM and BA solve of an unsharded problem runs its step graph (outside
-phase 19's and 20's eager runs): the launches of K5, K6 and K11 there are
+Every LM, BA and PGO solve of an unsharded problem runs its step graph
+(outside phases 19–21's eager runs), the registrar's coarse multistart
+too: the launches of K5, K6 and K11 there are
 counted on the card (``replayed``), and a capture's warm-up launches each
 kernel of the step once more, eagerly. The dense-BA solve runs twice and
 must repeat itself bit for bit.
@@ -354,8 +373,28 @@ RING_CONFIGS = dict(
     cg=pose_graph.PGOConfig(max_iterations=40, solver="cg", cg_iterations=400),
     dense=pose_graph.PGOConfig(max_iterations=40),
 )
-# CG against dense on the 64-pose SLAM graph: the same optimum, to 1e-4.
+# CG against dense on the 64-pose SLAM graph, printed beside what is held
+# (PGO_F64_BOUND): the gap the check once held, whose 1e-4 lies below the
+# float32 stopping rule's reach (both solves stop on SMALL_DELTA).
 PGO_CG_GAP = 1e-4
+# The SLAM graph's float32 PGO, dense and CG, is held to the graph's optimum:
+# the dense solve of the same graph on the card in float64 (it stops at
+# max|δ| < √ε_f64 = 1.5e-8). A float32 solve stops on SMALL_DELTA once a
+# rejected trial's step has max|δ| < √ε_f32 = 3.45e-4 (params6: metres and
+# radians). That step is the damped Gauss-Newton step from the final poses,
+# (H + λ·diag H)⁻¹(−b), with λ seeded at 1e-9·max|diag H| and cut by ≥ 3 at
+# each accepted step (the final λ is printed): the step of the local model to
+# its optimum. So the stopping rule leaves each float32 solve within √ε_f32
+# of the optimum in every component: max|poses − poses_f64| ≤ √ε_f32.
+PGO_F64_BOUND = float(np.sqrt(np.finfo(np.float32).eps))
+# The SLAM graph's whole correction lies near that bound (its odometry start
+# is ~3.4e-4 from the optimum on an H100), so a solve that descends from the
+# odometry cannot leave it. The check is also shown on the same graph from a
+# drifted start, its odometry re-chained from the odometry edges with noise
+# of RING_DRIFT (tests/test_pose_graph.py's drift of its rings): the full
+# float32 solve from there must end inside the bound, the one stopped after
+# one outer iteration outside.
+PGO_DRIFT_SEED = 14
 X_SMALL =[0.05, -0.03, 0.02, 0.01, -0.005, 0.01]  # the fachada grid query's transform
 
 # The reference's problem set in float32 (tests/trace_problems.py and
@@ -1571,9 +1610,8 @@ def run_lm_device_loop(cloud, srcs, tgts, scans, gt, dev):
     device ms and busy share. Then ``scan_slam`` icp over the 64 scans from
     an empty layout cache, by its graphs and eagerly: frames/s each, and
     the run's captures, all made by its first two registrations (the
-    registrar's coarse multistart runs eagerly: MAGMA's batched Cholesky
-    solve cannot be captured); and every capture's warm-up, capture and
-    instantiation ms and pool bytes."""
+    first pair's coarse multistart and pair solve); and every capture's
+    warm-up, capture and instantiation ms and pool bytes."""
     print(f"LM device loop: linalg backend {torch.backends.cuda.preferred_linalg_library()} (the LM loops capture "
           f"on cuSOLVER and cuBLAS)")
     out, first_capture = {}, len(device_loop.CAPTURES)
@@ -1905,7 +1943,8 @@ class _Recorded(PairwiseRegistrar):
     time, its result, the grid host reads it made and the captures of the
     run so far (Python counters: nothing is read from the card while it
     runs), and for the first registration the K5 and K6 launches it made
-    (counted on the card when replayed: read after its wall is taken)."""
+    and K6's replayed ones (counted on the card when replayed: read after
+    its wall is taken)."""
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -1915,7 +1954,7 @@ class _Recorded(PairwiseRegistrar):
     def register(self, src, tgt_cloud, x0=None, *, defer_overflow=False):
         first = not self.pairs
         if first:
-            k5, k6 = k_nn.launches(), k_expand.launches()
+            k5, k6, k6_replayed = k_nn.launches(), k_expand.launches(), k_expand.replayed()
         reads = grid_nn.HOST_READS
         t0 = time.perf_counter()
         out = super().register(src, tgt_cloud, x0, defer_overflow=defer_overflow)
@@ -1924,7 +1963,8 @@ class _Recorded(PairwiseRegistrar):
             grid_reads=grid_nn.HOST_READS - reads, captures=len(device_loop.CAPTURES),
         ))
         if first:
-            self.pairs[0].update(k5=k_nn.launches() - k5, k6=k_expand.launches() - k6)
+            self.pairs[0].update(k5=k_nn.launches() - k5, k6=k_expand.launches() - k6,
+                                 k6_replayed=k_expand.replayed() - k6_replayed)
         return out
 
     def _redo_overflow(self, src, tgt_cloud, x0, covs):
@@ -2059,7 +2099,7 @@ def run_scan_slam(scans, gt, method, dev):
     k_scans = len(seq)
     with _slam_stages() as (walls, regs, solves):
         _reset_launches()
-        reads = pose_graph.HOST_READS
+        reads, n_captures = pose_graph.HOST_READS, len(device_loop.CAPTURES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result, poses_odo = odometry.scan_slam(seq, method=method, loop_closures=SLAM_LOOPS, config=SLAM_CONFIG,
@@ -2070,6 +2110,7 @@ def run_scan_slam(scans, gt, method, dev):
         wall_s = time.perf_counter() - t0
         k5, k6 = k_nn.launches(), k_expand.launches()
         pgo_reads = pose_graph.HOST_READS - reads
+    pgo_captures = sum(c["name"].startswith("pgo_step") for c in device_loop.CAPTURES[n_captures:])
     if k_schur.launches():
         raise AssertionError(f"SLAM {method}: the schur kernel launched")
     (reg,) = regs
@@ -2092,8 +2133,9 @@ def run_scan_slam(scans, gt, method, dev):
         f"({[f'{w:.4f}' for w in walls['loops']]}), PGO {pgo_s:.4f} s; frames/s (the bench's: K / ((K-1)·steady + "
         f"loops + PGO)) {fps:.2f}; registrations {len(pairs)} ({reg.redos} overflow rebuilds), LM outer "
         f"iterations mean {np.mean(outer):.2f} max {max(outer)}, trials {sum(trials)}, statuses {names}; PGO "
-        f"{pgo_status.name}, iterations {int(result.iterations)}, host reads {pgo_reads}; K5 launches {k5}, K6 "
-        f"launches {k6} (first pair {pairs[0]['k6']}); ATE odometry {ate_odo:.6f} m, SLAM {ate:.6f} m (align=False); "
+        f"{pgo_status.name}, iterations {int(result.iterations)}, host reads {pgo_reads}, captures {pgo_captures}; "
+        f"K5 launches {k5}, K6 launches {k6} (first pair {pairs[0]['k6']}, {pairs[0]['k6_replayed']} of them "
+        f"replayed); ATE odometry {ate_odo:.6f} m, SLAM {ate:.6f} m (align=False); "
         f"loop closures' error against the ground truth (m, rad), the odometry's over the same span: {closure_err}"
     )
     if Status.NUMERIC_ERROR in status or pgo_status == Status.NUMERIC_ERROR or not torch.isfinite(poses).all():
@@ -2106,8 +2148,12 @@ def run_scan_slam(scans, gt, method, dev):
     if k5 < sum(outer) or pairs[0]["k6"] == 0:
         raise AssertionError(f"scan_slam {method}: K5 {k5} for {sum(outer)} outer iterations, first pair K6 "
                              f"{pairs[0]['k6']}")
-    run = dict(wall_s=wall_s, front_s=front_s, steady_ms=steady_s * 1e3, loops_s=loops_s, pgo_s=pgo_s, fps=fps,
-               ate_odo=ate_odo, ate=ate, k5=k5, k6=k6, pgo_reads=pgo_reads, reg=reg)
+    # by its graphs the first pair's coarse multistart replays K6
+    if device_loop.graphs(poses_odo) and pairs[0]["k6_replayed"] == 0:
+        raise AssertionError(f"scan_slam {method}: the first pair replayed no K6 launch")
+    run = dict(wall_s=wall_s, front_s=front_s, first_s=first_s, steady_ms=steady_s * 1e3, loops_s=loops_s,
+               pgo_s=pgo_s, fps=fps, ate_odo=ate_odo, ate=ate, k5=k5, k6=k6, k6_first_replayed=pairs[0]["k6_replayed"],
+               pgo_reads=pgo_reads, pgo_captures=pgo_captures, reg=reg)
     return result, graph, config, run
 
 
@@ -2128,10 +2174,20 @@ def _closure_errors(graph, poses_odo, gt):
     return out
 
 
+def _f64_gap(poses, ref):
+    return float((poses.double() - ref).abs().max())
+
+
 def pgo_repeat_and_cg(graph, config, first):
     """The SLAM graph's PGO again (bit-equal poses, equal iterations and
-    status), with solver="cg" (poses within PGO_CG_GAP of the dense), and
-    with unit information (shown, not checked)."""
+    status), with unit information (shown, not checked), by CG, and in
+    float64: the float32 dense and CG solves each within PGO_F64_BOUND of the
+    float64 optimum; from the odometry start the solve stopped after one
+    outer iteration, and the start itself, are shown against the bound; from
+    a drifted start (PGO_DRIFT_SEED) the full float32 solve must end inside
+    it and the one stopped after one outer iteration outside. The
+    CG-against-dense gap is shown beside PGO_CG_GAP. Returns the CG
+    solve."""
     unit = pose_graph.solve_pgo(dataclasses.replace(graph, information=graph.information / SLAM_INFORMATION), config)
     print(f"PGO of the SLAM graph with unit information: {Status(int(unit.status)).name}, iterations "
           f"{int(unit.iterations)}, start cost {float(unit.trace['cost'][0]):.3e} (8ε of {graph.poses.dtype} is "
@@ -2149,11 +2205,46 @@ def pgo_repeat_and_cg(graph, config, first):
     print(f"PGO of the SLAM graph ({graph.poses.shape[0]} poses, {graph.edge_i.shape[0]} edges) again: poses bit-equal, "
           f"iterations and status equal: {same}; solver='cg': {cg_s:.4f} s, {Status(int(cg.status)).name}, iterations "
           f"{int(cg.iterations)}, host reads {pose_graph.HOST_READS - reads}, max|poses - dense| {gap:.3e} "
-          f"(bound {PGO_CG_GAP:g})")
+          f"(PGO_CG_GAP {PGO_CG_GAP:g}, shown)")
     if not same:
         raise AssertionError("PGO: a second solve of the SLAM graph differs from the first")
-    if not gap <= PGO_CG_GAP:
-        raise AssertionError(f"PGO: the CG solve is {gap} from the dense one")
+
+    g64 = dataclasses.replace(graph, poses=graph.poses.double(), measurements=graph.measurements.double(),
+                              information=graph.information.double())
+    opt = pose_graph.solve_pgo(g64, config)
+    ref = opt.poses
+    if int(opt.status) not in (Status.CONVERGED, Status.SMALL_DELTA) or not torch.isfinite(ref).all():
+        raise AssertionError(f"PGO float64: {Status(int(opt.status)).name}")
+    rows = {"dense": first, "cg": cg}
+    for name, res in rows.items():
+        ran = torch.isfinite(res.trace["lam"])
+        print(f"PGO of the SLAM graph, float32 {name}: {Status(int(res.status)).name} after {int(res.iterations)} "
+              f"iterations, final λ {float(res.trace['lam'][ran][-1]):.3e} (seed {float(res.trace['lam'][0]):.3e}), "
+              f"max|poses - poses_f64| {_f64_gap(res.poses, ref):.3e} (bound √ε_f32 {PGO_F64_BOUND:.3e})")
+    one = dataclasses.replace(config, max_iterations=1)
+    rng = np.random.default_rng(PGO_DRIFT_SEED)
+    k = graph.poses.shape[0]
+    noise = torch.as_tensor(rng.normal(size=(k - 1, 6)), dtype=graph.poses.dtype, device=graph.poses.device)
+    drifted = dataclasses.replace(graph, poses=odometry.chain_poses(graph.measurements[:k - 1] + RING_DRIFT * noise))
+    worse = {
+        "odometry start, one outer iteration": pose_graph.solve_pgo(graph, one).poses,
+        "odometry start": graph.poses,
+        "drifted start, full solve": pose_graph.solve_pgo(drifted, config).poses,
+        "drifted start, one outer iteration": pose_graph.solve_pgo(drifted, one).poses,
+        "drifted start": drifted.poses,
+    }
+    worse = {name: _f64_gap(poses, ref) for name, poses in worse.items()}
+    print(f"PGO float64 optimum of the SLAM graph: {Status(int(opt.status)).name}, iterations {int(opt.iterations)}, "
+          f"cost {float(opt.cost):.9e} (float32 dense {float(first.cost):.9e}, cg {float(cg.cost):.9e}); other "
+          f"float32 solves' max|poses - poses_f64|: " + ", ".join(
+              f"{name} {gap:.3e} ({'rejected' if gap > PGO_F64_BOUND else 'inside'})" for name, gap in worse.items()))
+    for name, res in rows.items():
+        if not _f64_gap(res.poses, ref) <= PGO_F64_BOUND:
+            raise AssertionError(f"PGO: the float32 {name} solve is {_f64_gap(res.poses, ref)} from the float64 "
+                                 f"optimum (bound {PGO_F64_BOUND})")
+    if not (worse["drifted start, full solve"] <= PGO_F64_BOUND < worse["drifted start, one outer iteration"]):
+        raise AssertionError(f"PGO: from the drifted start the check holds {worse}")
+    return cg
 
 
 def surface_times(scans, dev):
@@ -2181,6 +2272,7 @@ def run_fixed_lag(scans, gt, dev):
     """scan_slam_fixed_lag over the first FIXED_LAG_SCANS scans (window
     FIXED_LAG_WINDOW, icp, the bench's registrar settings)."""
     seq = [sc.to(dev) for sc in scans[:FIXED_LAG_SCANS]]
+    n_captures = len(device_loop.CAPTURES)
     with _slam_stages() as (walls, regs, solves):
         _reset_launches()
         torch.cuda.synchronize()
@@ -2192,17 +2284,27 @@ def run_fixed_lag(scans, gt, dev):
     pairs, outer, _, status = _registrations(regs)
     pgo_status = [Status(int(out.status)) for _, _, out in solves]
     ate = float(ate_rmse(poses.double(), gt[:FIXED_LAG_SCANS].double(), align=False))
+    # a layout's graph is captured at its first solve: the windows of 2…W+1
+    # poses, then the window with the marginal prior, replayed every scan
+    captures = [c for c in device_loop.CAPTURES[n_captures:] if c["name"].startswith("pgo_step")]
+    layouts = {tuple(device_loop.key_part(k) for k in pose_graph._layout(g, c, pose_graph._EdgePlan(g)))
+               for g, c, _ in solves}
     print(f"scan_slam_fixed_lag, window {FIXED_LAG_WINDOW}, {len(seq)} scans: wall {wall_s:.4f} s, "
           f"{wall_s / len(seq) * 1e3:.2f} ms a scan; {len(pairs)} registrations; PGO solves {len(solves)} "
-          f"({sum(walls['pgo']):.4f} s, statuses {sorted({s.name for s in pgo_status})}), marginalizations "
-          f"{len(walls['marg'])} ({sum(walls['marg']):.4f} s); K5 {k5}, K6 {k6}; ATE {ate:.6f} m (align=False)")
+          f"({sum(walls['pgo']):.4f} s, statuses {sorted({s.name for s in pgo_status})}, {len(layouts)} layouts, "
+          f"{len(captures)} captures), marginalizations {len(walls['marg'])} ({sum(walls['marg']):.4f} s); K5 {k5}, "
+          f"K6 {k6}; ATE {ate:.6f} m (align=False)")
+    if len(captures) != len(layouts) or len(layouts) >= len(solves):
+        raise AssertionError(f"fixed-lag SLAM: {len(captures)} PGO captures for {len(layouts)} layouts of "
+                             f"{len(solves)} solves")
     if poses.shape != (FIXED_LAG_SCANS, 6) or not torch.isfinite(poses).all():
         raise AssertionError(f"fixed-lag SLAM: poses {tuple(poses.shape)}")
     if Status.NUMERIC_ERROR in status + pgo_status or not ate < SLAM_ATE_BOUND:
         raise AssertionError(f"fixed-lag SLAM: ATE {ate}, statuses {set(status)}, {set(pgo_status)}")
     if len(walls["marg"]) != FIXED_LAG_SCANS - FIXED_LAG_WINDOW or k5 < sum(outer):
         raise AssertionError(f"fixed-lag SLAM: {len(walls['marg'])} marginalizations, K5 {k5}")
-    return dict(wall_s=wall_s, ate=ate, k5=k5, k6=k6)
+    return dict(wall_s=wall_s, ate=ate, k5=k5, k6=k6, pgo_s=sum(walls["pgo"]), pgo_layouts=len(layouts),
+                pgo_captures=len(captures), first_s=pairs[0]["wall"], k6_first_replayed=pairs[0]["k6_replayed"]), solves
 
 
 def _relative(a, b):
@@ -2247,10 +2349,11 @@ def make_ring_graph(n, seed=0, drift=0.03, dtype=torch.float64, device="cpu"):
 
 def run_ring(dev, n, bound):
     """The n-pose ring graph in float32, by CG and by the dense Cholesky;
-    each must end below bound × its start cost."""
+    each must end below bound × its start cost. Returns (a record, the
+    graph, each solver's result)."""
     graph, _ = make_ring_graph(n, RING_SEED, RING_DRIFT, dtype=torch.float32, device=dev)
     start = float(pose_graph.compute_cost(graph))
-    out = {}
+    out, results = {}, {}
     for name, config in RING_CONFIGS.items():
         reads = pose_graph.HOST_READS
         torch.cuda.synchronize()
@@ -2266,11 +2369,149 @@ def run_ring(dev, n, bound):
               f"{out[name]['reads']}, cost {start:.6e} -> {cost:.6e} ({cost / start:.3e} of the start; bound {bound:g})")
         if not np.isfinite(cost) or not cost < bound * start or int(res.status) == Status.NUMERIC_ERROR:
             raise AssertionError(f"PGO ring {n} {name}: cost {start} -> {cost}, {Status(int(res.status)).name}")
-        out[name]["poses"] = res.poses
-    out["max_gap"] = float((out["cg"].pop("poses") - out["dense"].pop("poses")).abs().max())
+        results[name] = res
+    out["max_gap"] = float((results["cg"].poses - results["dense"].poses).abs().max())
     print(f"PGO ring, {n} poses: max|poses cg - poses dense| {out['max_gap']:.3e}")
-    return out
+    return out, graph, results
 
+
+
+def _pgo_timed(fn):
+    """(result, wall s, host reads of the PGO) of fn(), between two
+    synchronisations."""
+    reads = pose_graph.HOST_READS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, pose_graph.HOST_READS - reads
+
+
+def _pgo_loop(graph, config):
+    """(the plan's host reads, the cached StepLoop) of a graph whose layout
+    was solved through its graph."""
+    reads = pose_graph.HOST_READS
+    plan = pose_graph._EdgePlan(graph)
+    reads = pose_graph.HOST_READS - reads
+    key = tuple(device_loop.key_part(p) for p in pose_graph._layout(graph, config, plan))
+    return reads, device_loop._LOOPS[key][0]
+
+
+# Phase 21 profiles a path's solves (graph and eager body) where its eager
+# body takes at most this long: a ring's CG solve runs some 10⁵–10⁶ kernels,
+# whose trace the profiler does not survive on the card.
+PGO_PROFILE_MAX_S = 3.0
+
+
+def run_pgo_device_loop(slam, rings, lag_solves, slam_runs, lag_run, dev):
+    """21: the PGO solves as CUDA-graph replays. Each path's solve through
+    its graph (captured at its layout's first solve, unless the layout
+    cache dropped it since) must equal its step's body run eagerly on the
+    card (``device_loop.eager()``, on the capture's cuSOLVER and cuBLAS
+    routes: ``capturable_linalg``) bit for bit (poses, iterations, status,
+    trace, cost), and read the device only for its edge plan. The paths: the
+    SLAM graph dense and CG, the rings at 300 and 2,000 poses dense and CG
+    (phase 12's solves), and every window solve of phase 11's fixed-lag
+    stream. Reported beside the eager body's: walls, launch calls (graph
+    launches are the replays), captures, each layout's warm-up, capture and
+    instantiation ms and pool bytes; the SLAM solves also against the eager
+    body on PyTorch's default routes (bits shown); for ``scan_slam`` (icp,
+    point2plane, GICP, phase 9) frames/s, the PGO term and the first pair's
+    wall with its replayed K6 launches; and every PGO capture of the run."""
+    graph, config, first, cg = slam
+    paths = [("slam_dense", graph, config, first), ("slam_cg", graph, dataclasses.replace(config, solver="cg"), cg)]
+    for n, (ring_graph, results) in rings.items():
+        paths += [(f"ring{n}_{name}", ring_graph, RING_CONFIGS[name], results[name]) for name in ("dense", "cg")]
+    out = {}
+    for name, g, cfg, earlier in paths:
+        fn = functools.partial(pose_graph.solve_pgo, g, cfg)
+        n0 = len(device_loop.CAPTURES)
+        _, first_s, _ = _pgo_timed(fn)  # the layout's capture, if the cache dropped it
+        captured = len(device_loop.CAPTURES) - n0
+        plan_reads, loop = _pgo_loop(g, cfg)
+        replays = loop.replays
+        res, graph_s, graph_reads = _pgo_timed(fn)
+        replays = loop.replays - replays
+        with device_loop.eager(), capturable_linalg(dev):
+            eager, eager_s, eager_reads = _pgo_timed(fn)
+        same = _same_result(res, eager) and _same_result(res, earlier)
+        row = dict(graph_s=graph_s, eager_s=eager_s, first_s=first_s, captured=captured, replays=replays,
+                   bit_equal=same, iterations=int(res.iterations), status=Status(int(res.status)).name,
+                   reads=dict(plan=plan_reads, loop=graph_reads - plan_reads, eager=eager_reads),
+                   launches={}, device_ms={}, busy={}, capture=loop.stats)
+        if eager_s <= PGO_PROFILE_MAX_S:
+            for side, context in (("graph", contextlib.nullcontext), ("eager", device_loop.eager)):
+                with context(), capturable_linalg(dev):
+                    _, calls, ms, wall = _launch_profile(fn)
+                row["launches"][side], row["device_ms"][side], row["busy"][side] = calls, ms, ms / 1e3 / wall
+        if name.startswith("slam"):
+            with device_loop.eager():
+                row["bit_equal_default_routes"] = _same_result(res, fn())
+        out[name] = row
+        print(f"PGO device loop, {name} (N={g.poses.shape[0]}, {g.poses.dtype}): {row['status']}, iterations "
+              f"{row['iterations']}; first call {first_s:.4f} s ({captured} captures), graph {graph_s:.4f} s, eager "
+              f"body {eager_s:.4f} s; host reads: plan {plan_reads}, loop {graph_reads - plan_reads}, eager "
+              f"{eager_reads}; bit-equal to the eager body and to the earlier solve: {same}"
+              + (f"; on the default routes: {row['bit_equal_default_routes']}" if name.startswith("slam") else ""))
+        stats = loop.stats
+        print(f"  replays {replays}; launch calls "
+              + (" ".join(f"{side} {row['launches'][side]} (device ms {row['device_ms'][side]:.3f}, busy "
+                          f"{row['busy'][side]:.3f})" for side in ("graph", "eager")) if row["launches"] else
+                 f"not profiled (eager body over {PGO_PROFILE_MAX_S:g} s)")
+              + f"; capture: warm-up {stats['warm_ms']:.1f} ms, capture {stats['capture_ms']:.1f} ms, instantiation "
+                f"{stats['instantiate_ms']:.1f} ms, pools {stats['pool_bytes'] / 2**20:.1f} MiB")
+        if not same:
+            raise AssertionError(f"PGO device loop, {name}: the graph's solve differs from its eager body")
+        graph_launches = row["launches"].get("graph", {}).get("cudaGraphLaunch", replays)
+        if graph_reads != plan_reads or not replays == graph_launches == cfg.max_iterations:
+            raise AssertionError(f"PGO device loop, {name}: {graph_reads - plan_reads} host reads in the loop, "
+                                 f"{replays} replays ({graph_launches} graph launches) for {cfg.max_iterations} "
+                                 f"iterations")
+
+    # the fixed-lag stream's window solves, each by its graph and eagerly; a
+    # graph solve that captured (its layout dropped from the cache) is
+    # counted apart from those that only replayed
+    n0 = len(device_loop.CAPTURES)
+    walls = {kind: dict(solves=0, graph=0.0, eager=0.0) for kind in ("captured", "replayed")}
+    reads = dict(loop=0, eager=0)
+    same = True
+    for g, cfg, earlier in lag_solves:
+        n1 = len(device_loop.CAPTURES)
+        res, graph_s, graph_reads = _pgo_timed(functools.partial(pose_graph.solve_pgo, g, cfg))
+        kind = "captured" if len(device_loop.CAPTURES) > n1 else "replayed"
+        plan_reads, _ = _pgo_loop(g, cfg)
+        with device_loop.eager(), capturable_linalg(dev):
+            eager, eager_s, eager_reads = _pgo_timed(functools.partial(pose_graph.solve_pgo, g, cfg))
+        same = same and _same_result(res, eager) and _same_result(res, earlier)
+        walls[kind]["solves"] += 1
+        walls[kind]["graph"] += graph_s
+        walls[kind]["eager"] += eager_s
+        reads["loop"] += graph_reads - plan_reads
+        reads["eager"] += eager_reads
+    out["fixed_lag"] = dict(solves=len(lag_solves), walls=walls, reads=reads, bit_equal=same,
+                            recaptured=len(device_loop.CAPTURES) - n0, stream_layouts=lag_run["pgo_layouts"],
+                            stream_captures=lag_run["pgo_captures"], stream_pgo_s=lag_run["pgo_s"])
+    print(f"PGO device loop, fixed-lag windows ({len(lag_solves)} solves; the stream's own PGO term "
+          f"{lag_run['pgo_s']:.4f} s, {lag_run['pgo_captures']} captures for {lag_run['pgo_layouts']} layouts): "
+          + "; ".join(f"{w['solves']} {kind} by the graph {w['graph']:.4f} s, eager body {w['eager']:.4f} s"
+                      for kind, w in walls.items())
+          + f"; host reads in the loops {reads['loop']}, eager {reads['eager']}; captured again here "
+          f"{len(device_loop.CAPTURES) - n0} (the cache keeps {device_loop.MAX_LOOPS}); bit-equal to the eager "
+          f"bodies and the stream's solves: {same}")
+    if not same or reads["loop"]:
+        raise AssertionError(f"PGO device loop, fixed-lag: bit-equal {same}, {reads['loop']} host reads in the loops")
+
+    for method, run in slam_runs.items():
+        print(f"PGO device loop, scan_slam {method}: frames/s {run['fps']:.2f}, PGO {run['pgo_s']:.4f} s "
+              f"({run['pgo_captures']} captures), first pair {run['first_s']:.4f} s with {run['k6_first_replayed']} "
+              f"K6 launches replayed (its coarse multistart by its graph)")
+    out["scan_slam"] = {m: dict(fps=r["fps"], pgo_s=r["pgo_s"], pgo_captures=r["pgo_captures"], first_s=r["first_s"],
+                                k6_first_replayed=r["k6_first_replayed"]) for m, r in slam_runs.items()}
+    out["captures"] = [c for c in device_loop.CAPTURES if c["name"].startswith("pgo_step")]
+    for c in out["captures"]:
+        print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
+              f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
+    return out
 
 
 def _rel_diff(a, b):
@@ -3063,10 +3304,14 @@ def main():
     for method in ("icp", "point2plane", "gicp"):
         result, graph, config, slam[method] = run_scan_slam(scans, gt, method, dev)
         if method == "icp":
-            pgo_repeat_and_cg(graph, config, result)
+            slam_pgo = (graph, config, result, pgo_repeat_and_cg(graph, config, result))
     k9 = surface_times(scans, dev)
-    lag = run_fixed_lag(scans, gt, dev)
-    ring = {n: run_ring(dev, n, bound) for n, bound in RING_BOUNDS.items()}
+    lag, lag_solves = run_fixed_lag(scans, gt, dev)
+    ring, ring_solves = {}, {}
+    for n, bound in RING_BOUNDS.items():
+        ring[n], *ring_solves[n] = run_ring(dev, n, bound)
+    pgo_loop = run_pgo_device_loop(slam_pgo, ring_solves, lag_solves, slam, lag, dev)
+    del ring_solves, lag_solves
     references = run_reference_problems(dev)
     lm_loop = run_lm_device_loop(cloud, srcs, tgts, scans, gt, dev)
 
@@ -3127,7 +3372,8 @@ def main():
     print(json.dumps({"sharded": dict(linearize_rel=sharded_lin, distributed_icp=dist_icp, ba=ba_sharded,
                                       ba_grouping_s=ba_grouping_s, fleet=fleet_sharded, cg=cg_sharded,
                                       selfcal=selfcal_sharded, two_processes=two)}))
-    print(json.dumps({"examples": examples, "blocked": blocked, "device_loop": device, "lm_device_loop": lm_loop}))
+    print(json.dumps({"examples": examples, "blocked": blocked, "device_loop": device, "lm_device_loop": lm_loop,
+                      "pgo_device_loop": pgo_loop}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -9,17 +9,30 @@ PyTorch counterpart of ``moptimizer_0_tpu.pose_graph``: N absolute poses
   blocks of every edge and one Cholesky factorization a trial;
   ``solver="cg"``: matrix-free, block-Jacobi-preconditioned CG over the
   per-edge blocks;
-* the LM λ/ν/ρ schedule of ``core.solver``, kept branch for branch, as an
-  eager Python loop with one host read per outer iteration and per trial.
+* the LM λ/ν/ρ schedule of ``core.solver``, kept branch for branch, every
+  decision a flag on the device, as in the JAX package's jitted
+  ``while_loop``s: each trial runs under ``device_loop.cond(¬stop)`` and
+  writes its results in place into tensors made before it, and an outer
+  iteration is the body of an ``ops.device_loop.StepLoop``. On CUDA that
+  body is captured once per layout (``_layout``: the config, the shapes and
+  dtypes, n_fixed, the loss by value, the plan's structure) and a solve is
+  max_iterations replays with no host read; its carry holds the poses, λ,
+  the graph's data and the edge plan's tensors, which ``start`` copies in,
+  so graphs of one layout replay one capture. The dense trial's Cholesky
+  and CG's preconditioner inverse run on cuSOLVER there
+  (``ops.small_solve.capturable_linalg``). On the CPU, and inside
+  ``device_loop.eager()``, the same body runs eagerly.
 
 Every sum over a pose's edges goes through an ``ops.segment_sum`` plan made
-once per graph (the edge ends sorted once): no ``index_add_``, whose atomics
+once per solve (the edge ends sorted once): no ``index_add_``, whose atomics
 sum in no fixed order on the card, so two solves of one graph give the same
-bits. ``HOST_READS`` counts the loop's reads of the device.
+bits. ``HOST_READS`` counts the reads of the device by the plans and the
+eager loop.
 
 Gauge: the first ``n_fixed`` poses are held fixed by masking their deltas.
 """
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -28,18 +41,23 @@ import torch
 from torch.func import jacfwd, vmap
 
 from moptimizer_0_tpu_torch.core.prior import marginalize as _marginalize
-from moptimizer_0_tpu_torch.core.solver import Status
+from moptimizer_0_tpu_torch.core.solver import Status, _loss_key
 from moptimizer_0_tpu_torch.lie import se3, so3
+from moptimizer_0_tpu_torch.ops import device_loop
 from moptimizer_0_tpu_torch.ops.pcg import pcg
 from moptimizer_0_tpu_torch.ops.segment_sum import segment_plan, segment_sum
+from moptimizer_0_tpu_torch.ops.small_solve import capturable_linalg
 
 # Reads of the device by the solve loop and the plans (a Python counter).
 HOST_READS = 0
 
 
 def _read(t):
-    """t.tolist(), counted in HOST_READS."""
+    """t.tolist(), counted in HOST_READS; raises inside a CUDA-graph
+    capture, where the device cannot be read."""
     global HOST_READS
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a host read of the device inside a CUDA-graph capture")
     HOST_READS += 1
     return t.tolist()
 
@@ -166,6 +184,22 @@ class _EdgePlan:
         global HOST_READS
         HOST_READS += 2 * (len(self.nodes[0]) + len(self.blocks[0])) + 1
 
+    def leaves(self):
+        """The plan's device tensors: the node levels' (idx, real), the keys,
+        the block levels' (idx, real)."""
+        return [t for level in self.nodes[0] for t in level] + [self.keys] + [
+            t for level in self.blocks[0] for t in level]
+
+    def with_leaves(self, leaves):
+        """This plan's structure with its tensors taken in order from
+        ``leaves``."""
+        it = iter(leaves)
+        plan = copy.copy(self)
+        plan.nodes = ([(next(it), next(it)) for _ in self.nodes[0]], self.nodes[1])
+        plan.keys = next(it)
+        plan.blocks = ([(next(it), next(it)) for _ in self.blocks[0]], self.blocks[1])
+        return plan
+
     def node_sum(self, at_i, at_j):
         """Σ over each pose's edge ends: at_i (E, ...) at edge_i, at_j at
         edge_j → (N, ...)."""
@@ -238,10 +272,11 @@ def _cg_system(graph, r, Ji, Jj, plan):
     )
 
 
-def _pgo_cg_solve(graph, system, lam, free_nodes, config, plan):
+def _pgo_cg_solve(graph, system, lam, free_nodes, config, plan, read):
     """Damped Gauss-Newton step by block-Jacobi-preconditioned CG; returns
-    (δ (N, 6), b (6N)). Stops when ‖res‖ ≤ cg_tol or after cg_iterations,
-    reading the test every ``ops.pcg.CHECK`` iterations."""
+    (δ (N, 6), b (6N)). Stops when ‖res‖ ≤ cg_tol or after cg_iterations:
+    eagerly ``read`` brings the test to the host every ``ops.pcg.CHECK``
+    iterations, in a capture each iteration is an IF node on it."""
     dtype = graph.poses.dtype
     i, j = _ends(graph)
     diag_blocks, b = system["diag_blocks"], system["b"]
@@ -257,7 +292,7 @@ def _pgo_cg_solve(graph, system, lam, free_nodes, config, plan):
     def pre(u):
         return torch.einsum("nij,nj->ni", pre_inv, u) * free_nodes
 
-    x = pcg(mv, -b * free_nodes, pre, config.cg_iterations, config.cg_tol, _read)
+    x = pcg(mv, -b * free_nodes, pre, config.cg_iterations, config.cg_tol, read)
     return x, b.reshape(-1)
 
 
@@ -350,6 +385,166 @@ def _dense_step(H, diag_H, b, lam, free):
     return delta * free
 
 
+def _graph_leaves(graph):
+    """The graph's data besides the poses: the edge ends, measurements and
+    information, and the prior's x_ref, sqrt_info, offset and idx."""
+    leaves = [graph.edge_i, graph.edge_j, graph.measurements, graph.information]
+    if graph.prior is not None:
+        p = graph.prior
+        leaves += [p.x_ref, p.sqrt_info, p.offset, p.idx]
+    return leaves
+
+
+def _with_leaves(graph, poses, leaves):
+    """graph at ``poses`` with its data taken in order from ``leaves``."""
+    edge_i, edge_j, measurements, information, *prior = leaves
+    return dataclasses.replace(
+        graph, poses=poses, edge_i=edge_i, edge_j=edge_j, measurements=measurements, information=information,
+        prior=PGOPrior(*prior) if prior else None,
+    )
+
+
+def _outer_iteration(graph, lam, config, plan, free, read):
+    """One outer LM iteration of ``solve_pgo`` (the JAX package's
+    ``outer_body``): (poses′, λ′, terminal, status, record), all tensors on
+    the poses' device, ``record`` the iteration's trace row (cost, λ, ρ).
+    Each trial runs under ``device_loop.cond(¬stop)`` and writes its
+    results in place into tensors made before it; ``read`` is the eager
+    loop's read of that flag."""
+    dtype, dev = graph.poses.dtype, graph.poses.device
+    eps = torch.full((), torch.finfo(dtype).eps, dtype=dtype, device=dev)
+    sqrt_eps, eight_eps = torch.sqrt(eps), 8 * eps
+    third = torch.full((), 1.0 / 3.0, dtype=dtype, device=dev)
+    N = graph.poses.shape[0]
+    free_nodes = free.reshape(N, 6)
+    poses = graph.poses
+
+    r, Ji, Jj = _linearize(graph)
+    # y0 is the same cost functional as the trial cost yi (prior included)
+    y0 = compute_cost(graph)
+    if config.solver == "cg":
+        system = _cg_system(graph, r, Ji, Jj, plan)
+        diag_H = torch.diagonal(system["diag_blocks"], dim1=-2, dim2=-1).reshape(-1) * free
+    else:
+        H, b = _assemble(graph, r, Ji, Jj, plan)
+        # gauge: the fixed poses' rows and columns zeroed, identity diagonal
+        H = H * free[:, None] * free[None, :]
+        H.diagonal().add_(1.0 - free)
+        b = b * free
+        diag_H = torch.diagonal(H)
+    converged0 = torch.abs(y0) < eight_eps
+    lam = torch.where(lam < 0.0, config.init_lambda_factor * torch.max(torch.abs(diag_H)), lam)
+
+    s = dict(
+        poses=poses.clone(),
+        lam=lam.clone(),
+        nu=torch.full((), 2.0, dtype=dtype, device=dev),
+        rho=torch.full((), torch.nan, dtype=dtype, device=dev),
+        status=torch.full((), int(Status.MAXIMUM_ITERATIONS_REACHED), dtype=torch.int32, device=dev),
+        stop=converged0.clone(),  # converged before the trials: skip them
+        terminal=converged0.clone(),
+    )
+
+    def trial():
+        lam_k, nu_k = s["lam"], s["nu"]
+        if config.solver == "cg":
+            d_nodes, b_cg = _pgo_cg_solve(graph, system, lam_k, free_nodes, config, plan, read)
+            delta = d_nodes.reshape(-1)
+            b_rho = b_cg * free  # the gradient of the ρ denominator
+        else:
+            delta = _dense_step(H, diag_H, b, lam_k, free)
+            b_rho = b
+        poses_i = poses + delta.reshape(N, 6)
+        yi = compute_cost(dataclasses.replace(graph, poses=poses_i))
+        rho = (y0 - yi) / torch.dot(delta, lam_k * delta - b_rho)
+        is_nan = torch.isnan(yi)
+        reject = rho < 0.0  # a NaN ρ falls through to accept
+        small = torch.max(torch.abs(delta)) < sqrt_eps
+        accept = ~is_nan & ~reject
+        term_small = ~is_nan & reject & small
+        retry = ~is_nan & reject & ~small
+
+        status = torch.where(
+            is_nan, int(Status.NUMERIC_ERROR),
+            torch.where(term_small, torch.where(torch.abs(yi) < eight_eps, int(Status.CONVERGED),
+                                                int(Status.SMALL_DELTA)), s["status"]),
+        )
+        terminal = is_nan | term_small
+        if config.rel_cost_tol > 0.0:
+            # yi <= y0 keeps a NaN-ρ acceptance of a rise from CONVERGED
+            at_floor = accept & (yi <= y0) & ((y0 - yi) <= config.rel_cost_tol * torch.abs(y0))
+            terminal = terminal | at_floor
+            status = torch.where(at_floor, int(Status.CONVERGED), status)
+        gain = torch.maximum(third, 1.0 - (2.0 * rho - 1.0) ** 3)
+        s["poses"].copy_(torch.where(accept, poses_i, s["poses"]))
+        s["lam"].copy_(torch.where(accept, lam_k * gain, torch.where(retry, nu_k * lam_k, lam_k)))
+        s["nu"].copy_(torch.where(retry, 2.0 * nu_k, nu_k))
+        s["rho"].copy_(rho)
+        s["status"].copy_(status)
+        s["terminal"].copy_(terminal)
+        s["stop"].copy_(accept | is_nan | term_small)
+
+    for _ in range(config.inner_iterations):
+        if not device_loop.cond(~s["stop"], trial, read):
+            break
+
+    status = torch.where(converged0, int(Status.CONVERGED), s["status"]).to(torch.int32)
+    return s["poses"], s["lam"], s["terminal"], status, dict(cost=y0, lam=s["lam"], rho=s["rho"])
+
+
+def _layout(graph, config, plan):
+    """The key of a solve's StepLoop, as the JAX package's jit cache keys
+    ``solve_pgo`` (shapes, with the config static): the config, the dtype,
+    device and shape of the poses, n_fixed, the loss by value, the shapes
+    and dtypes of the graph's other data (the prior's P′ among them) and the
+    plan's host structure (each level's (n_chunks, w), the distinct pose
+    pairs). Two graphs that differ only in their tensors share a key."""
+    leaves = _graph_leaves(graph) + plan.leaves()
+    return ("pgo", config, graph.poses.dtype, graph.poses.device, tuple(graph.poses.shape), graph.n_fixed,
+            _loss_key(graph.loss), graph.prior is not None, len(plan.nodes[0]), len(plan.blocks[0]),
+            tuple((tuple(t.shape), t.dtype) for t in leaves))
+
+
+def _pgo_loop(graph, config, plan):
+    """The StepLoop of ``solve_pgo`` on this graph: on CUDA (outside
+    ``device_loop.eager()``) captured once per layout (``_layout``) and kept,
+    otherwise made anew and run eagerly. Its carry: the poses, λ, the
+    graph's data and the plan's tensors, which ``start`` copies in."""
+    dtype, dev = graph.poses.dtype, graph.poses.device
+    N = graph.poses.shape[0]
+    graph_mode = device_loop.graphs(graph.poses)
+    n_data = len(_graph_leaves(graph))
+
+    def make():
+        free = (torch.arange(6 * N, device=dev) >= 6 * graph.n_fixed).to(dtype)
+        # the body reads every tensor from the carry: its closure keeps the
+        # graph's and the plan's structure, none of their data
+        shell = _with_leaves(graph, None, [None] * n_data)
+        plan_shell = plan.with_leaves([None] * len(plan.leaves()))
+
+        def body(poses, lam, *data):
+            g = _with_leaves(shell, poses, data[:n_data])
+            poses, lam, terminal, status, record = _outer_iteration(
+                g, lam, config, plan_shell.with_leaves(data[n_data:]), free, _read)
+            return (poses, lam, *data), terminal, status, record
+
+        return device_loop.StepLoop(
+            body, _carry(graph, plan), config.max_iterations, dict(cost=dtype, lam=dtype, rho=dtype),
+            Status.MAXIMUM_ITERATIONS_REACHED, graph=graph_mode,
+            name=f"pgo_step {config.solver} N={N} E={graph.edge_i.shape[0]} {str(dtype).removeprefix('torch.')}",
+        )
+
+    if not graph_mode:
+        return make()
+    with capturable_linalg(dev):  # the routes the capture records
+        return device_loop.cached(_layout(graph, config, plan), make)
+
+
+def _carry(graph, plan):
+    lam = torch.full((), -1.0, dtype=graph.poses.dtype, device=graph.poses.device)
+    return (graph.poses, lam, *_graph_leaves(graph), *plan.leaves())
+
+
 def solve_pgo(graph, config=PGOConfig()):
     """Solve the pose graph from graph.poses; returns a PGOResult.
 
@@ -358,7 +553,15 @@ def solve_pgo(graph, config=PGOConfig()):
     ν = 2; up to inner_iterations trials as in ``core.solver`` (NaN cost →
     NUMERIC_ERROR; ρ < 0 with max|δ| < √ε → CONVERGED or SMALL_DELTA, else
     retry with λ ← νλ; otherwise, a NaN ρ included, accept). The terminal
-    iteration is not counted."""
+    iteration is not counted.
+
+    On CUDA an outer iteration is one replay of a CUDA graph captured once
+    per layout (``_layout``): a solve builds its edge plan (2 host reads a
+    level, and 1), then enqueues max_iterations replays and reads nothing
+    back. On the CPU, and inside ``device_loop.eager()``, the same step runs
+    eagerly, reading ¬done once an outer iteration, ¬stop before each trial
+    and once more when the trials stopped, and CG's test every 32
+    iterations."""
     if graph.prior is not None and config.solver == "cg":
         raise ValueError(
             "PGOPrior is supported by the dense solver; use "
@@ -367,102 +570,15 @@ def solve_pgo(graph, config=PGOConfig()):
         )
     if config.solver not in ("dense", "cg"):
         raise ValueError(f"unknown PGO solver {config.solver!r}")
-    dtype = graph.poses.dtype
-    dev = graph.poses.device
-    eps = torch.full((), torch.finfo(dtype).eps, dtype=dtype, device=dev)
-    sqrt_eps, eight_eps = torch.sqrt(eps), 8 * eps
-    third = torch.full((), 1.0 / 3.0, dtype=dtype, device=dev)
-    N = graph.poses.shape[0]
-    n_it = config.max_iterations
     plan = _EdgePlan(graph)
-
-    free = (torch.arange(6 * N, device=dev) >= 6 * graph.n_fixed).to(dtype)
-    free_nodes = free.reshape(N, 6)
-    trace = {k: torch.full((n_it,), torch.nan, dtype=dtype, device=dev) for k in ("cost", "lam", "rho")}
-
-    poses = graph.poses
-    lam = torch.full((), -1.0, dtype=dtype, device=dev)
-    status = Status.MAXIMUM_ITERATIONS_REACHED
-    it = 0
-    while it < n_it:
-        graph_c = dataclasses.replace(graph, poses=poses)
-        r, Ji, Jj = _linearize(graph_c)
-        # y0 is the same cost functional as the trial cost yi (prior included)
-        y0 = compute_cost(graph_c)
-        if config.solver == "cg":
-            system = _cg_system(graph_c, r, Ji, Jj, plan)
-            diag_H = torch.diagonal(system["diag_blocks"], dim1=-2, dim2=-1).reshape(-1) * free
-        else:
-            H, b = _assemble(graph_c, r, Ji, Jj, plan)
-            # gauge: the fixed poses' rows and columns zeroed, identity diagonal
-            H = H * free[:, None] * free[None, :]
-            H.diagonal().add_(1.0 - free)
-            b = b * free
-            diag_H = torch.diagonal(H)
-        converged0 = torch.abs(y0) < eight_eps
-        lam = torch.where(lam < 0.0, config.init_lambda_factor * torch.max(torch.abs(diag_H)), lam)
-        converged0 = _read(converged0)
-
-        nu = torch.full((), 2.0, dtype=dtype, device=dev)
-        rho = torch.full((), torch.nan, dtype=dtype, device=dev)
-        status = Status.MAXIMUM_ITERATIONS_REACHED
-        terminal = converged0
-        for _ in range(0 if converged0 else config.inner_iterations):
-            if config.solver == "cg":
-                d_nodes, b_cg = _pgo_cg_solve(graph_c, system, lam, free_nodes, config, plan)
-                delta = d_nodes.reshape(-1)
-                b_rho = b_cg * free  # the gradient of the ρ denominator
-            else:
-                delta = _dense_step(H, diag_H, b, lam, free)
-                b_rho = b
-            poses_i = poses + delta.reshape(N, 6)
-            yi = compute_cost(dataclasses.replace(graph, poses=poses_i))
-            rho = (y0 - yi) / torch.dot(delta, lam * delta - b_rho)
-            flags = [
-                torch.isnan(yi),
-                rho < 0.0,  # a NaN ρ falls through to accept
-                torch.max(torch.abs(delta)) < sqrt_eps,
-                torch.abs(yi) < eight_eps,
-            ]
-            if config.rel_cost_tol > 0.0:
-                # yi <= y0 keeps a NaN-ρ acceptance of a rise from CONVERGED
-                flags.append((yi <= y0) & ((y0 - yi) <= config.rel_cost_tol * torch.abs(y0)))
-            flags = _read(torch.stack(flags))
-            is_nan, reject, small, cost_small = flags[:4]
-            accept = not is_nan and not reject
-            term_small = not is_nan and reject and small
-            retry = not is_nan and reject and not small
-
-            if is_nan:
-                status = Status.NUMERIC_ERROR
-            elif term_small:
-                status = Status.CONVERGED if cost_small else Status.SMALL_DELTA
-            terminal = is_nan or term_small
-            if config.rel_cost_tol > 0.0 and accept and flags[4]:
-                terminal = True
-                status = Status.CONVERGED
-            if accept:
-                poses = poses_i
-                lam = lam * torch.maximum(third, 1.0 - (2.0 * rho - 1.0) ** 3)
-            elif retry:
-                lam = nu * lam
-                nu = 2.0 * nu
-            if accept or is_nan or term_small:
-                break
-        if converged0:
-            status = Status.CONVERGED
-        trace["cost"][it] = y0
-        trace["lam"][it] = lam
-        trace["rho"][it] = rho
-        # the terminal iteration is not counted as executed
-        if terminal:
-            break
-        it += 1
-
+    loop = _pgo_loop(graph, config, plan)
+    loop.start(_carry(graph, plan))
+    loop.solve(config.max_iterations, _read)
+    poses = loop.carry[0].clone()
     return PGOResult(
         poses=poses,
-        status=torch.full((), int(status), dtype=torch.int32, device=dev),
-        iterations=torch.full((), it, dtype=torch.int32, device=dev),
+        status=loop.status.clone(),
+        iterations=loop.it.clone(),
         cost=compute_cost(dataclasses.replace(graph, poses=poses)),
-        trace=trace,
+        trace={k: v.clone() for k, v in loop.trace.items()},
     )

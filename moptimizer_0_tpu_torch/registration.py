@@ -405,8 +405,9 @@ class PairwiseRegistrar:
       yaw starts (8 with "auto" when a gate is set) solved batched, all B
       starts searched against the shared target in one expansion search per
       pass (K6 on the card), the lowest cost not in NUMERIC_ERROR kept; or,
-      with ``coarse_multistart=0``, one start. The batched solve runs its
-      eager body (``_coarse_multistart_seed``);
+      with ``coarse_multistart=0``, one start. On the card the batched
+      solve replays its layout's graph, K6 inside it
+      (``_coarse_multistart_seed``);
     * grid search (``nn_backend="grid"``, or "auto" on a gated target of
       GRID_AUTO_MIN_TARGETS points or more), with a capacity policy: the
       first pair's adaptive build learns (S, K, cell occupancy), and later
@@ -557,12 +558,7 @@ class PairwiseRegistrar:
         Always point-to-point."""
         x0s = _yaw_starts(src, tgt_cloud, self.coarse_multistart)
         blk = _icp_fleet_block(src, tgt_cloud)
-        # eagerly, on PyTorch's default routes: its batched Cholesky solves
-        # go to MAGMA, which a graph cannot capture, and a capturable route
-        # (cuSOLVER) gives other bits, which would change every pose of a
-        # stream downstream (a stream's first pair only)
-        with device_loop.eager():
-            res = levenberg_marquardt_batched(problem(blk), x0s, self.config, batch_data=False)
+        res = levenberg_marquardt_batched(problem(blk), x0s, self.config, batch_data=False)
         cost = torch.where(res.status == int(Status.NUMERIC_ERROR), torch.inf, res.cost)
         return torch.index_select(res.x, 0, torch.argmin(cost).reshape(1))[0]  # no host read
 
