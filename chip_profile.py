@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_profile.py [--path fleet|icp|pair|gicp|pgo] [--out DIR]
+    python3 chip_profile.py [--path fleet|icp|pair|gicp|pgo|ring_cg|sharded_cg] [--out DIR]
 
 ``--path fleet`` (the default) builds the expansion kernel K6, makes the
 64-lane fachada fleet of ``chip_smoke.py`` and runs one pass of
@@ -31,7 +31,20 @@ graph in float32, profiled twice: by its CUDA graph (five replays), then
 by its step's body run eagerly on the capture's routes
 (``device_loop.eager()``, ``capturable_linalg``), split between the edge
 plans, the per-edge linearization, the 12,000² assembly, the costs and the
-damped Cholesky solves.
+damped Cholesky solves. ``--path ring_cg`` builds no kernel; it repeats
+one step of ``chip_smoke.py``'s phase 21 alone: the 300-pose ring's CG
+``solve_pgo`` (float32, its graph ~1,200 PCG IF nodes a step) solved once
+to capture, then profiled by its graph and by its eager body as
+``chip_smoke._launch_profile`` reads the profiler (raw events), each
+profile announced before it starts, so that a fault (whose Python stack
+``faulthandler`` prints) shows which one it hit. ``--path sharded_cg``
+builds no kernel; it repeats ``chip_smoke.py``'s phase 22 profiles alone:
+the headline BA (O = 500k, C = 200, L = 50k, float32) by the CG engine
+with its observations over 4 shards, then the self-calibration from
+5(c)'s wrong intrinsics over 2, each solved twice by its graph (the
+capture, then the reference bits), then profiled three times by its graph
+and by its eager body, every profiled solve's result held to the
+reference bit for bit, and solved once more unprofiled.
 Prints the card, those host times and the traced one, the device time and busy share, the kernel
 launches and host syncs, the search kernel's share of device time and the
 kernels by device time, and writes the chrome trace to DIR (default
@@ -39,6 +52,9 @@ kernels by device time, and writes the chrome trace to DIR (default
 """
 
 import argparse
+import contextlib
+import faulthandler
+import functools
 import re
 import subprocess
 import time
@@ -49,7 +65,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke as cs
-from moptimizer_0_tpu_torch import pose_graph, registration
+from moptimizer_0_tpu_torch import ba, ba_intrinsics, pose_graph, registration
 from moptimizer_0_tpu_torch.core import linearize as core_linearize
 from moptimizer_0_tpu_torch.core import solver
 from moptimizer_0_tpu_torch.core.solver import LMConfig
@@ -59,6 +75,8 @@ from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.ops import device_loop, grid_nn
 from moptimizer_0_tpu_torch.ops.small_solve import capturable_linalg
 from moptimizer_0_tpu_torch.registration import PairwiseRegistrar, icp, icp_batched
+
+faulthandler.enable()
 
 
 def fleet_step(cloud):
@@ -108,6 +126,52 @@ def slam_pair(cloud):
 def gicp_pair(cloud):
     """One steady-state GICP pair of the SLAM sequence, searched by K5."""
     return _steady_pair(cloud, method="gicp")
+
+
+def ring_cg(dev):
+    """chip_smoke.py phase 21's profile of the 300-pose ring's CG solve, by
+    its graph and by its eager body (``chip_smoke._launch_profile``)."""
+    n = min(cs.RING_BOUNDS)
+    graph, _ = cs.make_ring_graph(n, cs.RING_SEED, cs.RING_DRIFT, dtype=torch.float32, device=dev)
+
+    def solve():
+        return pose_graph.solve_pgo(graph, cs.RING_CONFIGS["cg"])
+
+    t0 = time.perf_counter()
+    solve()
+    torch.cuda.synchronize()
+    print(f"ring {n} CG: first solve (capture) {time.perf_counter() - t0:.3f} s", flush=True)
+    for side, context in (("graph", contextlib.nullcontext), ("eager body", device_loop.eager)):
+        print(f"ring {n} CG: profiling its {side} (raw events) ...", flush=True)
+        with context(), capturable_linalg(dev):
+            _, calls, ms, wall = cs._launch_profile(solve)
+        print(f"ring {n} CG, {side}: launch calls {calls}, device ms {ms:.3f}, wall {wall:.3f} s, busy "
+              f"{ms / 1e3 / wall:.3f}", flush=True)
+
+
+def sharded_cg(dev):
+    """chip_smoke.py phase 22's profiles of the observation-sharded CG and
+    self-calibration graphs, each profiled solve held to the unprofiled
+    graph solve's bits."""
+    prob = ba.make_ba_problem(cs.BA_O, cs.BA_C, cs.BA_L, seed=cs.SEED, dtype=torch.float32, device=dev)
+    cases = (
+        ("CG over 4 shards", functools.partial(ba.solve_ba, cs._observation_sharded(prob, cs.make_mesh(4)))),
+        ("self-cal over 2 shards", functools.partial(
+            ba_intrinsics.solve_ba_selfcal, cs._observation_sharded(cs._selfcal_start(prob), cs.make_mesh(2)))),
+    )
+    for name, solve in cases:
+        solve()
+        ref = solve()
+        torch.cuda.synchronize()
+        for k in range(3):
+            for side, context in (("graph", contextlib.nullcontext), ("eager body", device_loop.eager)):
+                print(f"{name}: profiling its {side} ({k + 1} of 3) ...", flush=True)
+                with context():
+                    out, calls, ms, wall = cs._launch_profile(solve)
+                print(f"{name}, {side} ({k + 1} of 3): launch calls {calls}, device ms {ms:.3f}, wall {wall:.3f} s, "
+                      f"busy {ms / 1e3 / wall:.3f}, bit-equal to the unprofiled graph solve "
+                      f"{cs._same_result(out, ref)}", flush=True)
+        print(f"{name}: a graph solve after the profiles bit-equal {cs._same_result(solve(), ref)}", flush=True)
 
 
 def pgo_solve(cloud):
@@ -174,6 +238,9 @@ PATHS = {
     "pair": ("one SLAM grid pair", slam_pair, None, STAGES),
     "gicp": ("one SLAM GICP pair", gicp_pair, k_nn, GICP_STAGES),
     "pgo": (f"{PGO_ITERATIONS} outer iterations of the 2,000-pose ring's dense PGO", pgo_solve, None, PGO_STAGES),
+    "ring_cg": ("the 300-pose ring's CG PGO, by its graph and its eager body", None, None, None),
+    "sharded_cg": ("the observation-sharded CG and self-cal graphs, profiled and held to their bits", None, None,
+                   None),
 }
 
 
@@ -189,6 +256,9 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     print(smi[0])
+    if args.path in ("ring_cg", "sharded_cg"):
+        (ring_cg if args.path == "ring_cg" else sharded_cg)(torch.device("cuda", 0))
+        return
     what, make, kernel, stages = PATHS[args.path]
     if kernel is not None:
         build.build(kernel.NAME, kernel.SOURCES)

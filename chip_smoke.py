@@ -91,12 +91,14 @@ prints no result):
     ``sharded_compute_cost`` of the fachada point2point block over 1, 2 and
     4 shards (4 pads) against the unsharded ones, then
     ``distributed_levenberg_marquardt`` over request A's ICP block over 2
-    and 6 shards: x to 2e-3 of the truth and to 1e-5 of request A, K5 once
-    per shard per outer iteration; (b) ``solve_ba_dense_sharded`` on the
+    and 6 shards (one block: its graph captured once a shard count): x to
+    2e-3 of the truth and to 1e-5 of request A, K5 replayed once per shard
+    per outer iteration; (b) ``solve_ba_dense_sharded`` on the
     phase-5 instance over 2 shards (phase 5's segmented grid, flattened) and
     4: the χ² band, fixed cameras unmoved, the final cost within 1e-4 of
-    phase 5's, K11 once per shard per S build, a second 4-shard solve bit
-    for bit, and one shard's K11 timed; (c) ``icp_batched`` over 4 shards of
+    phase 5's, K11 replayed once per shard per S build, a second 4-shard
+    solve (a new mesh, ``grouped=None``) replaying the first's graph bit for
+    bit, and one shard's K11 timed; (c) ``icp_batched`` over 4 shards of
     phase 6's fleet: every lane within 1e-5 of phase 6's (bit-equality
     reported), K6 once per shard per pass, B = 62 refused;
 15. two processes on the one card over a local gloo group (this script run
@@ -116,13 +118,13 @@ prints no result):
     counted and timed, and ``engine="dense"`` refused;
 16. (run before 15) the observation-sharded CG engine in one process:
     ``solve_ba`` on the phase-5 instance with ``cam_idx``, ``pt_idx`` and
-    ``pixels`` as ``GlobalArray``s over 2 and 4 shards (4 twice, bit-equal),
+    ``pixels`` as ``GlobalArray``s over 2 and 4 shards (4 twice, bit-equal,
+    the repeat replaying the first solve's graph with no host read),
     held to phase 5(a)'s unsharded CG solve (the first three outer
     iterations' cost and cost_new within 1e-5, the final cost within 1e-5
     and within ±1% of the χ² floor, fixed cameras unmoved, no K11), and the
     O=1M, C=4,000 instance over 4 shards held so to phase 5(b)'s routed
-    solve; walls, host reads, mesh reductions, and a PCG iteration's ms and
-    reductions;
+    solve; walls, host reads, and a PCG iteration's ms and reductions;
 17. the six examples of ``moptimizer_0_tpu_torch.examples`` through their
     ``main()`` at the JAX scripts' sizes, with their asserts (the curve to
     its minimum, SciPy's three minima, the ICP transform to 2e-3, the fleet,
@@ -143,8 +145,8 @@ prints no result):
     within 1 px of the true ones, fixed cameras unmoved, no kernel launched,
     both processes bit-equal; the status reported (a NaN trial at the
     float32 floor ends a solve NUMERIC_ERROR, as in the JAX package); walls
-    beside 5(c)'s, host reads, mesh reductions and, across processes, the
-    all-reduces of a solve;
+    beside 5(c)'s, host reads and, across processes, the all-reduces of a
+    solve;
 19. (run after 5) the BA steps as CUDA graphs: on the headline, the CG,
     dense and self-calibrating solves through their graphs (``host_loop``
     False and True) must equal their step bodies run eagerly on the card
@@ -180,11 +182,25 @@ prints no result):
     fixed-lag stream's captures, one a layout (the windows of 2…9 poses,
     then the window with its marginal prior); and for ``scan_slam`` (icp,
     point2plane, GICP) frames/s, the PGO term and the first pair's wall
-    with its replayed K6 launches.
+    with its replayed K6 launches;
+22. (run after 14, 16 and 18, before 15) the one-process sharded solves as
+    CUDA graphs: the distributed ICP over 2 and 6 shards, the sharded dense
+    BA over 2 and 4, the observation-sharded CG over 2 and 4 and the O=1M
+    instance over 4, and the sharded self-calibration over 2 and 4, each
+    through its graph and through its step's body run eagerly on the card:
+    bit-equal (x or cameras, points and intrinsics, iterations, status,
+    trace), no host read in the loop (the self-calibration one an outer
+    iteration), max_iterations graph launches a solve (the
+    self-calibration one an outer iteration run), K5's replayed launches
+    shards × outer iterations and K11's shards × S builds, each equal to the
+    eager body's; walls, the eager body's mesh reductions, launch calls,
+    device ms and busy share, each capture's warm-up, capture and
+    instantiation ms and pool bytes, and ``torch.cuda.max_memory_reserved()``.
+    Phase 15's processes (a mesh across processes) must capture nothing.
 
-Every LM, BA and PGO solve of an unsharded problem runs its step graph
-(outside phases 19–21's eager runs), the registrar's coarse multistart
-too: the launches of K5, K6 and K11 there are
+Every LM, BA and PGO solve runs its step graph (outside phases 19–22's
+eager runs), the registrar's coarse multistart and every sharded solve of
+one process too (phase 15's processes run the eager loop): the launches of K5, K6 and K11 there are
 counted on the card (``replayed``), and a capture's warm-up launches each
 kernel of the step once more, eagerly. The dense-BA solve runs twice and
 must repeat itself bit for bit.
@@ -204,6 +220,7 @@ before the last is a JSON object describing each kernel; the last is
 import argparse
 import contextlib
 import dataclasses
+import faulthandler
 import functools
 import hashlib
 import inspect
@@ -276,6 +293,10 @@ from moptimizer_0_tpu_torch.registration import (
 )
 from moptimizer_0_tpu_torch.registration import gicp as gicp_solve
 from moptimizer_0_tpu_torch.utils.pointcloud import load_txt_cloud
+
+# a fault in native code (a kernel's binding, the profiler) prints the
+# Python stack of every thread before the process dies
+faulthandler.enable()
 
 ROOT = Path(__file__).resolve().parent
 FACHADA = ROOT / "tests" / "data" / "fachada.txt"
@@ -2553,38 +2574,44 @@ def run_distributed_icp(cloud, single):
     single-device request."""
     tgt = _transformed(cloud, X_A, np.random.default_rng(SEED + 1))
     x0 = _centroid_seed(cloud, tgt)
-    out = {}
+    blk = icp_block(cloud, tgt)  # one update hook: a layout a shard count
+    out, solves = {}, {}
     for n in DIST_ICP_SHARDS:
-        mesh = make_mesh(n)
+        solves[n] = functools.partial(distributed_levenberg_marquardt, problem(blk), x0, make_mesh(n), _icp_config())
         _reset_launches()
+        n0 = len(device_loop.CAPTURES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = distributed_levenberg_marquardt(problem(icp_block(cloud, tgt)), x0, mesh, _icp_config())
+        res = solves[n]()
         x = res.x.cpu()
         wall_s = time.perf_counter() - t0
-        launches = k_nn.launches()
+        launches, replayed, captured = k_nn.launches(), k_nn.replayed(), len(device_loop.CAPTURES) - n0
         outer = int(torch.isfinite(res.trace["cost"]).sum())
         err = float((x.double() - torch.tensor(X_A, dtype=torch.float64)).abs().max())
         dx = float((x - single.x.cpu()).abs().max())
         status = Status(int(res.status))
-        print(f"distributed ICP over {n} shards: wall {wall_s:.4f} s, outer iterations {outer}, status "
-              f"{status.name}, K5 launches {launches} ({n} x {outer}), max|x - x_true| {err:.3e}, max|x - x_single| "
-              f"{dx:.3e} (bound {DIST_ICP_X_TOL:g})")
+        print(f"distributed ICP over {n} shards: wall {wall_s:.4f} s ({captured} captures), outer iterations {outer}, "
+              f"status {status.name}, K5 launches {launches} ({replayed} replayed, {n} x {outer}), max|x - x_true| "
+              f"{err:.3e}, max|x - x_single| {dx:.3e} (bound {DIST_ICP_X_TOL:g})")
         if status == Status.NUMERIC_ERROR or not torch.isfinite(x).all() or err > X_TOL:
             raise AssertionError(f"distributed ICP over {n} shards: {status.name}, error {err}")
         if not dx <= DIST_ICP_X_TOL:
             raise AssertionError(f"distributed ICP over {n} shards differs from the single request by {dx}")
-        if launches != n * outer or launches == 0 or k_expand.launches() or k_schur.launches():
-            raise AssertionError(f"distributed ICP over {n} shards: K5 launched {launches} times for {n} x {outer}")
-        out[n] = dict(wall_s=wall_s, outer=outer, launches=launches, dx=dx)
-    return out
+        # a capture's warm-up searches once a shard, eagerly
+        if replayed != n * outer or launches - replayed not in (0, n * captured) or k_expand.launches() \
+                or k_schur.launches():
+            raise AssertionError(f"distributed ICP over {n} shards: K5 launched {launches} times ({replayed} "
+                                 f"replayed) for {n} x {outer}")
+        out[n] = dict(wall_s=wall_s, captured=captured, outer=outer, launches=launches, replayed=replayed, dx=dx)
+    return out, solves
 
 
-def _solve_sharded(prob, mesh, **kw):
-    """solve_ba_dense_sharded as a user calls it: (result, cost, wall s)."""
+def _solve_sharded(solve):
+    """solve(), a solve_ba_dense_sharded as a user calls it: (result, cost,
+    wall s)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = ba_dense.solve_ba_dense_sharded(prob, mesh, **kw)
+    res = solve()
     cost = float(res.cost)
     return res, cost, time.perf_counter() - t0
 
@@ -2597,7 +2624,9 @@ def check_shard_k11(prob, grouped, n):
     Shard 0's build timed by CUDA events. Returns (ms, slot pairs, the
     largest max|ΔS_corr| against the plain version)."""
     worst = 0.0
-    for j, (shard, pts) in enumerate(ba_dense._shard_layout(prob, make_mesh(n), grouped, n)):
+    mesh = make_mesh(n)
+    layout = zip(ba_dense._shard_grids(prob, mesh, grouped, n), ba_dense._shard_points(prob.points, mesh, n))
+    for j, (shard, pts) in enumerate(layout):
         _, V, W, _, _, _ = ba_dense._linearize_and_blocks(prob.camera_params, pts, prob.intrinsics, shard, None)
         Linv, _ = ba_dense._damped_landmarks(V, torch.full((), 1e-4, device=V.device))
         G, segments = fold_segments(W, Linv, shard.views)
@@ -2648,10 +2677,14 @@ def run_ba_sharded(prob, grouped, dense_res):
     single_k = ba_dense.group_by_landmark(prob)
     grouping_s = time.perf_counter() - t0
     print(f"sharded dense BA: the solve's own host grouping (one K, landmark order) takes {grouping_s:.4f} s")
+    solves = {}
     for n in SHARDED_BA_SHARDS:
+        solves[n] = functools.partial(ba_dense.solve_ba_dense_sharded, prob, make_mesh(n),
+                                      **(dict(grouped=grouped) if n == 2 else {}))
         _reset_launches()
-        res, cost, wall_s = _solve_sharded(prob, make_mesh(n), **(dict(grouped=grouped) if n == 2 else {}))
-        launches = k_schur.launches()
+        n0 = len(device_loop.CAPTURES)
+        res, cost, wall_s = _solve_sharded(solves[n])
+        launches, replayed, captured = k_schur.launches(), k_schur.replayed(), len(device_loop.CAPTURES) - n0
         builds = sum(res.trace["trials"].tolist())
         run = int(torch.isfinite(res.trace["cost"]).sum())
         costs = res.trace["cost"][:run].tolist() + [cost]
@@ -2659,7 +2692,8 @@ def run_ba_sharded(prob, grouped, dense_res):
         early = _early_gap(_early_costs(res.trace), dense_early)
         status = Status(int(res.status))
         print(f"sharded dense BA over {n} shards{' (phase 5 segmented grid, flattened)' if n == 2 else ''}: wall "
-              f"{wall_s:.4f} s, outer iterations {run}, S builds {builds}, K11 launches {launches} ({n} x {builds}), "
+              f"{wall_s:.4f} s ({captured} captures), outer iterations {run}, S builds {builds}, K11 launches {launches} "
+              f"({replayed} replayed, {n} x {builds}), "
               f"status {status.name}, final cost {cost:.6e} ({(cost / floor - 1) * 100:+.4f}% of the chi2 floor; "
               f"{rel:.3e} from solve_ba_dense's {dense_cost:.6e}, bound {SHARDED_BA_COST_RTOL:g}); first "
               f"{SHARDED_BA_TRACE_ITERS} outer iterations' cost and cost_new {early:.3e} from its (bound {BA_COST_RTOL:g})")
@@ -2674,23 +2708,33 @@ def run_ba_sharded(prob, grouped, dense_res):
         if not early <= BA_COST_RTOL:
             raise AssertionError(f"sharded BA over {n} shards: the first iterations' costs are {early} from "
                                  "solve_ba_dense's")
-        if launches != n * builds or launches == 0 or k_nn.launches() or k_expand.launches():
-            raise AssertionError(f"sharded BA over {n} shards: K11 launched {launches} times for {n} x {builds}")
-        out[n] = dict(wall_s=wall_s, outer=run, builds=builds, launches=launches, cost=cost, rel_dense=rel,
-                      early_rel_dense=early)
+        # a capture's warm-up runs every trial of a step once, eagerly
+        warm = n * ba_dense.DenseBAConfig().inner_iterations * captured
+        if replayed != n * builds or launches - replayed != warm or k_nn.launches() or k_expand.launches():
+            raise AssertionError(f"sharded BA over {n} shards: K11 launched {launches} times ({replayed} replayed) "
+                                 f"for {n} x {builds}")
+        out[n] = dict(wall_s=wall_s, captured=captured, outer=run, builds=builds, launches=launches,
+                      replayed=replayed, cost=cost, rel_dense=rel, early_rel_dense=early)
         results[n] = res
-    again, _, wall_s = _solve_sharded(prob, make_mesh(4))
+    # a new mesh of the same 4 shards, grouped=None: the loop of the first
+    # solve replays (the grouping is kept with it)
+    _reset_launches()
+    n0 = len(device_loop.CAPTURES)
+    again, _, wall_s = _solve_sharded(functools.partial(ba_dense.solve_ba_dense_sharded, prob, make_mesh(4)))
     same = _same_bits(again, results[4])
-    print(f"sharded dense BA over 4 shards again: wall {wall_s:.4f} s; trials, cost trace, cameras and points "
-          f"bit-equal: {same}")
-    if not same:
-        raise AssertionError("sharded dense BA: a second 4-shard solve differs from the first")
+    captured = len(device_loop.CAPTURES) - n0
+    print(f"sharded dense BA over 4 shards again: wall {wall_s:.4f} s, {captured} captures, K11 launches "
+          f"{k_schur.launches()} ({k_schur.replayed()} replayed); trials, cost trace, cameras and points bit-equal: "
+          f"{same}")
+    if not same or captured or k_schur.launches() != k_schur.replayed():
+        raise AssertionError(f"sharded dense BA: a second 4-shard solve differs from the first ({same}) or "
+                             f"captured again ({captured})")
     out[4]["repeat_wall_s"] = wall_s
     for n in SHARDED_BA_SHARDS:
         ms, pairs, err = check_shard_k11(prob, single_k, n)
         out[n].update(k11_shard_ms=ms, k11_shard_err=err)
         print(f"  K11 of one of {n} shards ({pairs} slot pairs): {ms:.4f} ms an S build (CUDA events)")
-    return out, results[4], grouping_s
+    return out, results[4], grouping_s, solves
 
 
 def run_fleet_sharded(srcs, tgts, fleet, x_true):
@@ -2767,56 +2811,65 @@ def run_ba_cg_sharded(prob, cg_res, big, big_res):
     """16: ``solve_ba`` (the CG engine) with the observations sharded over a
     mesh in one process: the headline over 2 and 4 shards, and again over 4
     (bit-equal), held to phase 5(a)'s unsharded CG solve; the O=1M, C=4,000
-    instance over 4 shards, held to phase 5(b)'s routed CG solve. Returns
-    ({shards or "big": numbers}, the 4-shard headline result)."""
-    out, results = {}, {}
+    instance over 4 shards, held to phase 5(b)'s routed CG solve. Each
+    sharded problem's first solve captures its step; the 4-shard repeat
+    solves the same problem and must replay. Returns ({shards or "big":
+    numbers}, the 4-shard headline result, {shards or "big": the sharded
+    problem})."""
+    out, results, problems = {}, {}, {}
     cases = [(n, prob, cg_res, _chi2_floor(BA_O, BA_C, BA_L)) for n in SHARDED_CG_SHARDS]
     cases.append(("big", big, big_res, _chi2_floor(BA_CG_O, BA_CG_C, BA_CG_L)))
     for key, p, single, floor in cases:
         n = SHARDED_CG_BIG_SHARDS if key == "big" else key
-        sp = _observation_sharded(p, make_mesh(n))
-        reductions = mesh_module.REDUCTIONS
+        sp = problems[key] = _observation_sharded(p, make_mesh(n))
+        n0 = len(device_loop.CAPTURES)
         res, cost, wall_s, reads = _solve_cg(sp, engine="cg")
-        reductions = mesh_module.REDUCTIONS - reductions
+        captured = len(device_loop.CAPTURES) - n0
         k11 = k_schur.launches()
         rel, early = _hold_sharded_cg(f"sharded CG BA ({key}, {n} shards)", sp, res, cost, single, floor)
         run = int(torch.isfinite(res.trace["cost"]).sum())
         stages = _cg_stage_times(sp)
         O, C, L = p.cam_idx.shape[0], p.camera_params.shape[0], p.points.shape[0]
-        print(f"sharded CG BA O={O} C={C} L={L} over {n} shards: wall {wall_s:.4f} s (unsharded CG solve "
-              f"{float(single.cost):.6e}), outer iterations {run}, trials {sum(res.trace['trials'].tolist())}, "
-              f"host reads {reads}, mesh reductions {reductions}, K11 launches {k11}, status {Status(int(res.status)).name}, final "
+        print(f"sharded CG BA O={O} C={C} L={L} over {n} shards: wall {wall_s:.4f} s ({captured} captures; unsharded "
+              f"CG solve {float(single.cost):.6e}), outer iterations {run}, trials {sum(res.trace['trials'].tolist())}, "
+              f"host reads {reads} (the plans'), K11 launches {k11}, status {Status(int(res.status)).name}, final "
               f"cost {cost:.6e} ({(cost / floor - 1) * 100:+.4f}% of the chi2 floor; {rel:.3e} from the unsharded "
               f"CG's, bound {SHARDED_BA_COST_RTOL:g}); first {SHARDED_BA_TRACE_ITERS} outer iterations' cost and "
               f"cost_new {early:.3e} from its (bound {BA_COST_RTOL:g})")
         print(f"  stages at the start: {_stages_text(stages)}")
-        out[str(key)] = dict(shards=n, wall_s=wall_s, outer=run, reads=reads, reductions=reductions, k11=k11, cost=cost,
+        out[str(key)] = dict(shards=n, wall_s=wall_s, captured=captured, outer=run, reads=reads, k11=k11, cost=cost,
                              vs_floor=cost / floor - 1, rel_unsharded=rel, early_rel_unsharded=early, **stages)
         results[key] = res
-    sp = _observation_sharded(prob, make_mesh(4))
-    again, _, wall_s, _ = _solve_cg(sp, engine="cg")
+    n0 = len(device_loop.CAPTURES)
+    again, _, wall_s, reads = _solve_cg(problems[4], engine="cg")
+    captured = len(device_loop.CAPTURES) - n0
     out["4"]["repeat_k11"] = k_schur.launches()
     if k_schur.launches():
         raise AssertionError("sharded CG BA over 4 shards again: the CG engine launched the schur kernel")
     same = _same_bits(again, results[4])
-    print(f"sharded CG BA over 4 shards again: wall {wall_s:.4f} s; trials, cost trace, cameras and points "
-          f"bit-equal: {same}")
-    if not same:
-        raise AssertionError("sharded CG BA: a second 4-shard solve differs from the first")
+    print(f"sharded CG BA over 4 shards again: wall {wall_s:.4f} s, {captured} captures, host reads {reads}; trials, "
+          f"cost trace, cameras and points bit-equal: {same}")
+    if not same or captured or reads:
+        raise AssertionError(f"sharded CG BA: a second 4-shard solve differs from the first ({same}) or captured "
+                             f"again ({captured}, {reads} host reads)")
     out["4"]["repeat_wall_s"] = wall_s
-    return out, results[4]
+    return out, results[4], problems
 
 
 def run_selfcal_sharded(prob, wrong, single, single_intr, single_early, single_wall_s):
     """18: solve_ba_selfcal with the observations of 5(c)'s start sharded
     over 2 and 4 shards in one process, held to 5(c)'s unsharded solve
     (``_hold_selfcal``, the first outer iterations to BA_COST_RTOL, the final
-    cost to SHARDED_BA_COST_RTOL). Returns {shards: numbers}."""
-    out = {}
+    cost to SHARDED_BA_COST_RTOL). Each sharded problem's first solve
+    captures its step. Returns ({shards: numbers}, {shards: the sharded
+    problem})."""
+    out, problems = {}, {}
     for n in SELFCAL_SHARDS:
         what = f"sharded self-cal BA ({n} shards)"
-        sp = _observation_sharded(wrong, make_mesh(n))
-        res, intr, cost, wall_s, reads, reductions = _solve_selfcal(sp)
+        sp = problems[n] = _observation_sharded(wrong, make_mesh(n))
+        n0 = len(device_loop.CAPTURES)
+        res, intr, cost, wall_s, reads, _ = _solve_selfcal(sp)
+        captured = len(device_loop.CAPTURES) - n0
         k11 = k_schur.launches()
         floor, err = _hold_selfcal(what, sp, res, intr, cost, prob.intrinsics)
         rel = abs(cost / float(single.cost) - 1)
@@ -2824,8 +2877,8 @@ def run_selfcal_sharded(prob, wrong, single, single_intr, single_early, single_w
         d_intr = (intr - single_intr).abs().max().item()
         stages = _selfcal_stage_times(sp)
         print(f"sharded self-calibrating BA O={BA_O} C={BA_C} L={BA_L} over {n} shards: wall {wall_s:.4f} s "
-              f"(unsharded {single_wall_s:.4f} s in this run; 0.82-1.07 s in PR 8), iterations {int(res.iterations)}, "
-              f"host reads {reads}, mesh reductions {reductions}, K11 launches {k11}, status "
+              f"({captured} captures; unsharded {single_wall_s:.4f} s in this run), iterations {int(res.iterations)}, "
+              f"host reads {reads} (the plans' and one an outer iteration), K11 launches {k11}, status "
               f"{Status(int(res.status)).name}, final cost {cost:.6e} ({(cost / floor - 1) * 100:+.4f}% of the chi2 "
               f"floor; {rel:.3e} from the unsharded self-cal's, bound {SHARDED_BA_COST_RTOL:g}); first "
               f"{SHARDED_BA_TRACE_ITERS} outer iterations' cost and cost_new {early:.3e} from its (bound "
@@ -2836,9 +2889,138 @@ def run_selfcal_sharded(prob, wrong, single, single_intr, single_early, single_w
             raise AssertionError(f"{what}: final cost {rel} from the unsharded self-cal's")
         if not early <= BA_COST_RTOL:
             raise AssertionError(f"{what}: the first iterations' costs are {early} from the unsharded self-cal's")
-        out[str(n)] = dict(wall_s=wall_s, iterations=int(res.iterations), reads=reads, reductions=reductions, k11=k11,
+        out[str(n)] = dict(wall_s=wall_s, captured=captured, iterations=int(res.iterations), reads=reads, k11=k11,
                            cost=cost, vs_floor=cost / floor - 1, rel_unsharded=rel, early_rel_unsharded=early,
                            intrinsics_err=err, intrinsics_vs_unsharded=d_intr, **stages)
+    return out, problems
+
+
+# Phase 22 profiles a sharded path's solves (graph and eager body) where its
+# eager body takes at most this long, as phase 21 does, and the graph only
+# where its IF nodes nest two deep (the LM and dense steps: step, trial): on
+# an H100, after some 40 profiler sessions in one process, the profiled
+# replays of the sharded CG graphs (PCG iterations a third level down)
+# showed 0.9-18 ms of device time for a 0.4 s solve, and the next profiled
+# replay, the self-calibration's, ended in an illegal memory access
+# (PERF.md §7; ``chip_profile.py --path sharded_cg`` repeats those profiles
+# alone, where they are complete).
+SHARDED_PROFILE_MAX_S = PGO_PROFILE_MAX_S
+
+
+def _loop_timed(fn):
+    """(result, wall s, host reads of the LM and BA loops) of fn(), between
+    two synchronisations."""
+    reads = solver.HOST_READS + ba.HOST_READS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, solver.HOST_READS + ba.HOST_READS - reads
+
+
+def _latest_loop():
+    """The StepLoop of the layout cache's last lookup."""
+    return next(reversed(device_loop._LOOPS.values()))[0]
+
+
+def run_sharded_device_loop(icp_solves, ba_solves, cg_problems, selfcal_problems, dev):
+    """22: the one-process sharded solves as CUDA graphs. Each path of
+    phases 14, 16 and 18 (the distributed ICP over 2 and 6 shards, the
+    sharded dense BA over 2 and 4, the observation-sharded CG over 2 and 4
+    and the O=1M instance over 4, the sharded self-calibration over 2 and 4)
+    through its graph must equal its step's body run eagerly on the card
+    (``device_loop.eager()``, an LM body inside ``capturable_linalg``, on
+    which the LM step is captured) bit for bit: x or cameras, points and
+    intrinsics, iterations, status and trace. The graph's solve must read
+    the device 0 times (the self-calibration once an outer iteration), make
+    max_iterations replays (the self-calibration one an outer iteration run)
+    and replay K5 (K11) as often as the eager body launches it: shards ×
+    outer iterations (S builds). Reported beside the eager body's: walls,
+    the mesh reductions it makes (a replay's are not counted: the eager
+    body's are the graph's), launch calls, device ms and busy share, and
+    each capture's warm-up, capture and instantiation ms and pool bytes."""
+    cg_cfg = ba.BAConfig()
+    paths = [(f"distributed_icp_{n}", fn, k_nn, n, True) for n, fn in icp_solves.items()]
+    paths += [(f"dense_{n}", fn, k_schur, n, False) for n, fn in ba_solves.items()]
+    paths += [(f"cg_{key}", functools.partial(ba.solve_ba, sp, cg_cfg), None, sp.cam_idx.mesh.size, False)
+              for key, sp in cg_problems.items()]
+    paths += [(f"selfcal_{n}", functools.partial(ba_intrinsics.solve_ba_selfcal, sp, cg_cfg), None, n, False)
+              for n, sp in selfcal_problems.items()]
+    # the layouts the phases before used last first: those the cache still
+    # keeps replay, and a capture drops only a layout already checked here
+    paths.reverse()
+    out, n_start = {}, len(device_loop.CAPTURES)
+    for name, fn, kernel, shards, lm in paths:
+        pcg = name.startswith(("cg", "selfcal"))
+        n0 = len(device_loop.CAPTURES)
+        _, first_s, _ = _loop_timed(fn)  # the layout's capture, unless the cache kept it
+        captured = len(device_loop.CAPTURES) - n0
+        loop = _latest_loop()
+        replays = loop.replays
+        _reset_launches()
+        graph, graph_s, graph_reads = _loop_timed(fn)
+        replays = loop.replays - replays
+        replayed = kernel.replayed() if kernel else 0
+        eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES
+        _reset_launches()
+        reductions = mesh_module.REDUCTIONS
+        with device_loop.eager(), (capturable_linalg(dev) if lm else contextlib.nullcontext()):
+            eager, eager_s, eager_reads = _loop_timed(fn)
+        reductions = mesh_module.REDUCTIONS - reductions
+        eager_k = kernel.launches() if kernel else 0
+        res = _ba_result(graph) if not lm else graph
+        selfcal = name.startswith("selfcal")
+        run = _outer_run(res)
+        if kernel is k_nn:
+            expect = shards * int(torch.isfinite(res.trace["cost"]).sum())
+        elif kernel is k_schur:
+            expect = shards * sum(res.trace["trials"].tolist())
+        else:
+            expect = 0
+        same = _same_result(graph, eager)
+        row = dict(shards=shards, first_s=first_s, captured=captured, graph_s=graph_s, eager_s=eager_s,
+                   reads=dict(graph=graph_reads, eager=eager_reads), replays=replays, bit_equal=same,
+                   iterations=int(res.iterations), status=Status(int(res.status)).name, outer=run,
+                   eager_reductions=reductions, kernel_replayed=replayed, kernel_eager=eager_k, kernel_runs=expect,
+                   launches={}, device_ms={}, busy={}, capture=loop.stats)
+        sides = (("graph", contextlib.nullcontext),) * (not pcg) + (("eager", device_loop.eager),)
+        for side, context in sides if eager_s <= SHARDED_PROFILE_MAX_S else ():
+            with context(), (capturable_linalg(dev) if lm else contextlib.nullcontext()):
+                _, calls, ms, wall = _launch_profile(fn)
+            row["launches"][side], row["device_ms"][side], row["busy"][side] = calls, ms, ms / 1e3 / wall
+        out[name] = row
+        stats = loop.stats
+        print(f"sharded device loop, {name} ({shards} shards): {row['status']}, iterations {row['iterations']}; first "
+              f"call {first_s:.4f} s ({captured} captures), graph {graph_s:.4f} s, eager body {eager_s:.4f} s; host "
+              f"reads graph {graph_reads}, eager {eager_reads}; replays {replays}; mesh reductions of the eager body "
+              f"{reductions}; bit-equal {same}"
+              + (f"; {kernel.NAME} replayed {replayed}, eager {eager_k}, runs {expect}" if kernel else ""))
+        print("  launch calls "
+              + (" ".join(f"{side} {row['launches'][side]} (device ms {row['device_ms'][side]:.3f}, busy "
+                          f"{row['busy'][side]:.3f})" for side in row["launches"]) if row["launches"] else
+                 f"not profiled (eager body over {SHARDED_PROFILE_MAX_S:g} s)")
+              + ("; graph not profiled (PCG IF nodes three deep)" if pcg else "")
+              + f"; capture: warm-up {stats['warm_ms']:.1f} ms, capture {stats['capture_ms']:.1f} ms, instantiation "
+                f"{stats['instantiate_ms']:.1f} ms, pools {stats['pool_bytes'] / 2**20:.1f} MiB")
+        if not same:
+            raise AssertionError(f"sharded device loop, {name}: the graph's solve differs from its eager body")
+        reads_expected = run if selfcal else 0
+        replays_expected = run if selfcal else loop.trace["cost"].shape[-1]  # max_iterations
+        graph_launches = row["launches"].get("graph", {}).get("cudaGraphLaunch", replays)
+        if graph_reads != reads_expected or not replays == graph_launches == replays_expected or eager_in_graph:
+            raise AssertionError(f"sharded device loop, {name}: {graph_reads} host reads, {replays} replays "
+                                 f"({graph_launches} graph launches), {eager_in_graph} eager kernel launches; "
+                                 f"expected {reads_expected} reads and {replays_expected} replays")
+        if kernel and not replayed == eager_k == expect > 0:
+            raise AssertionError(f"sharded device loop, {name}: {kernel.NAME} replayed {replayed}, eager {eager_k}, "
+                                 f"for {expect} runs")
+    out["captures"] = device_loop.CAPTURES[n_start:]
+    for c in out["captures"]:
+        print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
+              f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
+    out["max_memory_reserved"] = torch.cuda.max_memory_reserved(dev)
+    print(f"sharded device loop: torch.cuda.max_memory_reserved {out['max_memory_reserved'] / 2**30:.2f} GiB, "
+          f"{len(device_loop._LOOPS)} layouts cached (at most {device_loop.MAX_LOOPS})")
     return out
 
 
@@ -3074,7 +3256,7 @@ def rank_main(rank, port):
     walls, digests = [], []
     for _ in range(2):  # the first solve loads the dense engine's CUDA modules and builds the plans
         k_schur.reset_launches()
-        res, cost, wall_s = _solve_sharded(prob, mesh)
+        res, cost, wall_s = _solve_sharded(functools.partial(ba_dense.solve_ba_dense_sharded, prob, mesh))
         walls.append(wall_s)
         digests.append([_digest(res.cost), _digest(res.camera_params), _digest(res.points)])
     out["ba"] = dict(cost=cost, digests=digests, trials=res.trace["trials"].tolist(), wall_s=walls,
@@ -3084,6 +3266,7 @@ def rank_main(rank, port):
     out["selfcal"] = _selfcal_over_processes(prob, mesh)
     s = torch.ones((6 * BA_C) ** 2, dtype=torch.float32, device=dev)
     out["allreduce_ms"] = dict(bytes=s.numel() * 4, cuda=_allreduce_ms(s, False), staged=_allreduce_ms(s, True))
+    out["captures"] = len(device_loop.CAPTURES)  # a mesh across processes runs the eager loop
     print("RESULT " + json.dumps(out), flush=True)
     dist.destroy_process_group()
 
@@ -3172,12 +3355,15 @@ def run_two_processes(ba4, cg4, selfcal):
               f"S builds {sum(res['ba']['trials'])}, K11 launches {res['ba']['k11']}, cost {res['ba']['cost']:.6e}; "
               f"all-reduce of S ({res['allreduce_ms']['bytes']} bytes): CUDA tensor to gloo "
               f"{res['allreduce_ms']['cuda']:.3f} ms, staged through the host {res['allreduce_ms']['staged']:.3f} ms")
-    print(f"two processes: wall {wall_s:.3f} s (start to exit); results bit-equal between the ranks: {same}, "
+    print(f"two processes: wall {wall_s:.3f} s (start to exit); captures {a['captures']}, {b['captures']} (the "
+          f"eager loop across processes); results bit-equal between the ranks: {same}, "
           f"and between each rank's two solves: {repeats}; BA cost {rel:.3e} from the 4-shard solve's "
           f"{float(ba4.cost):.6e} (bound {TWO_PROCESS_BA_RTOL:g}), its first {SHARDED_BA_TRACE_ITERS} outer "
           f"iterations' costs {early:.3e} from its (bound {BA_COST_RTOL:g})")
     if not same or not repeats:
         raise AssertionError(f"two processes: the results differ: {a} {b}")
+    if a["captures"] or b["captures"]:
+        raise AssertionError(f"two processes: a mesh across processes captured {a['captures']}, {b['captures']} graphs")
     if not early <= BA_COST_RTOL:
         raise AssertionError(f"two processes: the first iterations' costs are {early} from the 4-shard solve's")
     if not rel <= TWO_PROCESS_BA_RTOL or not a["ba"]["fixed_unmoved"]:
@@ -3201,7 +3387,7 @@ def run_two_processes(ba4, cg4, selfcal):
     curve_err = max(abs(u - v) for u, v in zip(a["curve"]["x"], CURVE_MINIMUM_64))
     if curve_err > 5e-5:
         raise AssertionError(f"two processes: the curve fit is {curve_err} from its minimum")
-    return dict(wall_s=wall_s, curve=a["curve"], ba={k: a["ba"][k] for k in ("wall_s", "cost", "k11")},
+    return dict(wall_s=wall_s, captures=[a["captures"], b["captures"]], curve=a["curve"], ba={k: a["ba"][k] for k in ("wall_s", "cost", "k11")},
                 rel_4_shard=rel, early_rel_4_shard=early, allreduce_ms={r: results[r]["allreduce_ms"] for r in results},
                 cg={k: a["cg"][k] for k in ("wall_s", "cost", "allreduces", "rows", "k11")}, cg_rel_4_shard=cg_rel,
                 cg_early_rel_4_shard=cg_early, selfcal=sc)
@@ -3217,6 +3403,10 @@ def main():
     ).stdout.strip().splitlines()
     print(smi[0])
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    t_start = time.perf_counter()
+
+    def stamp(phases):
+        print(f"time {time.perf_counter() - t_start:.1f} s: phases {phases} done", flush=True)
 
     t0 = time.perf_counter()
     kernels = (k_nn, k_expand, k_schur, graph_cond)
@@ -3245,6 +3435,7 @@ def main():
     ba_grouped = ba_dense.group_by_landmark(ba_prob, segments="auto")
     s_err, s_t, s_bound = check_schur_kernel(ba_prob, ba_grouped, dev, rng, examples_in["schur"])
     del examples_in
+    stamp("1-3")
 
     requests = [
         ("A", X_A, {}),
@@ -3272,6 +3463,7 @@ def main():
         raise AssertionError(f"plain search: x differs from the kernel's run by {dx}")
     print(f"request A with the plain search: same iterations, max|dx| {dx:.3e}")
 
+    stamp(4)
     ba_res, s_launches, s_replayed, ba_wall_s = run_ba(ba_prob)
     ba_repeat(ba_prob, ba_res, ba_wall_s)
     ba_steps(ba_prob, ba_grouped, "auto")
@@ -3287,6 +3479,7 @@ def main():
     ba_routing, cg_big, cg_big_res = run_ba_routing(ba_prob, ba_res)
     selfcal, selfcal_start, selfcal_res, selfcal_intr, selfcal_early = run_selfcal(ba_prob)
     device = run_device_loop(ba_prob, selfcal_start)
+    stamp("5, 19")
 
     fleet, fleet_wall_s, e_launches, e_replayed = run_fleet(srcs, tgts, fleet_x)
     fleet_vs_single(cloud, tgts, fleet, fleet_wall_s)
@@ -3305,6 +3498,7 @@ def main():
         result, graph, config, slam[method] = run_scan_slam(scans, gt, method, dev)
         if method == "icp":
             slam_pgo = (graph, config, result, pgo_repeat_and_cg(graph, config, result))
+    stamp("6-9")
     k9 = surface_times(scans, dev)
     lag, lag_solves = run_fixed_lag(scans, gt, dev)
     ring, ring_solves = {}, {}
@@ -3312,20 +3506,32 @@ def main():
         ring[n], *ring_solves[n] = run_ring(dev, n, bound)
     pgo_loop = run_pgo_device_loop(slam_pgo, ring_solves, lag_solves, slam, lag, dev)
     del ring_solves, lag_solves
+    stamp("10-12, 21")
     references = run_reference_problems(dev)
     lm_loop = run_lm_device_loop(cloud, srcs, tgts, scans, gt, dev)
+    stamp("13, 20")
 
     sharded_lin = run_sharded_linearize(cloud)
-    dist_icp = run_distributed_icp(cloud, results["A"])
-    ba_sharded, ba4, ba_grouping_s = run_ba_sharded(ba_prob, ba_grouped, ba_res)
+    dist_icp, icp_solves = run_distributed_icp(cloud, results["A"])
+    ba_sharded, ba4, ba_grouping_s, ba_solves = run_ba_sharded(ba_prob, ba_grouped, ba_res)
     fleet_sharded = run_fleet_sharded(srcs, tgts, fleet, fleet_x)
-    cg_sharded, cg4 = run_ba_cg_sharded(ba_prob, cg_res, cg_big, cg_big_res)
+    cg_sharded, cg4, cg_problems = run_ba_cg_sharded(ba_prob, cg_res, cg_big, cg_big_res)
     del cg_big, cg_big_res
-    selfcal_sharded = run_selfcal_sharded(ba_prob, selfcal_start, selfcal_res, selfcal_intr, selfcal_early,
-                                          selfcal["wall_s"])
+    selfcal_sharded, selfcal_problems = run_selfcal_sharded(ba_prob, selfcal_start, selfcal_res, selfcal_intr,
+                                                            selfcal_early, selfcal["wall_s"])
+    stamp("14, 16, 18")
+    sharded_loop = run_sharded_device_loop(icp_solves, ba_solves, cg_problems, selfcal_problems, dev)
+    stamp(22)
+    # the later phases capture layouts of their own: give phase 15's two
+    # processes the card's memory
+    del icp_solves, ba_solves, cg_problems, selfcal_problems
+    device_loop.clear()
+    torch.cuda.empty_cache()
     two = run_two_processes(ba4, cg4, (ba_prob.intrinsics, selfcal_res, selfcal_early))
+    stamp(15)
     examples = run_examples()
     blocked = run_blocked(ba_prob, ba_res, dev)
+    stamp(17)
 
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
@@ -3342,6 +3548,8 @@ def main():
                                              if isinstance(r, dict) and r.get("kernel_replayed") and k != "fleet"}, slam_launches=dict(grid=k5_grid, auto=k5_auto),
               scan_slam_launches={m: r["k5"] for m, r in slam.items()}, fixed_lag_launches=lag["k5"],
               distributed_icp_launches={n: r["launches"] for n, r in dist_icp.items()},
+              sharded_device_loop_replayed_launches={k: r["kernel_replayed"] for k, r in sharded_loop.items()
+                                                     if k.startswith("distributed_icp")},
               examples_launches={k: v["k5"] for k, v in examples.items() if v["k5"]}),
         entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
               "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound,
@@ -3357,6 +3565,8 @@ def main():
               device_loop_replayed_launches=device["ba_step_dense"]["k11_replayed"],
               ba_cg_launches=ba_cg["k11"], ba_cg_routed_launches=ba_routing["k11"], selfcal_launches=selfcal["k11"],
               sharded_ba_launches={n: r["launches"] for n, r in ba_sharded.items()},
+              sharded_device_loop_replayed_launches={k: r["kernel_replayed"] for k, r in sharded_loop.items()
+                                                     if k.startswith("dense")},
               sharded_ba_shard_ms={n: r["k11_shard_ms"] for n, r in ba_sharded.items()},
               two_process_launches=two["ba"]["k11"],
               sharded_cg_launches={k: r["k11"] for k, r in cg_sharded.items()}, two_process_cg_launches=two["cg"]["k11"],
@@ -3373,7 +3583,7 @@ def main():
                                       ba_grouping_s=ba_grouping_s, fleet=fleet_sharded, cg=cg_sharded,
                                       selfcal=selfcal_sharded, two_processes=two)}))
     print(json.dumps({"examples": examples, "blocked": blocked, "device_loop": device, "lm_device_loop": lm_loop,
-                      "pgo_device_loop": pgo_loop}))
+                      "pgo_device_loop": pgo_loop, "sharded_device_loop": sharded_loop}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -20,10 +20,10 @@ poses and L landmarks from O pixel observations.
 * the reference's LM λ/ν/ρ schedule (src/levenberg_marquadt_dyn.cpp:67-114)
   over the joint state, decided on the device: each trial under
   ``device_loop.cond(¬stop)``, each PCG iteration under cond(‖r‖² > tol²).
-  On CUDA an outer iteration of an unsharded problem is one replay of a
-  CUDA graph (``ba_step``), and ``solve_ba`` enqueues max_iterations
-  replays with no host read (``ops/device_loop.py``). Eagerly (on the CPU,
-  or for a sharded problem) the same body reads the device once a trial,
+  On CUDA an outer iteration is one replay of a CUDA graph (``ba_step``),
+  and ``solve_ba`` enqueues max_iterations replays with no host read
+  (``ops/device_loop.py``). Eagerly (on the CPU, or for a problem sharded
+  across processes or cards) the same body reads the device once a trial,
   once every 32 PCG iterations and once an outer iteration (``HOST_READS``
   counts the reads).
 
@@ -40,10 +40,13 @@ its device; U, V, g, h and the costs are summed over the mesh
 (L, 3) and Σ_o W_o s (C, 6), where GSPMD inserts its two reductions for the
 JAX engine. Cameras, points and the solver's vectors are replicated, so
 every process reads the same flags and the processes' loops stay in
-lockstep. The unsharded solve is the one-shard case of the same step. A
-sharded problem runs the eager loop, in one process or several (its
-reductions, and gloo's all-reduce on the host, are not captured); the
-ROADMAP queues its graph.
+lockstep. The unsharded solve is the one-shard case of the same step. With
+every shard in this process on the cameras' device (``Mesh.on_one_device``)
+a reduction is device work, and the sharded step is captured as the
+unsharded one is: each PCG iteration's two reductions inside its IF node,
+the shards and their plans made before the capture. A mesh across
+processes (gloo's all-reduce runs on the host) or across cards runs the
+eager loop.
 """
 
 import dataclasses
@@ -655,14 +658,35 @@ def _record_dtypes(dtype):
     return dict(cost=dtype, cost_new=dtype, rho=dtype, lam=dtype, trials=torch.int32)
 
 
+def _graphs(problem):
+    """Whether the BA step of this problem is a CUDA graph: on the card,
+    outside ``device_loop.eager()``, unsharded or sharded over a mesh that
+    lies in this process on the cameras' device."""
+    mesh = _mesh_of(problem)
+    dev = problem.camera_params.device
+    return device_loop.graphs(problem.camera_params) and (mesh is None or mesh.on_one_device(dev))
+
+
+def _observations_key(problem):
+    """The observations in a StepLoop's key: the incidence and pixel
+    tensors, or for an observation-sharded problem the mesh and the
+    GlobalArrays by identity with their rows (the graph reads the shards'
+    rows where they lie)."""
+    fields = (problem.cam_idx, problem.pt_idx, problem.pixels)
+    mesh = _mesh_of(problem)
+    if mesh is None:
+        return fields
+    return (mesh, *fields, *(f.local for f in fields))
+
+
 def _cg_loop(problem, config):
     """The StepLoop of the CG engine on this problem, its context (mesh,
-    shards). On CUDA an unsharded problem's loop is captured once per layout
-    (the incidence, pixels, intrinsics, loss, gauge, shapes, dtype and
-    config) and kept; an observation-sharded one, or one on the CPU, gets an
-    eager loop."""
+    shards). On CUDA the loop is captured once per layout (the incidence,
+    pixels, intrinsics, loss, gauge, shapes, dtype and config; the mesh and
+    the GlobalArrays of an observation-sharded problem) and kept; on the
+    CPU, or sharded across processes or cards, it is eager."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    graph = device_loop.graphs(problem.camera_params) and _mesh_of(problem) is None
+    graph = _graphs(problem)
 
     def make():
         mesh, shards = _shards(problem)
@@ -682,8 +706,7 @@ def _cg_loop(problem, config):
         return make()
     return device_loop.cached(
         ("cg", config, problem.loss, problem.n_fixed_cameras, tuple(problem.camera_params.shape),
-         tuple(problem.points.shape), dtype, dev, problem.cam_idx, problem.pt_idx, problem.pixels,
-         problem.intrinsics), make,
+         tuple(problem.points.shape), dtype, dev, *_observations_key(problem), problem.intrinsics), make,
     )
 
 
@@ -691,9 +714,11 @@ def ba_step(problem, lam, config=BAConfig()):
     """One outer LM iteration of the CG engine, for callers that step,
     inspect or persist between iterations: (cams, pts, λ′, terminal, status,
     record), all tensors (``_outer_step``). Pass λ = −1 on the first call to
-    seed λ from the GN diagonal. On CUDA an unsharded problem's step is one
-    replay of a graph captured at the first call of its layout, with no host
-    read; an observation-sharded problem steps eagerly."""
+    seed λ from the GN diagonal. On CUDA the step is one replay of a graph
+    captured at the first call of its layout, with no host read, an
+    observation-sharded problem's too when its mesh lies in this process on
+    the cameras' device; sharded across processes or cards it steps
+    eagerly."""
     loop = _cg_loop(problem, config)
     loop.start((problem.camera_params, problem.points, lam))
     loop.step(_read)
@@ -794,17 +819,19 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
                 (the JAX package passes no other field);
       "auto"  — ``select_engine``.
 
-    On CUDA an unsharded problem's outer iteration is one replay of the
-    ``ba_step`` graph (captured at the first solve of its layout). The
-    default ``host_loop=False`` enqueues max_iterations replays, each under
-    IF(¬done), with the trace written on the device: no host read after
-    the first capture. ``host_loop=True`` reads done after each replay and
-    stops there (one read an outer iteration). Both give the same bits. On
-    the CPU, and for an observation-sharded problem (module docstring), the
-    same step body runs eagerly, reading the device once a trial, once every
-    32 PCG iterations and once an outer iteration, whatever ``host_loop``
-    says; the cameras and points of a sharded solve are replicated on every
-    process, and "dense" takes it within one process only. The result's
+    On CUDA an outer iteration is one replay of the ``ba_step`` graph
+    (captured at the first solve of its layout), an observation-sharded
+    problem's too when its mesh lies in this process on the cameras'
+    device. The default ``host_loop=False`` enqueues max_iterations
+    replays, each under IF(¬done), with the trace written on the device: no
+    host read after the first capture. ``host_loop=True`` reads done after
+    each replay and stops there (one read an outer iteration). Both give the
+    same bits. On the CPU, and for a problem sharded across processes or
+    cards (module docstring), the same step body runs eagerly, reading the
+    device once a trial, once every 32 PCG iterations and once an outer
+    iteration, whatever ``host_loop`` says; the cameras and points of a
+    sharded solve are replicated on every process, and "dense" takes it
+    within one process only. The result's
     trace holds cost, cost_new, rho and lam per outer iteration (NaN-filled
     to max_iterations) and ``trials``.
     """

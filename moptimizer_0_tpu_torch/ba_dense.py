@@ -30,8 +30,10 @@ h and back-substitution, and the camera-space objects (U, g, the costs, the
 S correction, the rhs reduction and the landmark terms of the step's
 metrics) are summed over the mesh, max|diag V| and max|δpt| maxed; the
 (6C)² Cholesky and the camera step run once per process on reduced inputs.
-It runs the eager loop (its reductions, and gloo's all-reduce across
-processes, are not captured), one host read a trial and an outer iteration.
+With every shard in this process on the cameras' device its step is a CUDA
+graph as the unsharded one's, K11 launched once a shard an S build inside
+it; across processes (gloo's all-reduce runs on the host) or cards it runs
+the eager loop, one host read a trial and an outer iteration.
 """
 
 import collections
@@ -674,32 +676,84 @@ def solve_ba_dense(problem, config=DenseBAConfig(), grouped=None, host_loop=Fals
     return ba._loop_result(loop, cams, grouped.unsort_points(pts), cost)
 
 
-def _shard_layout(problem, mesh, grouped, n_shards):
-    """Each local shard's (GroupedBA, points): the grid flattened back to
-    landmark order with a single K, L padded to a shard multiple (mask 0,
-    points 1.0), rows split in mesh order, each on its shard's device."""
+def _shard_grids(problem, mesh, grouped, n_shards):
+    """Each local shard's GroupedBA: the grid flattened back to landmark
+    order with a single K, L padded to a shard multiple (mask 0), rows split
+    in mesh order, each on its shard's device."""
     L = problem.points.shape[0]
     pixels, cam_ids, mask = grouped.pixels, grouped.cam_ids, grouped.mask
     if grouped.seg_bounds:
         # valence segments do not align with shard boundaries
         inv = grouped.inv_perm.long()
         pixels, cam_ids, mask = pixels[inv], cam_ids[inv], mask[inv]
-    pts = problem.points
     pad = -(-L // n_shards) * n_shards - L
     if pad:
         # padding rows: mask 0 everywhere, so V′ = 1e-12·I, h = 0 and δpt = 0
         pixels = torch.cat([pixels, pixels.new_zeros((pad, *pixels.shape[1:]))])
         cam_ids = torch.cat([cam_ids, cam_ids.new_zeros((pad, *cam_ids.shape[1:]))])
         mask = torch.cat([mask, mask.new_zeros((pad, *mask.shape[1:]))])
-        pts = torch.cat([pts, pts.new_ones((pad, 3))])
     rows = (L + pad) // n_shards
     out = []
     for j, dev in enumerate(mesh.devices):
         sl = slice((mesh.first_shard + j) * rows, (mesh.first_shard + j + 1) * rows)
-        shard = GroupedBA(pixels=pixels[sl].to(dev).contiguous(), cam_ids=cam_ids[sl].to(dev).contiguous(),
-                          mask=mask[sl].to(dev).contiguous())
-        out.append((shard, pts[sl].to(dev)))
+        out.append(GroupedBA(pixels=pixels[sl].to(dev).contiguous(), cam_ids=cam_ids[sl].to(dev).contiguous(),
+                             mask=mask[sl].to(dev).contiguous()))
     return out
+
+
+def _shard_points(points, mesh, n_shards):
+    """Each local shard's (L_s, 3) points of ``_shard_grids``' rows (the
+    padding rows 1.0)."""
+    L = points.shape[0]
+    pad = -(-L // n_shards) * n_shards - L
+    if pad:
+        points = torch.cat([points, points.new_ones((pad, 3))])
+    rows = (L + pad) // n_shards
+    return [points[(mesh.first_shard + j) * rows : (mesh.first_shard + j + 1) * rows].to(dev)
+            for j, dev in enumerate(mesh.devices)]
+
+
+def _sharded_dense_loop(problem, mesh, config, grouped, n_shards):
+    """The StepLoop of ``solve_ba_dense_sharded``, its context the shards'
+    GroupedBAs. The grouping (unless ``grouped`` is given), the shard grids
+    and each shard's camera and K11 pair plans are made once, before the
+    capture. On CUDA with the mesh in this process on the cameras' device
+    the loop is captured once per layout (the mesh by value, the incidence
+    and pixels by identity, ``grouped`` when given, intrinsics, loss, gauge,
+    shapes, dtype and config: K11 runs inside the graph) and kept;
+    otherwise it is eager."""
+    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
+    C = problem.camera_params.shape[0]
+    graph = device_loop.graphs(problem.camera_params) and mesh.on_one_device(dev)
+
+    def make():
+        shards = _shard_grids(problem, mesh, group_by_landmark(problem) if grouped is None else grouped, n_shards)
+        for shard in shards:
+            shard.camera_plan(C)
+            if graph:
+                shard.schur_plan(C)
+        intr = problem.intrinsics
+
+        def body(cams, *rest):
+            *pts, lam = rest
+            cams, pts, lam, terminal, status, record = _dense_outer_step(
+                cams, tuple(pts), intr, shards, problem.loss, problem.n_fixed_cameras, lam, config, mesh
+            )
+            return (cams, *pts, lam), terminal, status, record
+
+        start = (problem.camera_params, *_shard_points(problem.points, mesh, n_shards),
+                 torch.full((), -1.0, dtype=dtype, device=dev))
+        return device_loop.StepLoop(body, start, config.max_iterations, ba._record_dtypes(dtype),
+                                    Status.MAXIMUM_ITERATIONS_REACHED, graph=graph, context=shards,
+                                    name=f"ba_step_dense_sharded {ba._layout_name(problem)} shards={n_shards}")
+
+    if not graph:
+        return make()
+    return device_loop.cached(
+        ("dense_sharded", mesh.layout(), grouped, config, problem.loss, problem.n_fixed_cameras,
+         tuple(problem.camera_params.shape), tuple(problem.points.shape), dtype, dev, problem.cam_idx,
+         problem.pt_idx, problem.pixels, problem.intrinsics), make,
+    )
 
 
 def solve_ba_dense_sharded(problem, mesh, config=DenseBAConfig(), axis="data", grouped=None):
@@ -708,37 +762,31 @@ def solve_ba_dense_sharded(problem, mesh, config=DenseBAConfig(), axis="data", g
     The (L, K) grid and the landmark state are split along L (a segmented
     grid is flattened back to landmark order with one K, and L padded to a
     shard multiple); every shard gets its own GroupedBA, whose camera plan
-    and K11 pair plan are made once a solve. The cameras are replicated. Per
-    outer iteration the camera-space objects are summed over the mesh
+    and K11 pair plan are made once. The cameras are replicated. Per outer
+    iteration the camera-space objects are summed over the mesh
     (``Mesh.psum``: in shard order, then one all-reduce across processes),
     so every λ/ρ/status decision is the same on every process and their
     loops stay in lockstep. Returns a BAResult with the points in the
     problem's landmark order, on every process. Pass ``grouped`` (from
     ``group_by_landmark``) to reuse the host grouping.
+
+    On CUDA, with the mesh in this process on the cameras' device, an outer
+    iteration is one replay of a graph captured at the first solve of its
+    layout (K11 once a shard an S build inside it) and a solve reads
+    nothing back; a repeat solve of the same problem replays, with
+    ``grouped`` None too (its grouping is made once, with the graph).
+    Across processes or cards the step runs eagerly, one host read a trial
+    and an outer iteration.
     """
     n_shards = mesh.check_axis(axis)
     L = problem.points.shape[0]
-    if grouped is None:
-        grouped = group_by_landmark(problem)
-    layout = _shard_layout(problem, mesh, grouped, n_shards)
-    shards = [s for s, _ in layout]
-    intr = problem.intrinsics
-
-    def body(cams, *rest):
-        *pts, lam = rest
-        cams, pts, lam, terminal, status, record = _dense_outer_step(
-            cams, tuple(pts), intr, shards, problem.loss, problem.n_fixed_cameras, lam, config, mesh
-        )
-        return (cams, *pts, lam), terminal, status, record
-
-    dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    start = (problem.camera_params, *(p for _, p in layout), torch.full((), -1.0, dtype=dtype, device=dev))
-    loop = device_loop.StepLoop(body, start, config.max_iterations, ba._record_dtypes(dtype),
-                                Status.MAXIMUM_ITERATIONS_REACHED)
+    loop = _sharded_dense_loop(problem, mesh, config, grouped, n_shards)
+    loop.start((problem.camera_params, *_shard_points(problem.points, mesh, n_shards), -1.0))
     loop.solve(config.max_iterations, ba._read)
     cams, *pts, _ = (t.clone() for t in loop.carry)
+    intr, dev = problem.intrinsics, problem.camera_params.device
     cost = mesh.psum(
-        [_cost_grouped(cams.to(d), p, intr.to(d), s) for p, s, d in zip(pts, shards, mesh.devices)], device=dev
+        [_cost_grouped(cams.to(d), p, intr.to(d), s) for p, s, d in zip(pts, loop.context, mesh.devices)], device=dev
     )
     points = mesh.gather_rows(torch.cat([p.to(dev) for p in pts]))[:L]
     return ba._loop_result(loop, cams, points, cost)

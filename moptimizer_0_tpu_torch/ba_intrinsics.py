@@ -27,7 +27,8 @@ matvec makes the CG engine's two reductions, Σ Wᵀu_c (L, 3) and Σ W s
 cameras and landmarks, so they need no reduction of their own. The JAX
 package runs the same solve under GSPMD and refuses only a row count the
 mesh does not divide; so does this. The unsharded solve is the one-shard
-case.
+case, and a sharded step is a CUDA graph where the CG engine's is (its
+mesh in this process on the cameras' device).
 """
 
 import dataclasses
@@ -160,10 +161,11 @@ def _step_selfcal(problem, lam, config, mesh, shards, plans):
 
 def _selfcal_loop(problem, config):
     """The StepLoop of the self-calibrating step, the intrinsics part of the
-    carry, its context (mesh, shards): captured once per layout on CUDA for
-    an unsharded problem (as ``ba._cg_loop``), eager otherwise."""
+    carry, its context (mesh, shards): captured once per layout on CUDA, as
+    ``ba._cg_loop``'s (an observation-sharded problem's when its mesh lies
+    in this process on the cameras' device), eager otherwise."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
-    graph = device_loop.graphs(problem.camera_params) and ba._mesh_of(problem) is None
+    graph = ba._graphs(problem)
 
     def make():
         mesh, shards = ba._shards(problem)
@@ -184,16 +186,17 @@ def _selfcal_loop(problem, config):
         return make()
     return device_loop.cached(
         ("selfcal", config, problem.loss, problem.n_fixed_cameras, tuple(problem.camera_params.shape),
-         tuple(problem.points.shape), dtype, dev, problem.cam_idx, problem.pt_idx, problem.pixels), make,
+         tuple(problem.points.shape), dtype, dev, *ba._observations_key(problem)), make,
     )
 
 
 def ba_step_selfcal(problem, lam, config=ba.BAConfig()):
     """One LM iteration refining cameras, landmarks and intrinsics:
     (cams, pts, θ, λ′, terminal, status, record), all tensors; λ = −1 seeds
-    λ. On CUDA an unsharded problem's step is one replay of a graph captured
-    at the first call of its layout, with no host read; an
-    observation-sharded problem steps eagerly."""
+    λ. On CUDA the step is one replay of a graph captured at the first call
+    of its layout, with no host read, an observation-sharded problem's too
+    when its mesh lies in this process on the cameras' device; sharded
+    across processes or cards it steps eagerly."""
     loop = _selfcal_loop(problem, config)
     loop.start((problem.camera_params, problem.points, problem.intrinsics, lam))
     loop.step(ba._read)
@@ -205,9 +208,10 @@ def solve_ba_selfcal(problem, config=ba.BAConfig()):
     """Full self-calibrating BA, stepped from Python as the JAX package
     does: one ``ba_step_selfcal`` an outer iteration (on CUDA one graph
     replay) and one read of its terminal flag. Returns (BAResult with an
-    empty trace, θ). On an observation-sharded problem the step runs
-    eagerly, and the cameras, points and θ of the result are replicated on
-    every process."""
+    empty trace, θ). An observation-sharded problem steps so too when its
+    mesh lies in this process on the cameras' device, and eagerly across
+    processes or cards; the cameras, points and θ of the result are
+    replicated on every process."""
     loop = _selfcal_loop(problem, config)
     loop.start((problem.camera_params, problem.points, problem.intrinsics, -1.0))
     loop.solve(config.max_iterations, ba._read, host_loop=True)

@@ -35,8 +35,12 @@ back after the layout's first capture. Eagerly, on the CPU or inside
 ``device_loop.eager()``, the same body reads the device through the
 counted ``_read`` (``HOST_READS``) once before each trial and once an outer
 iteration. ``verbose=True`` prints every trial, so it runs the eager body
-on the card too; so does a problem sharded over a mesh
-(``parallel.sharded``), whose sums go through ``Mesh.psum`` on the host.
+on the card too. A problem sharded over a mesh (``parallel.sharded``)
+whose shards all lie in this process on x's device is captured like any
+other, its ``Mesh.psum`` sums being device work, its shards' data leaves in
+the carry and the mesh and every shard's block structure in the key; a
+mesh across processes (gloo's all-reduce runs on the host) or across
+cards runs the eager body.
 A capture records PyTorch's factorizations on cuSOLVER and cuBLAS
 (``ops.small_solve.capturable_linalg``); the eager body runs on PyTorch's
 default routes, which send a batched Cholesky solve to MAGMA, and equals
@@ -320,13 +324,19 @@ def _sharded(problem):
 
 
 def _on_device(problem, x):
-    """The problem with each weight matrix a tensor on x's device, made once
-    a solve (linearize converts it to its dtype there, with no host copy)."""
+    """The problem with each weight matrix a tensor on x's device (a sharded
+    problem's on each shard's device), made once a solve: linearize converts
+    it to its dtype there, with no host copy, and it rides in the carry."""
     if _sharded(problem):
-        return problem
+        return dataclasses.replace(problem, shards=tuple(
+            _weights_on(p, dev) for p, dev in zip(problem.shards, problem.mesh.devices)))
+    return _weights_on(problem, x.device)
+
+
+def _weights_on(problem, device):
     return Problem(blocks=tuple(
         b if b.weight_matrix is None
-        else dataclasses.replace(b, weight_matrix=torch.as_tensor(b.weight_matrix, device=x.device))
+        else dataclasses.replace(b, weight_matrix=torch.as_tensor(b.weight_matrix, device=device))
         for b in problem.blocks
     ))
 
@@ -408,17 +418,25 @@ _BLOCK_FUNCTIONS = ("residual_fn", "prepare_fn", "jacobian_fn", "update_fn", "li
                     "batch_update_fn")
 
 
+def _blocks_key(blocks):
+    return tuple(
+        (*(getattr(b, f) for f in _BLOCK_FUNCTIONS), b.weighted_cost, _loss_key(b.loss),
+         _structure(_block_tree(b)))
+        for b in blocks
+    )
+
+
 def _layout(kind, problem, x, config, manifold, *extra):
     """The key of a solve's StepLoop, as the JAX package's jit cache keys its
     program: the kind of loop, the config, the manifold, each block's
     functions by identity, its loss by value and the layout of its data,
-    and x's shape, dtype and device."""
-    blocks = tuple(
-        (*(getattr(b, f) for f in _BLOCK_FUNCTIONS), b.weighted_cost, _loss_key(b.loss),
-         _structure(_block_tree(b)))
-        for b in problem.blocks
-    )
-    return (kind, config, manifold, tuple(x.shape), x.dtype, x.device, *extra, blocks)
+    and x's shape, dtype and device; of a sharded problem also the mesh
+    (its shards and devices) and every shard's blocks so, as jit keys the
+    shardings of its inputs."""
+    key = (kind, config, manifold, tuple(x.shape), x.dtype, x.device, *extra, _blocks_key(problem.blocks))
+    if _sharded(problem):
+        key += (problem.mesh.layout(), tuple(_blocks_key(p.blocks) for p in problem.shards))
+    return key
 
 
 def _flat(record, prefix=""):
@@ -458,8 +476,9 @@ def _record_spec(config, n_blocks, dtype, lanes=()):
 def _graphs(problem, x, config):
     """Whether this solve's step is a CUDA graph: on the card, outside
     ``device_loop.eager()``, unless it prints every trial or its problem is
-    sharded."""
-    return device_loop.graphs(x) and not config.verbose and not _sharded(problem)
+    sharded over a mesh that is not all on x's device in this process."""
+    return (device_loop.graphs(x) and not config.verbose
+            and (not _sharded(problem) or problem.mesh.on_one_device(x.device)))
 
 
 def _single_loop(problem, x, config, manifold):
@@ -479,7 +498,8 @@ def _single_loop(problem, x, config, manifold):
         carry = (x, _full(-1.0, _lam_dtype(problem, x, config), dev), *_data_leaves(problem))
         return device_loop.StepLoop(
             body, carry, config.max_iterations, _record_spec(config, len(problem.blocks), dtype),
-            Status.MAXIMUM_ITERATIONS_REACHED, graph=graph, name=f"lm_step P={x.shape[0]}", context=problem,
+            Status.MAXIMUM_ITERATIONS_REACHED, graph=graph, context=problem,
+            name=f"lm_step P={x.shape[0]}" + (f" shards={problem.mesh.size}" if _sharded(problem) else ""),
         )
 
     if not graph:
@@ -496,10 +516,11 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
     """Minimize a Problem (or a single block) from x0; x0 is not modified.
 
     On CUDA the solve is max_iterations replays of its step's graph, with no
-    host read after the first solve of its layout (module docstring); on
+    host read after the first solve of its layout (module docstring), a
+    problem sharded over a mesh on x's device in this process included; on
     the CPU, inside ``device_loop.eager()``, with ``verbose=True`` (which
-    prints every trial from the host) or for a sharded problem the same
-    step runs eagerly."""
+    prints every trial from the host) or for a problem sharded across
+    processes or cards the same step runs eagerly."""
     problem = _as_problem(problem)
     x = torch.as_tensor(x0)
     problem = _on_device(problem, x)

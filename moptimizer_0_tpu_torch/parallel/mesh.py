@@ -17,6 +17,13 @@ one after another:
 
 The process group is torch.distributed's (gloo: NCCL refuses two processes
 on one card), whose all-reduce takes CUDA tensors as they are.
+
+Within one process, with every shard on one card (``Mesh.on_one_device``),
+a reduction is device work alone (``torch.add`` in shard order), so the
+engines capture a sharded solve's step into a CUDA graph as they do an
+unsharded one's (``ops.device_loop``). Across processes gloo's all-reduce
+runs on the host, and across cards the shards' copies join several
+devices, so those meshes run the eager loop.
 """
 
 import dataclasses
@@ -25,10 +32,16 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from moptimizer_0_tpu_torch.ops import device_loop
 from moptimizer_0_tpu_torch.utils.device import require
 
-# Mesh.psum/pmax calls (reductions over a mesh's shards), and the all-reduces
-# across processes that they make: counters for profiling, never reset here.
+# Mesh.psum/pmax calls (reductions over a mesh's shards) run eagerly, and the
+# all-reduces across processes that they make: counters for profiling, never
+# reset here. A step's warm-up and capture record its reductions without
+# counting them, and a replay runs them on the device, where nothing counts:
+# a graph solve's reductions are reported as those of its eager body
+# (``device_loop.eager()``), which makes the same ones and, in a CG solve,
+# those of the PCG iterations it computes past the stop up to its next read.
 REDUCTIONS = 0
 ALL_REDUCES = 0
 
@@ -71,6 +84,18 @@ class Mesh:
         """The mesh index of this process's first shard."""
         return self.process_index * self.n_local
 
+    def on_one_device(self, device):
+        """Whether the mesh lies in this process on ``device`` alone: no
+        process group, and every shard there. The engines capture a sharded
+        step into a CUDA graph only then."""
+        device = torch.device(device)
+        return self.group is None and all(torch.device(d) == device for d in self.devices)
+
+    def layout(self):
+        """The mesh by value, for a cache key: its devices, axis name and
+        processes."""
+        return (self.devices, self.axis_names, self.n_processes, self.process_index, self.group is None)
+
     def check_axis(self, axis):
         if axis not in self.axis_names:
             raise ValueError(f"mesh has axes {self.axis_names}, not {axis!r}")
@@ -88,7 +113,8 @@ class Mesh:
 
     def _reduce(self, parts, device, combine, op):
         global REDUCTIONS
-        REDUCTIONS += 1
+        if not device_loop.tracing():
+            REDUCTIONS += 1
         tuples = isinstance(parts[0], tuple)
         rows = [p if tuples else (p,) for p in parts]
         dev = rows[0][0].device if device is None else device

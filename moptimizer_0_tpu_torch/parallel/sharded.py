@@ -15,7 +15,9 @@ then across processes.
   correspondence search a shard) and whose linearization and costs are
   reduced over the mesh. Every process of a mesh that spans processes gets
   the same reduced bytes, so the solver's control flow is the same on all
-  of them.
+  of them. On CUDA, with the mesh in one process on x's device, the solve
+  is the unsharded one's CUDA graph: one replay an outer iteration, the
+  shards' data in its carry (``core.solver``).
 """
 
 import dataclasses
@@ -35,7 +37,9 @@ class ShardedProblem(Problem):
 
     blocks: the problem's own blocks (their count and names).
     shards: one Problem a local shard, holding that shard's part of every
-        block, on the shard's device.
+        block, on the shard's device. A captured solve carries every
+        shard's data leaves (``core.solver._data_leaves``), as it does an
+        unsharded problem's.
     """
 
     shards: tuple = ()
@@ -81,16 +85,22 @@ def sharded_compute_cost(block, x, mesh, axis="data"):
     return mesh.psum([cost(b, x.to(dev)) for b, dev in zip(shards, mesh.devices)], device=x.device)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Silenced:
+    """A residual function with every row marked invalid. Equal for one
+    inner function, so two solves of one layout share their step's key."""
+
+    inner: Any
+
+    def __call__(self, state, d):
+        out = self.inner(state, d)
+        return (out[0] if isinstance(out, tuple) else out), False
+
+
 def _silenced(block):
     """The block with every residual marked invalid: it adds nothing (exact
     zeros unless its Jacobian is not finite)."""
-    inner = block.residual_fn
-
-    def residual_fn(state, d):
-        out = inner(state, d)
-        return (out[0] if isinstance(out, tuple) else out), False
-
-    return dataclasses.replace(block, residual_fn=residual_fn, linearize_fn=None)
+    return dataclasses.replace(block, residual_fn=_Silenced(block.residual_fn), linearize_fn=None)
 
 
 def distributed_levenberg_marquardt(problem, x0, mesh, config=LMConfig(), manifold=None, axis="data"):
@@ -98,10 +108,15 @@ def distributed_levenberg_marquardt(problem, x0, mesh, config=LMConfig(), manifo
 
     Blocks with data are padded to the shard count and split; a block
     without data counts once, on the mesh's first shard. The damped solve of
-    the small (P, P) system runs on every process, on reduced inputs. The
-    loop runs the LM step's eager body, one read a trial, on the card too:
-    its sums go through ``Mesh.psum`` on the host, which a CUDA graph
-    cannot capture."""
+    the small (P, P) system runs on every process, on reduced inputs. On
+    CUDA, with every shard on x's device in this process
+    (``Mesh.on_one_device``), the sums are device work and the solve runs
+    as ``levenberg_marquardt`` does: one replay an outer iteration of a
+    graph captured once per layout (the mesh and every shard's block
+    structure in its key), each update hook (a shard's correspondence
+    search) inside it, no host read. A mesh across processes (gloo's
+    all-reduce runs on the host) or across cards runs the LM step's eager
+    body, one read a trial."""
     if not isinstance(problem, Problem):
         problem = Problem(blocks=(problem,))
     mesh.check_axis(axis)
