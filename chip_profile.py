@@ -2,7 +2,8 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_profile.py [--path fleet|icp|pair|gicp|pgo|ring_cg|sharded_cg] [--out DIR]
+    python3 chip_profile.py [--path fleet|icp|pair|gicp|pgo|ring_cg|sharded_cg|sharded_sequence|mesh_barrier]
+                            [--unprofiled] [--processes N] [--spread] [--out DIR]
 
 ``--path fleet`` (the default) builds the expansion kernel K6, makes the
 64-lane fachada fleet of ``chip_smoke.py`` and runs one pass of
@@ -44,7 +45,30 @@ with its observations over 4 shards, then the self-calibration from
 5(c)'s wrong intrinsics over 2, each solved twice by its graph (the
 capture, then the reference bits), then profiled three times by its graph
 and by its eager body, every profiled solve's result held to the
-reference bit for bit, and solved once more unprofiled.
+reference bit for bit, and solved once more unprofiled. ``--path
+sharded_sequence`` builds K11 and repeats, SEQUENCE_ROUNDS times in one
+process, ``chip_smoke.py`` phase 22's sharded BA paths on the headline
+(dense over 2 and 4 shards, CG over 2 and 4, the self-calibration over 2
+and 4), each solved by its graph (the reference bits, after its capture)
+and by its eager body, then profiled by its graph and by its eager body,
+every result held to the reference bit for bit and each step announced
+before it starts (some 40 profiler sessions in one process, as in the
+smoke run whose profiled self-calibration replay faulted); with
+``--unprofiled`` the same sequence runs without the profiler. ``--path
+mesh_barrier`` builds ``csrc/mesh_reduce.cu`` and starts this script twice
+(``--rank 0|1 --port P``) as two processes on the card over a local gloo
+group, whose mesh takes the device transport: each maps the other's IPC
+buffer, then rank 0 and rank 1 bounce a flag MESH_PINGS times in one launch
+(three times; µs a round trip by CUDA events), and both time an all-reduce
+of one float32 eagerly and as 100 reductions captured in one CUDA graph
+(µs each) and one of S's 5.76 MB, held bit for bit to the plain version.
+It runs the pair once as it is and once under MPS, if
+``nvidia-cuda-mps-control -d`` starts with its pipe and log directories
+under ``build/mps`` (the daemon is told to quit after), and prints the
+reason when it cannot. ``--processes N`` starts N processes (the flag is
+bounced by two only); ``--spread`` puts rank r on card r (the cards must
+be peers) and adds the headline CG BA with its observations over the
+processes, by its graph and its eager body (bit-equal, the ranks too).
 Prints the card, those host times and the traced one, the device time and busy share, the kernel
 launches and host syncs, the search kernel's share of device time and the
 kernels by device time, and writes the chrome trace to DIR (default
@@ -55,8 +79,13 @@ import argparse
 import contextlib
 import faulthandler
 import functools
+import json
+import os
 import re
+import shutil
+import socket
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -69,11 +98,12 @@ from moptimizer_0_tpu_torch import ba, ba_intrinsics, pose_graph, registration
 from moptimizer_0_tpu_torch.core import linearize as core_linearize
 from moptimizer_0_tpu_torch.core import solver
 from moptimizer_0_tpu_torch.core.solver import LMConfig
-from moptimizer_0_tpu_torch.kernels import build
+from moptimizer_0_tpu_torch.kernels import build, mesh_reduce
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.ops import device_loop, grid_nn
 from moptimizer_0_tpu_torch.ops.small_solve import capturable_linalg
+from moptimizer_0_tpu_torch.parallel import multihost
 from moptimizer_0_tpu_torch.registration import PairwiseRegistrar, icp, icp_batched
 
 faulthandler.enable()
@@ -174,6 +204,209 @@ def sharded_cg(dev):
         print(f"{name}: a graph solve after the profiles bit-equal {cs._same_result(solve(), ref)}", flush=True)
 
 
+SEQUENCE_ROUNDS = 3
+
+
+def sharded_sequence(dev, profiled):
+    """Phase 22's sharded BA paths, SEQUENCE_ROUNDS times in one process
+    (module docstring): a graph solve, an eager solve and, when
+    ``profiled``, a profile of each, every result bit-equal to the graph's
+    first."""
+    prob = ba.make_ba_problem(cs.BA_O, cs.BA_C, cs.BA_L, seed=cs.SEED, dtype=torch.float32, device=dev)
+    start = cs._selfcal_start(prob)
+    cfg = ba.BAConfig()
+    paths = [(f"dense_{n}", functools.partial(cs.ba_dense.solve_ba_dense_sharded, prob, cs.make_mesh(n)))
+             for n in (2, 4)]
+    paths += [(f"cg_{n}", functools.partial(ba.solve_ba, cs._observation_sharded(prob, cs.make_mesh(n)), cfg))
+              for n in (2, 4)]
+    paths += [(f"selfcal_{n}", functools.partial(ba_intrinsics.solve_ba_selfcal,
+                                                 cs._observation_sharded(start, cs.make_mesh(n)), cfg))
+              for n in (2, 4)]
+    refs, sessions = {}, 0
+    for r in range(SEQUENCE_ROUNDS):
+        for name, solve in paths:
+            print(f"round {r + 1}, {name}: solving by its graph ...", flush=True)
+            out = solve()
+            refs.setdefault(name, out)
+            same = [cs._same_result(out, refs[name])]
+            print(f"round {r + 1}, {name}: solving by its eager body ...", flush=True)
+            with device_loop.eager():
+                same.append(cs._same_result(solve(), refs[name]))
+            if profiled:
+                for side, context in (("graph", contextlib.nullcontext), ("eager body", device_loop.eager)):
+                    print(f"round {r + 1}, {name}: profiling its {side} (session {sessions + 1}) ...", flush=True)
+                    with context():
+                        out, calls, ms, wall = cs._launch_profile(solve)
+                    sessions += 1
+                    same.append(cs._same_result(out, refs[name]))
+                    print(f"round {r + 1}, {name}, {side}: launch calls {calls}, device ms {ms:.3f}, wall {wall:.3f} "
+                          f"s", flush=True)
+            print(f"round {r + 1}, {name}: bit-equal to the first graph solve {same}", flush=True)
+            if not all(same):
+                raise AssertionError(f"round {r + 1}, {name}: a solve differs from the first graph solve: {same}")
+    print(f"sharded sequence: {SEQUENCE_ROUNDS} rounds, {sessions} profiler sessions, every solve bit-equal",
+          flush=True)
+
+
+MESH_PINGS = 1000
+# each process of the barrier group is killed past this
+MESH_PAIR_TIMEOUT_S = 180
+
+
+def _mesh_group(env, n, spread):
+    """This script's barrier_rank in n processes (environment ``env``; with
+    ``spread`` rank r on card r): every rank's BARRIER record, or an error
+    string."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    extra = ["--processes", str(n)] + ["--spread"] * spread
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--path", "mesh_barrier", "--rank",
+                               str(r), "--port", str(port), *extra], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_PAIR_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    records = [json.loads(line[len("BARRIER "):]) for out in outs for line in out.splitlines()
+               if line.startswith("BARRIER ")]
+    if len(records) != n or any(p.returncode != 0 for p in procs):
+        return "the group failed: " + " | ".join(o[-1500:] for o in outs)
+    for rec in records:
+        ping = (f"flag round trip {', '.join(f'{u:.3f}' for u in rec['pingpong_us'])} µs ({MESH_PINGS} a launch); "
+                if rec["pingpong_us"] else "")
+        print(f"  rank {rec['rank']} on {rec['device']}: {ping}all-reduce of one float32 eagerly "
+              f"{rec['eager_us']:.2f} µs, in a graph {rec['graph_us']:.2f} µs; of S (5.76 MB) {rec['s_ms']:.4f} ms, "
+              f"bit-equal to the plain version {rec['s_bit_equal']}; transport {rec['transport']}", flush=True)
+        if rec["cg"]:
+            cg = rec["cg"]
+            print(f"    CG BA on the headline, {n} processes × 1 shard: graph {cg['graph_s']:.4f} s, eager body "
+                  f"{cg['eager_s']:.4f} s, first call {cg['first_s']:.4f} s; bit-equal to its eager body "
+                  f"{cg['bit_equal']}; digest {cg['digest']}", flush=True)
+    if len({r["cg"]["digest"] for r in records if r["cg"]}) > 1 or not all(r["s_bit_equal"] for r in records):
+        return "the ranks differ"
+    return records
+
+
+def mesh_barrier(dev, n=2, spread=False):
+    """The device transport's barrier between n processes, on one card (as
+    they are, then under MPS) or spread over the cards (module docstring)."""
+    where = "spread over the cards" if spread else "on one card"
+    print(f"mesh barrier, {n} processes {where}:", flush=True)
+    plain = _mesh_group(dict(os.environ), n, spread)
+    print(f"mesh barrier, {n} processes {where}: {plain if isinstance(plain, str) else 'done'}", flush=True)
+    if spread:
+        return
+    control = shutil.which("nvidia-cuda-mps-control")
+    root = Path("build/mps").resolve()
+    env = dict(os.environ, CUDA_MPS_PIPE_DIRECTORY=str(root / "pipe"), CUDA_MPS_LOG_DIRECTORY=str(root / "log"))
+    if control is None:
+        print("mesh barrier under MPS: not run (no nvidia-cuda-mps-control on PATH)", flush=True)
+        return
+    for d in ("pipe", "log"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    start = subprocess.run([control, "-d"], env=env, capture_output=True, text=True, timeout=60)
+    if start.returncode != 0:
+        print(f"mesh barrier under MPS: not run (nvidia-cuda-mps-control -d exited {start.returncode}: "
+              f"{(start.stdout + start.stderr).strip()[-500:]})", flush=True)
+        return
+    try:
+        print("mesh barrier, two processes under MPS:", flush=True)
+        mps = _mesh_group(env, n, False)
+        print(f"mesh barrier under MPS: {mps if isinstance(mps, str) else 'done'}", flush=True)
+    finally:
+        quit_ = subprocess.run([control], input="quit\n", env=env, capture_output=True, text=True, timeout=60)
+        logs = " | ".join(f"{f.name}: {f.read_text()[-400:]}" for f in sorted((root / "log").glob("*.log")))
+        print(f"MPS daemon told to quit (exit {quit_.returncode}); logs: {logs}", flush=True)
+
+
+def barrier_rank(rank, port, n, spread):
+    """One process of the barrier group: BARRIER {record} on stdout. Two
+    processes bounce a flag; every group times an all-reduce of one float32
+    (eagerly and in a graph of 100) and of S's 5.76 MB against the plain
+    version's bits; a spread group also solves the headline CG BA with its
+    observations over the processes, by its graph and its eager body."""
+    import torch.distributed as dist
+
+    from moptimizer_0_tpu_torch.parallel import mesh as mesh_module
+
+    multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=n, process_id=rank,
+                         initialization_timeout=120)
+    device = torch.device("cuda", rank % torch.cuda.device_count()) if spread else torch.device("cuda", 0)
+    torch.cuda.set_device(device)  # the events, the synchronisations and the capture's stream on its card
+    mesh = multihost.global_mesh(shards_per_process=1, device=str(device))
+    ipc = mesh.ipc
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    pings = []
+    if n == 2:
+        ipc.pingpong(10)
+        for _ in range(3):
+            pings.append(timed(lambda: ipc.pingpong(MESH_PINGS), 1) * 1e3 / MESH_PINGS)
+    x = torch.ones(1, dtype=torch.float32, device=device)
+    eager_us = timed(lambda: ipc.all_reduce(x, "sum"), 1000) * 1e3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(100):
+            y = ipc.all_reduce(x, "sum")
+    graph_us = timed(graph.replay, 10) * 1e3 / 100
+    if float(y) != n:
+        raise AssertionError(f"the all-reduce of {n} ones gave {float(y)}")
+    s = torch.as_tensor(np.random.default_rng(rank).normal(size=(6 * cs.BA_C) ** 2), dtype=torch.float32,
+                        device=device)
+    s_ms = timed(lambda: ipc.all_reduce(s, "sum"), 50)
+    s_equal = cs._same_result(ipc.all_reduce(s, "sum"), mesh_module._all_reduce_plain(s, "sum", mesh.group))
+    cg = None
+    if spread:
+        prob = ba.make_ba_problem(cs.BA_O, cs.BA_C, cs.BA_L, seed=cs.SEED, dtype=torch.float32, device=device)
+        sp = cs._observation_sharded(prob, mesh, multihost.host_local_shard)
+
+        def solve():
+            return ba.solve_ba(sp, ba.BAConfig())
+
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        walls = {}
+        for side, context in (("graph", contextlib.nullcontext), ("eager", device_loop.eager)):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with context():
+                out = solve()
+            torch.cuda.synchronize()
+            walls[side] = (time.perf_counter() - t0, out)
+        cg = dict(first_s=first_s, graph_s=walls["graph"][0], eager_s=walls["eager"][0],
+                  bit_equal=cs._same_result(walls["graph"][1], walls["eager"][1]),
+                  digest=cs._digest(walls["graph"][1].camera_params))
+    ipc.check()
+    print("BARRIER " + json.dumps(dict(rank=rank, device=str(device), transport=mesh.transport, pingpong_us=pings,
+                                       eager_us=eager_us, graph_us=graph_us, s_ms=s_ms, s_bit_equal=s_equal, cg=cg)),
+          flush=True)
+    del graph
+    mesh.close()
+    dist.destroy_process_group()
+
+
 def pgo_solve(cloud):
     """The first PGO_ITERATIONS outer iterations of the dense solve of
     chip_smoke.py's 2,000-pose ring graph, float32."""
@@ -241,6 +474,8 @@ PATHS = {
     "ring_cg": ("the 300-pose ring's CG PGO, by its graph and its eager body", None, None, None),
     "sharded_cg": ("the observation-sharded CG and self-cal graphs, profiled and held to their bits", None, None,
                    None),
+    "sharded_sequence": ("phase 22's sharded BA paths, repeated, profiled or not", None, None, None),
+    "mesh_barrier": ("the device transport's barrier between two processes, with and without MPS", None, None, None),
 }
 
 
@@ -248,16 +483,34 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=sorted(PATHS), default="fleet")
     parser.add_argument("--out", default="build/profile", help="directory for the chrome trace")
+    parser.add_argument("--unprofiled", action="store_true", help="sharded_sequence without the profiler")
+    parser.add_argument("--processes", type=int, default=2, help="mesh_barrier's processes (default 2)")
+    parser.add_argument("--spread", action="store_true", help="mesh_barrier with rank r on card r")
+    parser.add_argument("--rank", type=int, help="run as one of mesh_barrier's processes (internal)")
+    parser.add_argument("--port", type=int, help="mesh_barrier's group port on localhost (internal)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device; this runs on a GPU only")
+    if args.rank is not None:
+        barrier_rank(args.rank, args.port, args.processes, args.spread)
+        return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     print(smi[0])
-    if args.path in ("ring_cg", "sharded_cg"):
-        (ring_cg if args.path == "ring_cg" else sharded_cg)(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if args.path == "sharded_sequence":
+        build.build(cs.k_schur.NAME, cs.k_schur.SOURCES)
+        sharded_sequence(dev, not args.unprofiled)
+        return
+    if args.path in ("ring_cg", "sharded_cg", "mesh_barrier"):
+        if args.path == "mesh_barrier":
+            build.build(mesh_reduce.NAME, mesh_reduce.SOURCES)
+        if args.path == "mesh_barrier":
+            mesh_barrier(dev, args.processes, args.spread)
+        else:
+            dict(ring_cg=ring_cg, sharded_cg=sharded_cg)[args.path](dev)
         return
     what, make, kernel, stages = PATHS[args.path]
     if kernel is not None:

@@ -101,21 +101,30 @@ prints no result):
     bit, and one shard's K11 timed; (c) ``icp_batched`` over 4 shards of
     phase 6's fleet: every lane within 1e-5 of phase 6's (bit-equality
     reported), K6 once per shard per pass, B = 62 refused;
-15. two processes on the one card over a local gloo group (this script run
-    with ``--rank``; each killed past 300 s): over a mesh of 2 processes × 2
-    shards, the 64-row curve fit through ``make_global_block`` and
-    ``distributed_levenberg_marquardt`` (float64), and
-    ``solve_ba_dense_sharded`` on the phase-5 instance, each twice; both
-    processes must exit 0 and print the same bits (each solve's repeat
-    too), the BA within 1e-4 of phase 14(b)'s
-    4-shard cost, and each times an all-reduce of S's size with the CUDA
-    tensor handed to gloo and staged through the host; both also run
-    ``solve_ba`` (CG) on the phase-5 instance with the observations sharded
-    along rows, each process feeding its own half (``host_local_shard``,
-    ``make_global_array``), twice: the same bits in both processes and both
-    solves, the first three outer iterations within 1e-5 and the final cost
-    within 1e-5 of phase 16's 4-shard solve, the all-reduces of a solve
-    counted and timed, and ``engine="dense"`` refused;
+15. two processes on the one card (this script run with ``--rank``; each
+    killed past 300 s) over a mesh of 2 processes × 2 shards whose
+    transport is the device all-reduce through CUDA IPC buffers
+    (``kernels/mesh_reduce.py``; the gloo group makes the group and carries
+    the gathers): the 64-row curve fit through ``make_global_block`` and
+    ``distributed_levenberg_marquardt`` (float64), ``solve_ba_dense_sharded``
+    on the phase-5 instance, ``solve_ba`` (CG) on it with the observations
+    sharded along rows, each process feeding its own half
+    (``host_local_shard``, ``make_global_array``), and phase 18's
+    self-calibration, each by its CUDA graph twice (the first captures, in
+    each process) and by its step's body run eagerly on the card: every
+    graph solve bit-equal to its eager body and to its repeat, the two
+    processes bit-equal, 0 host reads in the loop (the self-calibration one
+    an outer iteration), K11 replayed shards × S builds, the transport's
+    launches counted; the BA within 1e-5 of phase 14(b)'s 4-shard cost, the
+    CG's first three outer iterations within 1e-5 and its final cost within
+    1e-5 of phase 16's 4-shard solve, ``engine="dense"`` refused; the CG
+    solved once more over a gloo mesh (the placement rule patched), its
+    digests equal to the device route's, its all-reduces counted and timed;
+    and the transport kernel held bit for bit to its plain version
+    (``parallel.mesh._all_reduce_plain``) for sum and max in float32 and
+    float64 at S's 5.76 MB and at 1,001 elements, timed beside the plain
+    version and gloo's all-reduce, and a reduction that one process skips
+    raising in the other within ``TRANSPORT_TIMEOUT_S`` plus a second;
 16. (run before 15) the observation-sharded CG engine in one process:
     ``solve_ba`` on the phase-5 instance with ``cam_idx``, ``pt_idx`` and
     ``pixels`` as ``GlobalArray``s over 2 and 4 shards (4 twice, bit-equal,
@@ -145,8 +154,7 @@ prints no result):
     within 1 px of the true ones, fixed cameras unmoved, no kernel launched,
     both processes bit-equal; the status reported (a NaN trial at the
     float32 floor ends a solve NUMERIC_ERROR, as in the JAX package); walls
-    beside 5(c)'s, host reads and, across processes, the all-reduces of a
-    solve;
+    beside 5(c)'s and host reads;
 19. (run after 5) the BA steps as CUDA graphs: on the headline, the CG,
     dense and self-calibrating solves through their graphs (``host_loop``
     False and True) must equal their step bodies run eagerly on the card
@@ -196,13 +204,13 @@ prints no result):
     eager body's; walls, the eager body's mesh reductions, launch calls,
     device ms and busy share, each capture's warm-up, capture and
     instantiation ms and pool bytes, and ``torch.cuda.max_memory_reserved()``.
-    Phase 15's processes (a mesh across processes) must capture nothing.
 
-Every LM, BA and PGO solve runs its step graph (outside phases 19–22's
-eager runs), the registrar's coarse multistart and every sharded solve of
-one process too (phase 15's processes run the eager loop): the launches of K5, K6 and K11 there are
-counted on the card (``replayed``), and a capture's warm-up launches each
-kernel of the step once more, eagerly. The dense-BA solve runs twice and
+Every LM, BA and PGO solve runs its step graph (outside phases 15's and
+19–22's eager runs and 15's gloo solve), the registrar's coarse multistart
+and every sharded solve too, across phase 15's processes included: the
+launches of K5, K6, K11 and the transport there are counted on the card
+(``replayed``), and a capture's warm-up launches each kernel of the step
+once more, eagerly. The dense-BA solve runs twice and
 must repeat itself bit for bit.
 
 Each kernel's line also carries its bound: the larger of the bytes it must
@@ -244,6 +252,7 @@ from moptimizer_0_tpu_torch.core.residual import make_block, problem
 from moptimizer_0_tpu_torch.core.solver import LMConfig, Status, levenberg_marquardt, lm_step, solve_multistart
 from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
 from moptimizer_0_tpu_torch.kernels import build, graph_cond
+from moptimizer_0_tpu_torch.kernels import mesh_reduce as k_mesh
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
@@ -472,14 +481,22 @@ SHARDED_BA_COST_RTOL = 1e-5
 # sums run in: held to 1e-5.
 FLEET_MESH = 4
 SHARDED_FLEET_TOL = 1e-5
-# Phase 15: two processes on the one card over a local gloo group, 2 shards
-# each, both running the 64-row curve fit and the dense-BA headline. The two
-# processes must print the same bits; the BA's 2 × 2 mesh splits the
+# Phase 15: two processes on the one card, 2 shards each, reducing through
+# the device transport (the gloo group makes the group and carries the
+# gathers), both running the 64-row curve fit and the dense-BA headline. The
+# two processes must print the same bits; the BA's 2 × 2 mesh splits the
 # landmarks as the 4-shard mesh of (b) and sums its 4 shards in another
 # order ((s0 + s1) + (s2 + s3)): the first iterations' costs to BA_COST_RTOL
 # and the final cost to SHARDED_BA_COST_RTOL of (b)'s, as (b) against phase 5.
 TWO_PROCESS_TIMEOUT_S = 300
 TWO_PROCESS_BA_RTOL = SHARDED_BA_COST_RTOL
+# The transport's checks in phase 15: the kernel against its plain version
+# at S's element count and at a small odd one, bit for bit (a rank-order
+# sum and a max are the same operations in the same order); a peer that
+# skips a reduction must make the other process's check raise within
+# TRANSPORT_TIMEOUT_S (the kernel's bounded spin) plus a second of slack.
+TRANSPORT_SIZES = ((6 * BA_C) ** 2, 1001)
+TRANSPORT_TIMEOUT_S = 2.0
 # Phase 16: the observation-sharded CG engine in one process, the headline
 # over 2 and 4 shards (4 twice) and the O=1M, C=4,000 instance over 4. The
 # shards sum U, V, g, h, the costs and each PCG iteration's two reductions in
@@ -525,7 +542,7 @@ PEAK_BYTES = 3.35e12
 
 def _reset_launches():
     """Every kernel's launch count set to 0, its replayed launches too."""
-    for k in (k_nn, k_expand, k_schur):
+    for k in (k_nn, k_expand, k_schur, k_mesh):
         k.reset_launches()
 
 
@@ -3032,10 +3049,10 @@ def _timed_all_reduces():
     stats = dict(count=0, ms=0.0)
     all_reduce, count = mesh_module._all_reduce, mesh_module.ALL_REDUCES
 
-    def timed(tensors, op, group):
+    def timed(tensors, op, mesh):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = all_reduce(tensors, op, group)
+        out = all_reduce(tensors, op, mesh)
         torch.cuda.synchronize()
         stats["ms"] += (time.perf_counter() - t0) * 1e3
         return out
@@ -3156,9 +3173,9 @@ def _digest(t):
     return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
 
 
-def _allreduce_ms(t, staged, reps=5):
-    """Median ms of one all-reduce of t over the default group: the CUDA
-    tensor given to gloo as it is, or staged through a host copy and back."""
+def _host_ms(fn, reps=5):
+    """Median ms of fn() between two synchronisations, both processes
+    starting together (a gloo barrier before each)."""
     import torch.distributed as dist
 
     times = []
@@ -3166,109 +3183,213 @@ def _allreduce_ms(t, staged, reps=5):
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
-        if staged:
-            host = t.cpu()
-            dist.all_reduce(host)
-            t.copy_(host)
-        else:
-            dist.all_reduce(t)
+        fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times)[reps // 2]
 
 
-def _cg_over_processes(prob, mesh):
-    """15, in each process: solve_ba (CG) with the observations sharded over
-    the processes' mesh, each feeding its own rows, twice, the all-reduces
-    counted and timed; then engine="dense", which must refuse."""
-    sp = _observation_sharded(prob, mesh, multihost.host_local_shard)
-    walls, digests, allreduces = [], [], []
-    for _ in range(2):  # the first solve builds the plans and loads the CG engine's modules
-        with _timed_all_reduces() as stats:
-            res, cost, wall_s, _ = _solve_cg(sp, engine="cg")
-        walls.append(wall_s)
-        allreduces.append(stats)
-        digests.append([_digest(res.cost), _digest(res.camera_params), _digest(res.points)])
-    k11 = k_schur.launches()
+def _rank_path(fn, lm=False):
+    """15, in each process: a solve across the processes by its graph twice
+    (the first captures its layout in this process) and by its step's body
+    run eagerly on the card (an LM body inside ``capturable_linalg``, on
+    which its step is captured), every kernel count set to 0 before each
+    and read after. Returns (the second graph solve's result, its row)."""
+    dev = torch.device("cuda", 0)
+    n0 = len(device_loop.CAPTURES)
+    _reset_launches()
+    first, first_s, _ = _loop_timed(fn)
+    transport = k_mesh.launches()
+    captured = len(device_loop.CAPTURES) - n0
+    loop = _latest_loop()
+    replays = loop.replays
+    _reset_launches()
+    graph, graph_s, graph_reads = _loop_timed(fn)
+    replays = loop.replays - replays
+    k11, t_replayed, t_eager = k_schur.replayed(), k_mesh.replayed(), k_mesh.LAUNCHES
+    k11_eager_in_graph = k_schur.LAUNCHES
+    _reset_launches()
+    all_reduces = mesh_module.ALL_REDUCES
+    with device_loop.eager(), (capturable_linalg(dev) if lm else contextlib.nullcontext()):
+        eager, eager_s, eager_reads = _loop_timed(fn)
+    res = graph if lm else _ba_result(graph)
+    row = dict(first_s=first_s, graph_s=graph_s, eager_s=eager_s, captured=captured,
+               captures=[c for c in device_loop.CAPTURES[n0:]], reads=dict(graph=graph_reads, eager=eager_reads),
+               replays=replays, iterations=int(res.iterations), status=int(res.status), outer=_outer_run(res),
+               bit_equal_eager=_same_result(graph, eager), bit_equal_repeat=_same_result(graph, first),
+               k11_replayed=k11, k11_eager_in_graph=k11_eager_in_graph, k11_eager=k_schur.LAUNCHES,
+               transport=dict(first=transport, replayed=t_replayed, eager_in_graph=t_eager, eager=k_mesh.LAUNCHES,
+                              eager_all_reduces=mesh_module.ALL_REDUCES - all_reduces))
+    row["launches"] = transport + t_replayed + t_eager + k_mesh.LAUNCHES
+    return graph, row
+
+
+def _ba_digests(res, intr=None):
+    return [_digest(res.cost), _digest(res.camera_params), _digest(res.points)] + ([_digest(intr)] if intr is not None
+                                                                                   else [])
+
+
+def _gloo_mesh():
+    """The processes' mesh over gloo: ``global_mesh`` with the placement
+    rule patched to pick it."""
+    choose = multihost.choose_transport
+    multihost.choose_transport = lambda places: "gloo"
     try:
-        ba.solve_ba(sp, engine="dense")
-    except ValueError as e:
-        refused = "solve_ba_dense_sharded" in str(e)
-    else:
-        refused = False
-    return dict(cost=cost, digests=digests, trials=res.trace["trials"].tolist(), wall_s=walls,
-                early=_early_costs(res.trace), allreduces=allreduces, dense_refused=refused,
-                rows=sp.pixels.local.shape[0], k11=k11,
-                fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+        return multihost.global_mesh(shards_per_process=2)
+    finally:
+        multihost.choose_transport = choose
 
 
-def _selfcal_over_processes(prob, mesh):
-    """18, in each of phase 15's processes: solve_ba_selfcal from 5(c)'s
-    start with the observations sharded over the processes' mesh, each
-    feeding its own rows, once (the CG solves before it have loaded the
-    engine's modules), its all-reduces counted and timed; then its first
-    outer iterations."""
-    sp = _observation_sharded(_selfcal_start(prob), mesh, multihost.host_local_shard)
-    with _timed_all_reduces() as stats:
-        res, intr, cost, wall_s, _, _ = _solve_selfcal(sp)
-    return dict(cost=cost, intr=intr.tolist(), iterations=int(res.iterations), status=int(res.status), wall_s=wall_s,
-                allreduces=stats, k11=k_schur.launches(), early=_selfcal_early(sp),
-                digests=[_digest(res.cost), _digest(res.camera_params), _digest(res.points), _digest(intr)],
-                fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+def _transport_checks(mesh, dev):
+    """15, in each process: the transport kernel (``mesh.ipc.all_reduce``)
+    against its plain version on the card, bit for bit, for sum and max in
+    float32 and float64 at TRANSPORT_SIZES (partials over 12 decades, each
+    rank its own); its ms at S's size (float32 sum) beside the plain
+    version's and gloo's all-reduce of the CUDA tensor, and µs at the small
+    size; then a fresh transport with TRANSPORT_TIMEOUT_S whose second
+    reduction rank 1 skips: rank 0's check must raise, naming the epoch,
+    rank 1's must not."""
+    import torch.distributed as dist
+
+    rng = np.random.default_rng(SEED + 40 + mesh.process_index)
+    cases, worst = [], 0.0
+    for n in TRANSPORT_SIZES:
+        for dtype in (torch.float32, torch.float64):
+            x = torch.as_tensor(rng.normal(size=n) * 10.0 ** rng.uniform(-6, 6, size=n), dtype=dtype, device=dev)
+            for op in k_mesh.OPS:
+                kernel = mesh.ipc.all_reduce(x, op)
+                plain = mesh_module._all_reduce_plain(x, op, mesh.group)
+                same = _same_result(kernel, plain)
+                err = float((kernel.double() - plain.double()).abs().max())
+                worst = max(worst, err)
+                cases.append(dict(n=n, dtype=str(dtype), op=op, bit_equal=same, max_abs_err=err,
+                                  digest=_digest(kernel)))
+    s = torch.as_tensor(rng.normal(size=TRANSPORT_SIZES[0]), dtype=torch.float32, device=dev)
+    small = s[:TRANSPORT_SIZES[1]].clone()
+    times = {}
+    for name, t, reps in (("kernel", s, 50), ("kernel_small", small, 200)):
+        mesh.ipc.all_reduce(t, "sum")
+        torch.cuda.synchronize()
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            mesh.ipc.all_reduce(t, "sum")
+        end.record()
+        end.synchronize()
+        times[name] = start.elapsed_time(end) / reps
+    times["plain"] = _host_ms(lambda: mesh_module._all_reduce_plain(s, "sum", mesh.group))
+    times["library"] = _host_ms(lambda: dist.all_reduce(s.clone()))
+    mesh.ipc.check()
+
+    probe = k_mesh.IpcBuffers(mesh.group, mesh.process_index, mesh.n_processes, dev, timeout_s=TRANSPORT_TIMEOUT_S)
+    probe.all_reduce(small, "sum")
+    if mesh.process_index == 0:
+        probe.all_reduce(small, "sum")  # rank 1 never arrives
+    t0 = time.perf_counter()
+    try:
+        probe.check()
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    timeout = dict(raised=raised, wall_s=time.perf_counter() - t0)
+    probe.close()
+    return dict(cases=cases, max_abs_err=worst, ms=times, timeout=timeout, bytes=s.numel() * 4,
+                slot_bytes=mesh.ipc.slot_bytes, buffers=len(mesh.ipc.generations))
 
 
 def rank_main(rank, port):
     """One of phase 15's two processes: both join a gloo group at
-    localhost:port and run, over a global mesh of 2 processes × 2 shards on
-    the card, the 64-row curve fit through make_global_block +
-    distributed_levenberg_marquardt (float64, each process feeding its 32
-    rows) and solve_ba_dense_sharded on the headline (float32), each twice
-    (the first is the process's cold start), then the observation-sharded
-    CG solve on the headline (``_cg_over_processes``) and phase 18's
-    self-calibration (``_selfcal_over_processes``). Prints one RESULT line
-    of JSON."""
+    localhost:port and make a global mesh of 2 processes × 2 shards on the
+    card, whose transport must be the device all-reduce; over it, the 64-row
+    curve fit through make_global_block + distributed_levenberg_marquardt
+    (float64, each process feeding its 32 rows), solve_ba_dense_sharded on
+    the headline (float32), the observation-sharded CG solve on it (each
+    process its own rows) and phase 18's self-calibration, each by its graph
+    and eagerly (``_rank_path``); the CG again over a gloo mesh; the
+    transport's checks (``_transport_checks``). Prints one RESULT line of
+    JSON."""
     import torch.distributed as dist
 
     dev = torch.device("cuda", 0)
     multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
                          initialization_timeout=TWO_PROCESS_TIMEOUT_S)
     mesh = multihost.global_mesh(shards_per_process=2)
-    out = dict(rank=rank, shards=mesh.shape["data"])
+    out = dict(rank=rank, shards=mesh.shape["data"], transport=mesh.transport)
+    if mesh.transport != "device" or mesh.ipc is None:
+        raise AssertionError(f"rank {rank}: two processes on one card took the {mesh.transport!r} transport")
 
     def residual(x, d):
         return torch.stack([d[1] - torch.exp(x[0] * d[0] + x[1])])
 
     data = torch.as_tensor(curve_fitting.CERES_CURVE_DATA[:64], dtype=torch.float64, device=dev)
     blk = multihost.make_global_block(make_block(residual, data=multihost.host_local_shard(data)), mesh)
-    walls, bits = [], []
-    for _ in range(2):  # the process's first CUDA work, then again
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = distributed_levenberg_marquardt(problem(blk), torch.zeros(2, dtype=torch.float64, device=dev), mesh,
-                                              LMConfig(max_iterations=25))
-        x = res.x.cpu()
-        walls.append(time.perf_counter() - t0)
-        bits.append(_digest(x))
-    out["curve"] = dict(x=[float(v) for v in x], bits=bits, status=int(res.status), iterations=int(res.iterations),
-                        wall_s=walls, rows=blk.data.shape[0])
+    res, row = _rank_path(lambda: distributed_levenberg_marquardt(
+        problem(blk), torch.zeros(2, dtype=torch.float64, device=dev), mesh, LMConfig(max_iterations=25)), lm=True)
+    out["curve"] = dict(row, x=res.x.tolist(), bits=_digest(res.x), rows=blk.data.shape[0])
 
     prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
-    walls, digests = [], []
-    for _ in range(2):  # the first solve loads the dense engine's CUDA modules and builds the plans
-        k_schur.reset_launches()
-        res, cost, wall_s = _solve_sharded(functools.partial(ba_dense.solve_ba_dense_sharded, prob, mesh))
-        walls.append(wall_s)
-        digests.append([_digest(res.cost), _digest(res.camera_params), _digest(res.points)])
-    out["ba"] = dict(cost=cost, digests=digests, trials=res.trace["trials"].tolist(), wall_s=walls,
+    res, row = _rank_path(functools.partial(ba_dense.solve_ba_dense_sharded, prob, mesh))
+    out["ba"] = dict(row, cost=float(res.cost), digests=_ba_digests(res), trials=res.trace["trials"].tolist(),
                      early=_early_costs(res.trace),
-                     k11=k_schur.launches(), fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
-    out["cg"] = _cg_over_processes(prob, mesh)
-    out["selfcal"] = _selfcal_over_processes(prob, mesh)
-    s = torch.ones((6 * BA_C) ** 2, dtype=torch.float32, device=dev)
-    out["allreduce_ms"] = dict(bytes=s.numel() * 4, cuda=_allreduce_ms(s, False), staged=_allreduce_ms(s, True))
-    out["captures"] = len(device_loop.CAPTURES)  # a mesh across processes runs the eager loop
+                     fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+
+    sp = _observation_sharded(prob, mesh, multihost.host_local_shard)
+    res, row = _rank_path(functools.partial(ba.solve_ba, sp, ba.BAConfig()))
+    try:
+        ba.solve_ba(sp, engine="dense")
+    except ValueError as e:
+        refused = "solve_ba_dense_sharded" in str(e)
+    else:
+        refused = False
+    gloo_sp = _observation_sharded(prob, _gloo_mesh(), multihost.host_local_shard)
+    with _timed_all_reduces() as stats:
+        gloo, _, gloo_s, gloo_reads = _solve_cg(gloo_sp)
+    out["cg"] = dict(row, cost=float(res.cost), digests=_ba_digests(res), trials=res.trace["trials"].tolist(),
+                     early=_early_costs(res.trace), dense_refused=refused, rows=sp.pixels.local.shape[0],
+                     fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])),
+                     gloo=dict(wall_s=gloo_s, reads=gloo_reads, all_reduces=stats, digests=_ba_digests(gloo),
+                               transport=gloo_sp.pixels.mesh.transport))
+
+    sp = _observation_sharded(_selfcal_start(prob), mesh, multihost.host_local_shard)
+    (res, intr), row = _rank_path(functools.partial(ba_intrinsics.solve_ba_selfcal, sp, ba.BAConfig()))
+    out["selfcal"] = dict(row, cost=float(res.cost), intr=intr.tolist(), digests=_ba_digests(res, intr),
+                          early=_selfcal_early(sp),
+                          fixed_unmoved=bool(torch.equal(res.camera_params[:2], prob.camera_params[:2])))
+    out["launches"] = sum(out[k]["launches"] for k in ("curve", "ba", "cg", "selfcal"))
+    out["captures"] = len(device_loop.CAPTURES)
+    out["check"] = _transport_checks(mesh, dev)
     print("RESULT " + json.dumps(out), flush=True)
+    mesh.close()
     dist.destroy_process_group()
+
+
+def _print_rank_path(rank, name, row):
+    t = row["transport"]
+    print(f"two processes, rank {rank}, {name}: first call {row['first_s']:.4f} s ({row['captured']} captures), "
+          f"graph {row['graph_s']:.4f} s, eager body {row['eager_s']:.4f} s; host reads graph {row['reads']['graph']}, "
+          f"eager {row['reads']['eager']}; replays {row['replays']}; iterations {row['iterations']}; bit-equal to "
+          f"its eager body {row['bit_equal_eager']}, to its first solve {row['bit_equal_repeat']}; transport launches "
+          f"first {t['first']}, graph {t['replayed']} replayed + {t['eager_in_graph']} eager, eager body {t['eager']} "
+          f"({t['eager_all_reduces']} all-reduces)" + (f"; K11 replayed {row['k11_replayed']}, eager body "
+                                                       f"{row['k11_eager']}" if row["k11_eager"] else ""))
+    for c in row["captures"]:
+        print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
+              f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
+
+
+def _hold_rank_path(name, a, b, reads):
+    """A path of both processes: captured, bit-equal to its eager body and
+    its repeat, ``reads`` host reads in the loop, the transport launched."""
+    for res in (a, b):
+        row = res[name]
+        if not row["captured"] or not row["bit_equal_eager"] or not row["bit_equal_repeat"]:
+            raise AssertionError(f"two processes, rank {res['rank']}, {name}: captures {row['captured']}, bit-equal "
+                                 f"to its eager body {row['bit_equal_eager']}, to its repeat {row['bit_equal_repeat']}")
+        expected = reads(row)
+        if row["reads"]["graph"] != expected or not row["transport"]["replayed"] or row["replays"] < 1:
+            raise AssertionError(f"two processes, rank {res['rank']}, {name}: {row['reads']['graph']} host reads "
+                                 f"(expected {expected}), transport replayed {row['transport']['replayed']}")
 
 
 def _hold_two_process_selfcal(a, b, truth, single, single_early):
@@ -3282,31 +3403,53 @@ def _hold_two_process_selfcal(a, b, truth, single, single_early):
     early = _early_gap(sc["early"], single_early)
     err = max(abs(u - v) for u, v in zip(sc["intr"], truth.tolist()))
     floor = _chi2_floor(BA_O, BA_C, BA_L, extra=4)
-    for res in (a, b):
-        st = res["selfcal"]["allreduces"]
-        print(f"two processes, rank {res['rank']}: sharded self-calibrating BA over its {res['cg']['rows']} rows "
-              f"(2 shards): wall {res['selfcal']['wall_s']:.4f} s, iterations {res['selfcal']['iterations']}, "
-              f"all-reduces {st['count']} ({st['ms']:.1f} ms), cost {res['selfcal']['cost']:.6e}")
     print(f"two processes, sharded self-calibrating BA: cost {rel:.3e} from the unsharded self-cal's "
           f"{float(single.cost):.6e} (bound {TWO_PROCESS_BA_RTOL:g}), its first {SHARDED_BA_TRACE_ITERS} outer "
           f"iterations' costs {early:.3e} from its (bound {BA_COST_RTOL:g}), intrinsics {sc['intr']}, "
           f"{err:.4e} px from the true ones (bound {SELFCAL_INTR_TOL:g})")
     if not early <= BA_COST_RTOL or not rel <= TWO_PROCESS_BA_RTOL:
         raise AssertionError(f"two processes: sharded self-cal BA {rel}, {early} from the unsharded one's")
-    if not err <= SELFCAL_INTR_TOL or not sc["fixed_unmoved"] or sc["k11"] or abs(sc["cost"] / floor - 1) > BA_BAND:
+    if (not err <= SELFCAL_INTR_TOL or not sc["fixed_unmoved"] or sc["k11_eager"] or sc["k11_replayed"]
+            or abs(sc["cost"] / floor - 1) > BA_BAND):
         raise AssertionError(f"two processes: sharded self-cal BA {sc}")
-    return dict({k: sc[k] for k in ("wall_s", "cost", "iterations", "allreduces", "intr", "k11")},
+    return dict({k: sc[k] for k in ("graph_s", "eager_s", "cost", "iterations", "intr", "launches")},
                 rel_unsharded=rel, early_rel_unsharded=early, intrinsics_err=err)
+
+
+def _hold_transport(a, b):
+    """15's transport checks of both processes: every case bit-equal and the
+    same bits in both, rank 0's probe raised (naming its epoch) within
+    TRANSPORT_TIMEOUT_S + 1 s, rank 1's did not; the transport launched on
+    the main path of both."""
+    ca, cb = a["check"], b["check"]
+    for res in (a, b):
+        c = res["check"]
+        print(f"two processes, rank {res['rank']}: transport kernel against its plain version: "
+              + ", ".join(f"{k['op']} {k['dtype'].split('.')[-1]} n={k['n']} {k['bit_equal']}" for k in c["cases"])
+              + f"; all-reduce of S ({c['bytes']} bytes) kernel {c['ms']['kernel']:.4f} ms, plain (all-gather over "
+              f"gloo + sum) {c['ms']['plain']:.3f} ms, gloo {c['ms']['library']:.3f} ms; {TRANSPORT_SIZES[1]} "
+              f"elements {c['ms']['kernel_small'] * 1e3:.2f} µs; slots {c['slot_bytes']} bytes in {c['buffers']} "
+              f"buffers; main-path launches {res['launches']}; probe: raised {bool(c['timeout']['raised'])} in "
+              f"{c['timeout']['wall_s']:.3f} s ({c['timeout']['raised'][:120]})")
+    same = [x["digest"] == y["digest"] for x, y in zip(ca["cases"], cb["cases"])]
+    if not all(k["bit_equal"] for c in (ca, cb) for k in c["cases"]) or not all(same):
+        raise AssertionError(f"two processes: the transport kernel differs from its plain version {ca} {cb}")
+    t0, t1 = ca["timeout"], cb["timeout"]
+    if "epoch 2" not in t0["raised"] or t0["wall_s"] > TRANSPORT_TIMEOUT_S + 1.0 or t1["raised"]:
+        raise AssertionError(f"two processes: the skipped reduction: rank 0 {t0}, rank 1 {t1}")
+    if not a["launches"] or not b["launches"]:
+        raise AssertionError(f"two processes: the transport launched {a['launches']}, {b['launches']} times")
 
 
 def run_two_processes(ba4, cg4, selfcal):
     """15: this script's rank_main in two processes on the one card. Each
     must exit 0 within TWO_PROCESS_TIMEOUT_S (both are killed otherwise),
-    both must print the same bits, the dense BA must agree with 14(b)'s
-    4-shard solve, the sharded CG BA with 16's and the sharded self-cal (18)
-    with 5(c)'s unsharded one: their first iterations' costs to
-    BA_COST_RTOL, the final costs to TWO_PROCESS_BA_RTOL. selfcal: (the
-    truth's intrinsics, 5(c)'s result, its first iterations' costs)."""
+    both must print the same bits, every path must capture and equal its
+    eager body, the dense BA must agree with 14(b)'s 4-shard solve, the
+    sharded CG BA with 16's (and its gloo solve with it bit for bit) and the
+    sharded self-cal (18) with 5(c)'s unsharded one: their first iterations'
+    costs to BA_COST_RTOL, the final costs to TWO_PROCESS_BA_RTOL. selfcal:
+    (the truth's intrinsics, 5(c)'s result, its first iterations' costs)."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -3336,61 +3479,85 @@ def run_two_processes(ba4, cg4, selfcal):
     if set(results) != {0, 1}:
         raise AssertionError(f"two processes: results from ranks {sorted(results)}:\n{outs}")
     a, b = results[0], results[1]
+    for res in (a, b):
+        for name in ("curve", "ba", "cg", "selfcal"):
+            _print_rank_path(res["rank"], name, res[name])
     same = all(a[k][f] == b[k][f] for k, fs in (("curve", ("bits", "status", "iterations")),
                                                ("ba", ("digests", "trials")), ("cg", ("digests", "trials")),
                                                ("selfcal", ("digests", "iterations", "early")))
                for f in fs)
-    repeats = all(len(set(map(str, r[k][f]))) == 1 for r in (a, b)
-                  for k, f in (("curve", "bits"), ("ba", "digests"), ("cg", "digests")))
     cg_rel = abs(a["cg"]["cost"] / float(cg4.cost) - 1)
     cg_early = _early_gap(a["cg"]["early"], _early_costs(cg4.trace))
     rel = abs(a["ba"]["cost"] / float(ba4.cost) - 1)
     early = _early_gap(a["ba"]["early"], _early_costs(ba4.trace))
     builds = sum(a["ba"]["trials"])
-    for res in (a, b):
-        curve_s = ", ".join(f"{t:.4f}" for t in res["curve"]["wall_s"])
-        ba_s = ", ".join(f"{t:.4f}" for t in res["ba"]["wall_s"])
-        print(f"two processes, rank {res['rank']} ({res['shards']} shards over 2 processes): curve fit x "
-              f"{res['curve']['x']} ({res['curve']['rows']} rows), walls {curve_s} s; dense BA walls {ba_s} s, "
-              f"S builds {sum(res['ba']['trials'])}, K11 launches {res['ba']['k11']}, cost {res['ba']['cost']:.6e}; "
-              f"all-reduce of S ({res['allreduce_ms']['bytes']} bytes): CUDA tensor to gloo "
-              f"{res['allreduce_ms']['cuda']:.3f} ms, staged through the host {res['allreduce_ms']['staged']:.3f} ms")
-    print(f"two processes: wall {wall_s:.3f} s (start to exit); captures {a['captures']}, {b['captures']} (the "
-          f"eager loop across processes); results bit-equal between the ranks: {same}, "
-          f"and between each rank's two solves: {repeats}; BA cost {rel:.3e} from the 4-shard solve's "
-          f"{float(ba4.cost):.6e} (bound {TWO_PROCESS_BA_RTOL:g}), its first {SHARDED_BA_TRACE_ITERS} outer "
-          f"iterations' costs {early:.3e} from its (bound {BA_COST_RTOL:g})")
-    if not same or not repeats:
+    print(f"two processes: wall {wall_s:.3f} s (start to exit); transport {a['transport']}, {b['transport']}; "
+          f"captures {a['captures']}, {b['captures']}; results bit-equal between the ranks: {same}; curve fit x "
+          f"{a['curve']['x']}; BA cost {rel:.3e} from the 4-shard solve's {float(ba4.cost):.6e} (bound "
+          f"{TWO_PROCESS_BA_RTOL:g}), its first {SHARDED_BA_TRACE_ITERS} outer iterations' costs {early:.3e} from its "
+          f"(bound {BA_COST_RTOL:g}), S builds {builds}")
+    if not same:
         raise AssertionError(f"two processes: the results differ: {a} {b}")
-    if a["captures"] or b["captures"]:
-        raise AssertionError(f"two processes: a mesh across processes captured {a['captures']}, {b['captures']} graphs")
+    _hold_rank_path("curve", a, b, lambda row: 0)
+    _hold_rank_path("ba", a, b, lambda row: 0)
+    _hold_rank_path("cg", a, b, lambda row: 0)
+    _hold_rank_path("selfcal", a, b, lambda row: row["outer"])
     if not early <= BA_COST_RTOL:
         raise AssertionError(f"two processes: the first iterations' costs are {early} from the 4-shard solve's")
     if not rel <= TWO_PROCESS_BA_RTOL or not a["ba"]["fixed_unmoved"]:
         raise AssertionError(f"two processes: BA cost {rel} from the 4-shard solve's, fixed {a['ba']['fixed_unmoved']}")
     for res in (a, b):
-        cg = res["cg"]
-        print(f"two processes, rank {res['rank']}: sharded CG BA over its {cg['rows']} rows (2 shards): walls "
-              + ", ".join(f"{t:.4f}" for t in cg["wall_s"]) + " s, all-reduces a solve "
-              + ", ".join(f"{st['count']} ({st['ms']:.1f} ms)" for st in cg["allreduces"])
-              + f", cost {cg['cost']:.6e}, engine='dense' refused: {cg['dense_refused']}")
+        g = res["cg"]["gloo"]
+        print(f"two processes, rank {res['rank']}: sharded CG BA over its {res['cg']['rows']} rows on the gloo route: "
+              f"wall {g['wall_s']:.4f} s, all-reduces {g['all_reduces']['count']} ({g['all_reduces']['ms']:.1f} ms), "
+              f"host reads {g['reads']}; digests equal to the device route's {g['digests'] == res['cg']['digests']}; "
+              f"engine='dense' refused: {res['cg']['dense_refused']}")
     print(f"two processes, sharded CG BA: cost {cg_rel:.3e} from the 4-shard solve's {float(cg4.cost):.6e} (bound "
           f"{TWO_PROCESS_BA_RTOL:g}), its first {SHARDED_BA_TRACE_ITERS} outer iterations' costs {cg_early:.3e} from "
           f"its (bound {BA_COST_RTOL:g})")
     if not cg_early <= BA_COST_RTOL or not cg_rel <= TWO_PROCESS_BA_RTOL:
         raise AssertionError(f"two processes: sharded CG BA {cg_rel}, {cg_early} from the 4-shard solve's")
-    if not a["cg"]["fixed_unmoved"] or a["cg"]["k11"] or not (a["cg"]["dense_refused"] and b["cg"]["dense_refused"]):
+    if any(res["cg"]["gloo"]["digests"] != res["cg"]["digests"] or res["cg"]["gloo"]["transport"] != "gloo"
+           for res in (a, b)):
+        raise AssertionError("two processes: the CG solve on the gloo route differs from the device route's")
+    if (not a["cg"]["fixed_unmoved"] or a["cg"]["k11_replayed"] or a["cg"]["k11_eager"]
+            or not (a["cg"]["dense_refused"] and b["cg"]["dense_refused"])):
         raise AssertionError(f"two processes: sharded CG BA {a['cg']} {b['cg']}")
-    if a["ba"]["k11"] != 2 * builds or a["curve"]["status"] == Status.NUMERIC_ERROR:
-        raise AssertionError(f"two processes: K11 launched {a['ba']['k11']} times for 2 x {builds}")
+    for res in (a, b):
+        d = res["ba"]
+        if not d["k11_replayed"] == d["k11_eager"] == 2 * builds or d["k11_eager_in_graph"]:
+            raise AssertionError(f"two processes: K11 replayed {d['k11_replayed']}, eager {d['k11_eager']} "
+                                 f"({d['k11_eager_in_graph']} eager in the graph solve) for 2 x {builds} S builds")
+    if a["curve"]["status"] == Status.NUMERIC_ERROR:
+        raise AssertionError("two processes: the curve fit ended NUMERIC_ERROR")
     sc = _hold_two_process_selfcal(a, b, *selfcal)
     curve_err = max(abs(u - v) for u, v in zip(a["curve"]["x"], CURVE_MINIMUM_64))
     if curve_err > 5e-5:
         raise AssertionError(f"two processes: the curve fit is {curve_err} from its minimum")
-    return dict(wall_s=wall_s, captures=[a["captures"], b["captures"]], curve=a["curve"], ba={k: a["ba"][k] for k in ("wall_s", "cost", "k11")},
-                rel_4_shard=rel, early_rel_4_shard=early, allreduce_ms={r: results[r]["allreduce_ms"] for r in results},
-                cg={k: a["cg"][k] for k in ("wall_s", "cost", "allreduces", "rows", "k11")}, cg_rel_4_shard=cg_rel,
-                cg_early_rel_4_shard=cg_early, selfcal=sc)
+    _hold_transport(a, b)
+    paths = {k: {f: a[k][f] for f in ("first_s", "graph_s", "eager_s", "captured", "reads", "replays", "launches",
+                                      "transport")} for k in ("curve", "ba", "cg", "selfcal")}
+    return dict(wall_s=wall_s, captures=[a["captures"], b["captures"]], paths=paths, rel_4_shard=rel,
+                early_rel_4_shard=early, cg_rel_4_shard=cg_rel, cg_early_rel_4_shard=cg_early, selfcal=sc,
+                k11=a["ba"]["k11_replayed"], cg_gloo={r["rank"]: r["cg"]["gloo"] for r in (a, b)},
+                transport={r["rank"]: dict(r["check"], launches=r["launches"]) for r in (a, b)})
+
+
+def transport_entry(two):
+    """The kernels line's row of the device all-reduce, a graph helper (the
+    psum across processes), not a port of a TPU kernel: rank 0's launches on
+    phase 15's main path, its worst difference from the plain version, its
+    ms at S's size beside the plain version's and gloo's; the bound is the
+    bytes (P + 1)·n over the card's rate (the barrier's round trip is
+    chip_profile.py --path mesh_barrier's)."""
+    c = two["transport"][0]
+    n_bytes = (2 + 1) * c["bytes"]
+    return dict(name="mesh_reduce", route="cuda", source="moptimizer_0_tpu_torch/csrc/mesh_reduce.cu",
+                replaces="moptimizer_0_tpu/parallel/sharded.py:55", kind="graph helper: the psum across processes",
+                launches=c["launches"], max_abs_err=max(c["max_abs_err"], two["transport"][1]["max_abs_err"]),
+                ms=c["ms"]["kernel"], plain_ms=c["ms"]["plain"], bound_ms=n_bytes / PEAK_BYTES * 1e3,
+                bound_by="bytes", library_ms=c["ms"]["library"], small_ms=c["ms"]["kernel_small"],
+                launches_by_path={k: v["launches"] for k, v in two["paths"].items()})
 
 
 def main():
@@ -3409,7 +3576,7 @@ def main():
         print(f"time {time.perf_counter() - t_start:.1f} s: phases {phases} done", flush=True)
 
     t0 = time.perf_counter()
-    kernels = (k_nn, k_expand, k_schur, graph_cond)
+    kernels = (k_nn, k_expand, k_schur, graph_cond, k_mesh)
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
         futures = [pool.submit(build.build, k.NAME, k.SOURCES) for k in kernels]
         built = [f.result() for f in futures]
@@ -3568,12 +3735,12 @@ def main():
               sharded_device_loop_replayed_launches={k: r["kernel_replayed"] for k, r in sharded_loop.items()
                                                      if k.startswith("dense")},
               sharded_ba_shard_ms={n: r["k11_shard_ms"] for n, r in ba_sharded.items()},
-              two_process_launches=two["ba"]["k11"],
-              sharded_cg_launches={k: r["k11"] for k, r in cg_sharded.items()}, two_process_cg_launches=two["cg"]["k11"],
+              two_process_replayed_launches=two["k11"],
+              sharded_cg_launches={k: r["k11"] for k, r in cg_sharded.items()},
               sharded_selfcal_launches={k: r["k11"] for k, r in selfcal_sharded.items()},
-              two_process_selfcal_launches=two["selfcal"]["k11"],
               examples_launches={k: v["k11"] for k, v in examples.items() if v["k11"]},
               blocked_dense_launches=blocked["k11"]),
+        transport_entry(two),
     ]
     print(json.dumps({"slam": {
         m: {k: v for k, v in r.items() if k != "reg"} for m, r in slam.items()

@@ -23,7 +23,7 @@ poses and L landmarks from O pixel observations.
   On CUDA an outer iteration is one replay of a CUDA graph (``ba_step``),
   and ``solve_ba`` enqueues max_iterations replays with no host read
   (``ops/device_loop.py``). Eagerly (on the CPU, or for a problem sharded
-  across processes or cards) the same body reads the device once a trial,
+  over a gloo mesh or across cards) the same body reads the device once a trial,
   once every 32 PCG iterations and once an outer iteration (``HOST_READS``
   counts the reads).
 
@@ -41,12 +41,13 @@ its device; U, V, g, h and the costs are summed over the mesh
 JAX engine. Cameras, points and the solver's vectors are replicated, so
 every process reads the same flags and the processes' loops stay in
 lockstep. The unsharded solve is the one-shard case of the same step. With
-every shard in this process on the cameras' device (``Mesh.on_one_device``)
-a reduction is device work, and the sharded step is captured as the
+every local shard on the cameras' device and the reductions device work
+(``Mesh.captures_on``: one process, or processes of one host reducing
+through ``kernels/mesh_reduce.py``) the sharded step is captured as the
 unsharded one is: each PCG iteration's two reductions inside its IF node,
-the shards and their plans made before the capture. A mesh across
-processes (gloo's all-reduce runs on the host) or across cards runs the
-eager loop.
+the shards and their plans made before the capture, a graph in every
+process. A gloo mesh or one across cards runs the eager loop. A sharded
+solve or step ends with ``Mesh.check``.
 """
 
 import dataclasses
@@ -661,10 +662,10 @@ def _record_dtypes(dtype):
 def _graphs(problem):
     """Whether the BA step of this problem is a CUDA graph: on the card,
     outside ``device_loop.eager()``, unsharded or sharded over a mesh that
-    lies in this process on the cameras' device."""
+    captures on the cameras' device (``Mesh.captures_on``)."""
     mesh = _mesh_of(problem)
     dev = problem.camera_params.device
-    return device_loop.graphs(problem.camera_params) and (mesh is None or mesh.on_one_device(dev))
+    return device_loop.graphs(problem.camera_params) and (mesh is None or mesh.captures_on(dev))
 
 
 def _observations_key(problem):
@@ -684,7 +685,7 @@ def _cg_loop(problem, config):
     shards). On CUDA the loop is captured once per layout (the incidence,
     pixels, intrinsics, loss, gauge, shapes, dtype and config; the mesh and
     the GlobalArrays of an observation-sharded problem) and kept; on the
-    CPU, or sharded across processes or cards, it is eager."""
+    CPU, or sharded over a gloo mesh or across cards, it is eager."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     graph = _graphs(problem)
 
@@ -716,13 +717,14 @@ def ba_step(problem, lam, config=BAConfig()):
     record), all tensors (``_outer_step``). Pass λ = −1 on the first call to
     seed λ from the GN diagonal. On CUDA the step is one replay of a graph
     captured at the first call of its layout, with no host read, an
-    observation-sharded problem's too when its mesh lies in this process on
-    the cameras' device; sharded across processes or cards it steps
+    observation-sharded problem's too when its mesh captures on the
+    cameras' device; sharded over a gloo mesh or across cards it steps
     eagerly."""
     loop = _cg_loop(problem, config)
     loop.start((problem.camera_params, problem.points, lam))
     loop.step(_read)
     (cams, pts, lam), terminal, status, record = loop.outputs()
+    loop.context[0].check()
     return cams, pts, lam, terminal, status, record
 
 
@@ -821,13 +823,13 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
 
     On CUDA an outer iteration is one replay of the ``ba_step`` graph
     (captured at the first solve of its layout), an observation-sharded
-    problem's too when its mesh lies in this process on the cameras'
-    device. The default ``host_loop=False`` enqueues max_iterations
+    problem's too when its mesh captures on the cameras' device
+    (``Mesh.captures_on``). The default ``host_loop=False`` enqueues max_iterations
     replays, each under IF(¬done), with the trace written on the device: no
     host read after the first capture. ``host_loop=True`` reads done after
     each replay and stops there (one read an outer iteration). Both give the
-    same bits. On the CPU, and for a problem sharded across processes or
-    cards (module docstring), the same step body runs eagerly, reading the
+    same bits. On the CPU, and for a problem sharded over a gloo mesh or
+    across cards (module docstring), the same step body runs eagerly, reading the
     device once a trial, once every 32 PCG iterations and once an outer
     iteration, whatever ``host_loop`` says; the cameras and points of a
     sharded solve are replicated on every process, and "dense" takes it
@@ -855,4 +857,6 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
     loop.start((problem.camera_params, problem.points, -1.0))
     loop.solve(config.max_iterations, _read, host_loop)
     cams, pts = loop.carry[0].clone(), loop.carry[1].clone()
-    return _loop_result(loop, cams, pts, _mesh_cost(*loop.context, cams, pts))
+    result = _loop_result(loop, cams, pts, _mesh_cost(*loop.context, cams, pts))
+    loop.context[0].check()
+    return result

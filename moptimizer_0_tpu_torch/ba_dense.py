@@ -30,10 +30,12 @@ h and back-substitution, and the camera-space objects (U, g, the costs, the
 S correction, the rhs reduction and the landmark terms of the step's
 metrics) are summed over the mesh, max|diag V| and max|δpt| maxed; the
 (6C)² Cholesky and the camera step run once per process on reduced inputs.
-With every shard in this process on the cameras' device its step is a CUDA
-graph as the unsharded one's, K11 launched once a shard an S build inside
-it; across processes (gloo's all-reduce runs on the host) or cards it runs
-the eager loop, one host read a trial and an outer iteration.
+With every local shard on the cameras' device and the reductions device
+work (``Mesh.captures_on``: one process, or processes of one host reducing
+through ``kernels/mesh_reduce.py``) its step is a CUDA graph as the
+unsharded one's, K11 launched once a shard an S build inside it; over a
+gloo mesh or across cards it runs the eager loop, one host read a trial and
+an outer iteration.
 """
 
 import collections
@@ -717,14 +719,14 @@ def _sharded_dense_loop(problem, mesh, config, grouped, n_shards):
     """The StepLoop of ``solve_ba_dense_sharded``, its context the shards'
     GroupedBAs. The grouping (unless ``grouped`` is given), the shard grids
     and each shard's camera and K11 pair plans are made once, before the
-    capture. On CUDA with the mesh in this process on the cameras' device
-    the loop is captured once per layout (the mesh by value, the incidence
+    capture. On CUDA with a mesh that captures on the cameras' device the
+    loop is captured once per layout (the mesh by value, the incidence
     and pixels by identity, ``grouped`` when given, intrinsics, loss, gauge,
     shapes, dtype and config: K11 runs inside the graph) and kept;
     otherwise it is eager."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     C = problem.camera_params.shape[0]
-    graph = device_loop.graphs(problem.camera_params) and mesh.on_one_device(dev)
+    graph = device_loop.graphs(problem.camera_params) and mesh.captures_on(dev)
 
     def make():
         shards = _shard_grids(problem, mesh, group_by_landmark(problem) if grouped is None else grouped, n_shards)
@@ -770,13 +772,14 @@ def solve_ba_dense_sharded(problem, mesh, config=DenseBAConfig(), axis="data", g
     problem's landmark order, on every process. Pass ``grouped`` (from
     ``group_by_landmark``) to reuse the host grouping.
 
-    On CUDA, with the mesh in this process on the cameras' device, an outer
-    iteration is one replay of a graph captured at the first solve of its
-    layout (K11 once a shard an S build inside it) and a solve reads
-    nothing back; a repeat solve of the same problem replays, with
-    ``grouped`` None too (its grouping is made once, with the graph).
-    Across processes or cards the step runs eagerly, one host read a trial
-    and an outer iteration.
+    On CUDA, with a mesh that captures on the cameras' device
+    (``Mesh.captures_on``), an outer iteration is one replay of a graph
+    captured at the first solve of its layout (K11 once a shard an S build
+    inside it) and the loop reads nothing back; a repeat solve of the same
+    problem replays, with ``grouped`` None too (its grouping is made once,
+    with the graph). Over a gloo mesh or across cards the step runs
+    eagerly, one host read a trial and an outer iteration. The solve ends
+    with ``Mesh.check``, then gathers the points over the group.
     """
     n_shards = mesh.check_axis(axis)
     L = problem.points.shape[0]
@@ -788,5 +791,6 @@ def solve_ba_dense_sharded(problem, mesh, config=DenseBAConfig(), axis="data", g
     cost = mesh.psum(
         [_cost_grouped(cams.to(d), p, intr.to(d), s) for p, s, d in zip(pts, loop.context, mesh.devices)], device=dev
     )
+    mesh.check()
     points = mesh.gather_rows(torch.cat([p.to(dev) for p in pts]))[:L]
     return ba._loop_result(loop, cams, points, cost)

@@ -28,7 +28,7 @@ cameras and landmarks, so they need no reduction of their own. The JAX
 package runs the same solve under GSPMD and refuses only a row count the
 mesh does not divide; so does this. The unsharded solve is the one-shard
 case, and a sharded step is a CUDA graph where the CG engine's is (its
-mesh in this process on the cameras' device).
+mesh captures on the cameras' device, ``Mesh.captures_on``).
 """
 
 import dataclasses
@@ -162,8 +162,8 @@ def _step_selfcal(problem, lam, config, mesh, shards, plans):
 def _selfcal_loop(problem, config):
     """The StepLoop of the self-calibrating step, the intrinsics part of the
     carry, its context (mesh, shards): captured once per layout on CUDA, as
-    ``ba._cg_loop``'s (an observation-sharded problem's when its mesh lies
-    in this process on the cameras' device), eager otherwise."""
+    ``ba._cg_loop``'s (an observation-sharded problem's when its mesh
+    captures on the cameras' device), eager otherwise."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     graph = ba._graphs(problem)
 
@@ -195,12 +195,13 @@ def ba_step_selfcal(problem, lam, config=ba.BAConfig()):
     (cams, pts, θ, λ′, terminal, status, record), all tensors; λ = −1 seeds
     λ. On CUDA the step is one replay of a graph captured at the first call
     of its layout, with no host read, an observation-sharded problem's too
-    when its mesh lies in this process on the cameras' device; sharded
-    across processes or cards it steps eagerly."""
+    when its mesh captures on the cameras' device; sharded over a gloo mesh
+    or across cards it steps eagerly."""
     loop = _selfcal_loop(problem, config)
     loop.start((problem.camera_params, problem.points, problem.intrinsics, lam))
     loop.step(ba._read)
     (cams, pts, intr, lam), terminal, status, record = loop.outputs()
+    loop.context[0].check()
     return cams, pts, intr, lam, terminal, status, record
 
 
@@ -209,12 +210,13 @@ def solve_ba_selfcal(problem, config=ba.BAConfig()):
     does: one ``ba_step_selfcal`` an outer iteration (on CUDA one graph
     replay) and one read of its terminal flag. Returns (BAResult with an
     empty trace, θ). An observation-sharded problem steps so too when its
-    mesh lies in this process on the cameras' device, and eagerly across
-    processes or cards; the cameras, points and θ of the result are
-    replicated on every process."""
+    mesh captures on the cameras' device, and eagerly over a gloo mesh or
+    across cards; the cameras, points and θ of the result are replicated
+    on every process."""
     loop = _selfcal_loop(problem, config)
     loop.start((problem.camera_params, problem.points, problem.intrinsics, -1.0))
     loop.solve(config.max_iterations, ba._read, host_loop=True)
     cams, pts, intr, _ = (t.clone() for t in loop.carry)
     result = ba._loop_result(loop, cams, pts, ba._mesh_cost(*loop.context, cams, pts, intr))
+    loop.context[0].check()
     return dataclasses.replace(result, trace={}), intr

@@ -36,11 +36,13 @@ back after the layout's first capture. Eagerly, on the CPU or inside
 counted ``_read`` (``HOST_READS``) once before each trial and once an outer
 iteration. ``verbose=True`` prints every trial, so it runs the eager body
 on the card too. A problem sharded over a mesh (``parallel.sharded``)
-whose shards all lie in this process on x's device is captured like any
-other, its ``Mesh.psum`` sums being device work, its shards' data leaves in
-the carry and the mesh and every shard's block structure in the key; a
-mesh across processes (gloo's all-reduce runs on the host) or across
-cards runs the eager body.
+whose local shards all lie on x's device and whose reductions are device
+work (``Mesh.captures_on``: one process, or processes of one host reducing
+through ``kernels/mesh_reduce.py``) is captured like any other, its shards'
+data leaves in the carry and the mesh and every shard's block structure in
+the key; every process of a mesh captures and replays its own graph. A
+gloo mesh (processes on several hosts) or one across cards runs the eager
+body.
 A capture records PyTorch's factorizations on cuSOLVER and cuBLAS
 (``ops.small_solve.capturable_linalg``); the eager body runs on PyTorch's
 default routes, which send a batched Cholesky solve to MAGMA, and equals
@@ -476,9 +478,10 @@ def _record_spec(config, n_blocks, dtype, lanes=()):
 def _graphs(problem, x, config):
     """Whether this solve's step is a CUDA graph: on the card, outside
     ``device_loop.eager()``, unless it prints every trial or its problem is
-    sharded over a mesh that is not all on x's device in this process."""
+    sharded over a mesh that cannot capture on x's device
+    (``Mesh.captures_on``)."""
     return (device_loop.graphs(x) and not config.verbose
-            and (not _sharded(problem) or problem.mesh.on_one_device(x.device)))
+            and (not _sharded(problem) or problem.mesh.captures_on(x.device)))
 
 
 def _single_loop(problem, x, config, manifold):
@@ -517,10 +520,11 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
 
     On CUDA the solve is max_iterations replays of its step's graph, with no
     host read after the first solve of its layout (module docstring), a
-    problem sharded over a mesh on x's device in this process included; on
+    problem sharded over a mesh that captures on x's device included; on
     the CPU, inside ``device_loop.eager()``, with ``verbose=True`` (which
-    prints every trial from the host) or for a problem sharded across
-    processes or cards the same step runs eagerly."""
+    prints every trial from the host) or for a problem sharded over a gloo
+    mesh or across cards the same step runs eagerly. A sharded solve ends
+    with ``Mesh.check``."""
     problem = _as_problem(problem)
     x = torch.as_tensor(x0)
     problem = _on_device(problem, x)
@@ -528,7 +532,7 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
     loop.start((x, -1.0, *_data_leaves(problem)))
     loop.solve(config.max_iterations, _read)
     x, lam, *data = (t.clone() for t in loop.carry)
-    return LMResult(
+    result = LMResult(
         x=x,
         status=loop.status.clone(),
         iterations=loop.it.clone(),
@@ -536,6 +540,15 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
         lam=lam,
         trace=_trace_of(loop),
     )
+    _check_mesh(problem)
+    return result
+
+
+def _check_mesh(problem):
+    """``Mesh.check`` of a sharded problem's mesh: raises if a device
+    all-reduce gave up on a peer."""
+    if _sharded(problem):
+        problem.mesh.check()
 
 
 def lm_step(problem, x, lam, config=LMConfig(), manifold=None):
@@ -553,6 +566,7 @@ def lm_step(problem, x, lam, config=LMConfig(), manifold=None):
     loop.start((x, lam, *_data_leaves(problem)))
     loop.step(_read)
     (x, lam, *data), terminal, status, record = loop.outputs()
+    _check_mesh(problem)
     return _with_data(problem, data), x, lam, terminal, status, _nested(record)
 
 

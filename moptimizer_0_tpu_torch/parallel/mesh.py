@@ -7,23 +7,48 @@ of this process's shards, each on a device, and a process runs its shards
 one after another:
 
 * ``Mesh.psum`` sums per-shard values over the local shards in shard order,
-  then, when the mesh spans processes, with one ``all_reduce`` over its
-  process group. The order is fixed, so two sharded solves are bit-equal,
-  and an all-reduce hands every process the same bytes, so the control
-  scalars of an LM loop are equal on every process and the loops stay in
-  lockstep. ``Mesh.pmax`` is the same with a max.
+  then, when the mesh spans processes, with one all-reduce over them. The
+  order is fixed, so two sharded solves are bit-equal, and an all-reduce
+  hands every process the same bytes, so the control scalars of an LM loop
+  are equal on every process and the loops stay in lockstep. ``Mesh.pmax``
+  is the same with a max.
 * Shard ``j`` of process ``r`` is the mesh's shard ``r·n_local + j``: a
   block's rows split into ``mesh.size`` equal parts in that order.
 
-The process group is torch.distributed's (gloo: NCCL refuses two processes
-on one card), whose all-reduce takes CUDA tensors as they are.
+A mesh's transport (``Mesh.transport``), chosen once by
+``multihost.global_mesh`` (``multihost.choose_transport``):
 
-Within one process, with every shard on one card (``Mesh.on_one_device``),
-a reduction is device work alone (``torch.add`` in shard order), so the
+* ``"local"``: one process, no group; a reduction is ``torch.add`` (or
+  ``torch.maximum``) in shard order.
+* ``"device"``: every process on this host, each pair sharing a card or
+  with peer access between theirs. The all-reduce of CUDA tensors is the
+  hand-written kernel of ``kernels/mesh_reduce.py`` (every process's
+  partial summed in rank order through CUDA IPC buffers, with no host
+  read); of CPU tensors its plain version, ``_all_reduce_plain`` (an
+  all-gather over the gloo group, then the same rank-order sum).
+* ``"gloo"``: any other mesh (processes on several hosts): gloo's
+  all-reduce on the host.
+
+With every local shard on one device and a ``"local"`` or ``"device"``
+transport (``Mesh.captures_on``), a reduction is device work, and the
 engines capture a sharded solve's step into a CUDA graph as they do an
-unsharded one's (``ops.device_loop``). Across processes gloo's all-reduce
-runs on the host, and across cards the shards' copies join several
-devices, so those meshes run the eager loop.
+unsharded one's (``ops.device_loop``); across processes every process
+captures its own graph and replays it. The processes stay in lockstep:
+
+* every IF predicate of a step (a trial's, a PCG iteration's, ¬done) is
+  computed from reduced values, which are the same bits on every process,
+  so every process takes the same branches and runs the same reductions;
+* a capture's warm-up runs every IF body on every process, so the eager
+  reductions that size the transport's buffers match too;
+* a capture executes nothing, so it makes no reduction that a peer would
+  wait for.
+
+A peer that never arrives (a failed capture, a crash) makes the kernel's
+bounded spin set an error word, and ``Mesh.check`` (called at the end of
+every sharded solve) raises, naming the epoch. Gathers after a loop
+(``gather_rows``, ``ba._global_pt_idx``) stay on the gloo group; no step
+body runs one. A ``"gloo"`` mesh, or shards on several cards, runs the
+eager loop.
 """
 
 import dataclasses
@@ -45,6 +70,8 @@ from moptimizer_0_tpu_torch.utils.device import require
 REDUCTIONS = 0
 ALL_REDUCES = 0
 
+TRANSPORTS = ("local", "device", "gloo")
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
@@ -56,6 +83,9 @@ class Mesh:
     group: the torch.distributed process group the mesh spans, or None for
         a mesh inside one process.
     n_processes, process_index: the group's size and this process's rank.
+    transport: "local", "device" or "gloo" (module docstring); by default
+        "local" without a group and "gloo" with one.
+    ipc: the ``kernels.mesh_reduce.IpcBuffers`` of a "device" mesh on CUDA.
     """
 
     devices: tuple
@@ -63,6 +93,14 @@ class Mesh:
     group: Any = None
     n_processes: int = 1
     process_index: int = 0
+    transport: str = None
+    ipc: Any = None
+
+    def __post_init__(self):
+        if self.transport is None:
+            object.__setattr__(self, "transport", "local" if self.group is None else "gloo")
+        if self.transport not in TRANSPORTS or (self.transport == "local") != (self.group is None):
+            raise ValueError(f"transport {self.transport!r} with group {self.group!r}")
 
     @property
     def n_local(self):
@@ -84,17 +122,32 @@ class Mesh:
         """The mesh index of this process's first shard."""
         return self.process_index * self.n_local
 
-    def on_one_device(self, device):
-        """Whether the mesh lies in this process on ``device`` alone: no
-        process group, and every shard there. The engines capture a sharded
-        step into a CUDA graph only then."""
+    def captures_on(self, device):
+        """Whether a sharded step on ``device`` can be a CUDA graph: every
+        local shard there, and its reductions device work (a "local" or
+        "device" transport). The engines capture a sharded step only then."""
         device = torch.device(device)
-        return self.group is None and all(torch.device(d) == device for d in self.devices)
+        return self.transport != "gloo" and all(torch.device(d) == device for d in self.devices)
 
     def layout(self):
-        """The mesh by value, for a cache key: its devices, axis name and
-        processes."""
-        return (self.devices, self.axis_names, self.n_processes, self.process_index, self.group is None)
+        """The mesh by value, for a cache key: its devices, axis name,
+        processes and transport, and the transport's buffers by identity (a
+        graph points into them, and the key keeps them alive)."""
+        return (self.devices, self.axis_names, self.n_processes, self.process_index, self.transport, self.ipc)
+
+    def check(self):
+        """Raise if a device all-reduce of this mesh gave up on a peer (one
+        read of the device); nothing for another transport."""
+        if self.ipc is not None:
+            self.ipc.check()
+
+    def close(self):
+        """Tear the transport down: drop every cached step graph (they may
+        point into its buffers), then unmap and free the buffers.
+        Collective across the mesh's processes."""
+        if self.ipc is not None:
+            device_loop.clear()
+            self.ipc.close()
 
     def check_axis(self, axis):
         if axis not in self.axis_names:
@@ -105,13 +158,13 @@ class Mesh:
         """Σ over the mesh of per-shard values: ``parts[j]`` is local shard
         j's tensor, or tuple of tensors. Summed in shard order on ``device``
         (the first part's by default), then across processes."""
-        return self._reduce(parts, device, torch.add, dist.ReduceOp.SUM)
+        return self._reduce(parts, device, "sum")
 
     def pmax(self, parts, device=None):
         """max over the mesh of per-shard values, as ``psum``."""
-        return self._reduce(parts, device, torch.maximum, dist.ReduceOp.MAX)
+        return self._reduce(parts, device, "max")
 
-    def _reduce(self, parts, device, combine, op):
+    def _reduce(self, parts, device, op):
         global REDUCTIONS
         if not device_loop.tracing():
             REDUCTIONS += 1
@@ -120,17 +173,20 @@ class Mesh:
         dev = rows[0][0].device if device is None else device
         acc = [t.to(dev) for t in rows[0]]
         for row in rows[1:]:
-            acc = [combine(a, t.to(dev)) for a, t in zip(acc, row)]
+            acc = [COMBINE[op](a, t.to(dev)) for a, t in zip(acc, row)]
         if self.group is not None:
-            acc = _all_reduce(acc, op, self.group)
+            acc = _all_reduce(acc, op, self)
         return tuple(acc) if tuples else acc[0]
 
     def gather_rows(self, t):
         """This process's rows of a row-sharded tensor → every process's rows,
-        in process order (an all-gather; the tensor itself within one
-        process). Every process must hold as many rows."""
+        in process order (an all-gather over the gloo group; the tensor
+        itself within one process). Every process must hold as many rows.
+        Not inside a step body: raises in a warm-up or capture."""
         if self.group is None:
             return t
+        if device_loop.tracing():
+            raise RuntimeError("gather_rows inside a captured step: gathers run after the loop")
         as_bool = t.dtype == torch.bool
         src = (t.to(torch.uint8) if as_bool else t).contiguous()
         out = [torch.empty_like(src) for _ in range(self.n_processes)]
@@ -139,19 +195,46 @@ class Mesh:
         return out.bool() if as_bool else out
 
 
-def _all_reduce(tensors, op, group):
-    """One all-reduce of a list of same-dtype tensors (each reshaped back)."""
+COMBINE = {"sum": torch.add, "max": torch.maximum}
+_GLOO_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _all_reduce(tensors, op, mesh):
+    """One all-reduce over the mesh's processes of a list of same-dtype
+    tensors (each reshaped back), by the mesh's transport: on a "device"
+    mesh the kernel for CUDA tensors (it launches or raises) and
+    ``_all_reduce_plain`` for CPU ones; on a "gloo" mesh gloo's."""
     global ALL_REDUCES
     if len({t.dtype for t in tensors}) != 1:
-        return [_all_reduce([t], op, group)[0] for t in tensors]
-    ALL_REDUCES += 1
+        return [_all_reduce([t], op, mesh)[0] for t in tensors]
+    if not device_loop.tracing():
+        ALL_REDUCES += 1
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=op, group=group)
+    if mesh.transport == "gloo":
+        dist.all_reduce(flat, op=_GLOO_OPS[op], group=mesh.group)
+    elif not flat.is_cuda:
+        flat = _all_reduce_plain(flat, op, mesh.group)
+    elif mesh.ipc is None:
+        raise RuntimeError(f"a device mesh with no CUDA transport got a tensor on {flat.device}")
+    else:
+        flat = mesh.ipc.all_reduce(flat, op)
     out, off = [], 0
     for t in tensors:
         out.append(flat[off : off + t.numel()].reshape(t.shape))
         off += t.numel()
     return out
+
+
+def _all_reduce_plain(flat, op, group):
+    """The device transport's plain version: every process's ``flat``
+    gathered over the gloo group, then combined in rank order
+    (((x0 ∘ x1) ∘ x2) ...), the same bits on every process."""
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, flat.contiguous(), group=group)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = COMBINE[op](acc, p)
+    return acc
 
 
 def make_mesh(n_devices=None, axis="data", device="cuda"):

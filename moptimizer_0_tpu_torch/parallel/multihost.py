@@ -2,7 +2,12 @@
 
 PyTorch counterpart of ``moptimizer_0_tpu.parallel.multihost``, on
 torch.distributed with the gloo backend (NCCL refuses two processes on one
-card). Every process runs the same program:
+card), which makes the group, exchanges the handles and carries the
+gathers. A mesh's all-reduces take the transport ``choose_transport``
+picks from where the processes run (``parallel.mesh``): processes of one
+host whose cards are one or peers reduce on the device
+(``kernels/mesh_reduce.py``, through CUDA IPC buffers), any other mesh
+over gloo. Every process runs the same program:
 
     from moptimizer_0_tpu_torch.parallel import multihost
     multihost.initialize(coordinator_address="host:port", num_processes=N,
@@ -12,17 +17,21 @@ card). Every process runs the same program:
     res = distributed_levenberg_marquardt(problem(blk), x0, mesh, cfg)
 
 Each process feeds only its own rows; the engine's sums over the mesh end in
-one all-reduce over the group (``mesh.Mesh.psum``).
+one all-reduce over the group (``mesh.Mesh.psum``). ``mesh.close()``, on
+every process, tears a device transport down before the group goes.
 """
 
 import dataclasses
 import datetime
+import itertools
 import os
+import socket
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from moptimizer_0_tpu_torch.kernels import mesh_reduce
 from moptimizer_0_tpu_torch.parallel.mesh import GlobalArray, Mesh, make_mesh, tree_map
 
 BACKEND = "gloo"
@@ -66,11 +75,45 @@ def _rank_and_size():
     return 0, 1
 
 
+def placement(device):
+    """Where this process reduces: (host name, card, cards it has peer
+    access to), a card by its UUID, or "cpu" for a CPU device."""
+    device = torch.device(device)
+    host = socket.gethostname()
+    if device.type != "cuda":
+        return host, device.type, frozenset()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+
+    def uuid(i):
+        return str(torch.cuda.get_device_properties(i).uuid)
+
+    peers = frozenset(uuid(j) for j in range(torch.cuda.device_count())
+                      if j != index and torch.cuda.can_device_access_peer(index, j))
+    return host, uuid(index), peers
+
+
+def choose_transport(places):
+    """A mesh's transport from every process's ``placement``: "local" for
+    one process; "device" when every process is on one host, there are at
+    most ``mesh_reduce.MAX_PROCESSES`` of them, and every pair shares a card
+    or has peer access both ways; "gloo" otherwise."""
+    if len(places) == 1:
+        return "local"
+    if len({host for host, _, _ in places}) > 1 or len(places) > mesh_reduce.MAX_PROCESSES:
+        return "gloo"
+    for (_, a, peers_a), (_, b, peers_b) in itertools.combinations(places, 2):
+        if a != b and not (b in peers_a and a in peers_b):
+            return "gloo"
+    return "device"
+
+
 def global_mesh(axis="data", shards_per_process=None, device="cuda"):
     """A mesh over every process's shards: this process's
-    ``make_mesh(shards_per_process, axis, device)`` and the default group
-    (every process must have as many shards). Without a group, that local
-    mesh."""
+    ``make_mesh(shards_per_process, axis, device)``, the default group
+    (every process must have as many shards) and the transport
+    ``choose_transport`` picks from the processes' placements of their
+    first shard; a "device" mesh on CUDA gets its IPC buffers
+    (collectively). Without a group, that local mesh."""
     local = make_mesh(shards_per_process, axis, device)
     rank, size = _rank_and_size()
     if size == 1:
@@ -79,7 +122,14 @@ def global_mesh(axis="data", shards_per_process=None, device="cuda"):
     dist.all_gather_object(counts, local.n_local)
     if len(set(counts)) != 1:
         raise ValueError(f"global_mesh: processes have different shard counts {counts}")
-    return dataclasses.replace(local, group=dist.group.WORLD, n_processes=size, process_index=rank)
+    places = [None] * size
+    dist.all_gather_object(places, placement(local.devices[0]))
+    transport = choose_transport(places)
+    group = dist.group.WORLD
+    ipc = None
+    if transport == "device" and local.devices[0].type == "cuda":
+        ipc = mesh_reduce.IpcBuffers(group, rank, size, local.devices[0])
+    return dataclasses.replace(local, group=group, n_processes=size, process_index=rank, transport=transport, ipc=ipc)
 
 
 def host_local_shard(array, axis=0):

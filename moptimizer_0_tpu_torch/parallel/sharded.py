@@ -15,9 +15,11 @@ then across processes.
   correspondence search a shard) and whose linearization and costs are
   reduced over the mesh. Every process of a mesh that spans processes gets
   the same reduced bytes, so the solver's control flow is the same on all
-  of them. On CUDA, with the mesh in one process on x's device, the solve
-  is the unsharded one's CUDA graph: one replay an outer iteration, the
-  shards' data in its carry (``core.solver``).
+  of them. On CUDA, with a mesh that captures on x's device
+  (``Mesh.captures_on``: one process, or processes of one host reducing on
+  the device), the solve is the unsharded one's CUDA graph in every
+  process: one replay an outer iteration, the shards' data in its carry
+  (``core.solver``).
 """
 
 import dataclasses
@@ -109,14 +111,14 @@ def distributed_levenberg_marquardt(problem, x0, mesh, config=LMConfig(), manifo
     Blocks with data are padded to the shard count and split; a block
     without data counts once, on the mesh's first shard. The damped solve of
     the small (P, P) system runs on every process, on reduced inputs. On
-    CUDA, with every shard on x's device in this process
-    (``Mesh.on_one_device``), the sums are device work and the solve runs
-    as ``levenberg_marquardt`` does: one replay an outer iteration of a
-    graph captured once per layout (the mesh and every shard's block
-    structure in its key), each update hook (a shard's correspondence
-    search) inside it, no host read. A mesh across processes (gloo's
-    all-reduce runs on the host) or across cards runs the LM step's eager
-    body, one read a trial."""
+    CUDA, with every local shard on x's device and the sums device work
+    (``Mesh.captures_on``: one process, or processes of one host reducing
+    through ``kernels/mesh_reduce.py``), the solve runs as
+    ``levenberg_marquardt`` does: one replay an outer iteration of a graph
+    captured once per layout (the mesh and every shard's block structure in
+    its key), each update hook (a shard's correspondence search) inside it,
+    no host read in the loop. A gloo mesh (processes on several hosts) or
+    one across cards runs the LM step's eager body, one read a trial."""
     if not isinstance(problem, Problem):
         problem = Problem(blocks=(problem,))
     mesh.check_axis(axis)

@@ -1,5 +1,10 @@
 """The port's multi-process path: two CPU processes over a local gloo group.
 
+Both processes run on one host, so their mesh takes the "device"
+transport, whose CPU tensors reduce through its plain version
+(``parallel.mesh._all_reduce_plain``: an all-gather over the group, then
+a rank-order sum).
+
 The pattern of ``tests/test_multihost.py``: each process runs the port only
 (torch, no JAX; this file is also the worker, run as a script:
 ``python tests/test_torch_multihost.py RANK PORT NPZ``), feeds its
@@ -57,6 +62,7 @@ def _curve_worker(rank, port, _):
                          initialization_timeout=GROUP_TIMEOUT_S)
     assert multihost.is_initialized()
     mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
+    assert mesh.transport == "device"  # one host: the plain transport for CPU tensors
     assert mesh.shape["data"] == 4 and mesh.n_processes == 2 and mesh.process_index == rank
 
     def residual(x, d):
@@ -84,6 +90,7 @@ def _ba_worker(rank, port, path):
     multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
                          initialization_timeout=GROUP_TIMEOUT_S)
     mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
+    assert mesh.transport == "device"  # one host: the plain transport for CPU tensors
     with np.load(path) as f:
         arrays = {k: f[k] for k in f.files}
     start = interop.ba_problem_from_numpy(**arrays, n_fixed_cameras=2, device="cpu")
@@ -115,6 +122,7 @@ def _cg_worker(rank, port, path):
     multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
                          initialization_timeout=GROUP_TIMEOUT_S)
     mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
+    assert mesh.transport == "device"  # one host: the plain transport for CPU tensors
     with np.load(path) as f:
         arrays = {k: f[k] for k in f.files}
     start = interop.ba_problem_from_numpy(**arrays, n_fixed_cameras=2, device="cpu")
@@ -154,6 +162,7 @@ def _selfcal_worker(rank, port, path):
     multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
                          initialization_timeout=GROUP_TIMEOUT_S)
     mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
+    assert mesh.transport == "device"  # one host: the plain transport for CPU tensors
     with np.load(path) as f:
         arrays = {k: f[k] for k in f.files}
     arrays["intrinsics"] = arrays["intrinsics"] + np.asarray(SELFCAL_WRONG)
@@ -374,6 +383,7 @@ def test_initialize_without_arguments_is_a_single_process_run(monkeypatch):
     multihost.initialize()
     assert not multihost.is_initialized()
     mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
+    assert mesh.transport == "local"
     assert mesh.group is None and mesh.shape == make_mesh(2, device="cpu").shape
     a = torch.arange(10)
     assert torch.equal(multihost.host_local_shard(a), a)

@@ -32,6 +32,7 @@ def test_import_leaves_jax_out():
         "moptimizer_0_tpu_torch.models.state, moptimizer_0_tpu_torch.ops.pcg, "
         "moptimizer_0_tpu_torch.parallel, moptimizer_0_tpu_torch.parallel.mesh, "
         "moptimizer_0_tpu_torch.parallel.sharded, moptimizer_0_tpu_torch.parallel.multihost, "
+        "moptimizer_0_tpu_torch.kernels.mesh_reduce, moptimizer_0_tpu_torch.kernels.graph_cond, "
         "moptimizer_0_tpu_torch.utils, moptimizer_0_tpu_torch.utils.checkpoint, "
         "moptimizer_0_tpu_torch.utils.checks, moptimizer_0_tpu_torch.utils.logging, "
         "moptimizer_0_tpu_torch.utils.profiling, moptimizer_0_tpu_torch.utils.stopwatch, "

@@ -190,22 +190,25 @@ def test_numpy_weight_matrix_is_placed_once():
 
 
 def test_on_one_device():
-    """The predicate every engine decides by: a mesh in this process with
-    every shard on the device, and nothing else."""
+    """The predicate every engine decides by, ``Mesh.captures_on``: every
+    local shard on the device and the reductions device work (a mesh in
+    this process, or processes reducing on the device), and nothing else."""
     cpu = torch.device("cpu")
-    assert make_mesh(4, device="cpu").on_one_device(cpu)
-    assert make_mesh(1, device="cpu").on_one_device("cpu")
-    assert not make_mesh(2, device="cpu").on_one_device(torch.device("cuda", 0))
-    assert not Mesh(devices=(cpu, cpu), group=object(), n_processes=2).on_one_device(cpu)
+    assert make_mesh(4, device="cpu").captures_on(cpu)
+    assert make_mesh(1, device="cpu").captures_on("cpu")
+    assert not make_mesh(2, device="cpu").captures_on(torch.device("cuda", 0))
+    assert not Mesh(devices=(cpu, cpu), group=object(), n_processes=2).captures_on(cpu)
+    assert Mesh(devices=(cpu, cpu), group=object(), n_processes=2, transport="device").captures_on(cpu)
     two = Mesh(devices=(torch.device("cuda", 0), torch.device("cuda", 1)))
-    assert not two.on_one_device(torch.device("cuda", 0)) and not two.on_one_device(torch.device("cuda", 1))
-    assert Mesh(devices=(torch.device("cuda", 1),) * 3).on_one_device(torch.device("cuda", 1))
+    assert not two.captures_on(torch.device("cuda", 0)) and not two.captures_on(torch.device("cuda", 1))
+    assert Mesh(devices=(torch.device("cuda", 1),) * 3).captures_on(torch.device("cuda", 1))
 
 
 def test_meshes_off_one_device_stay_eager(monkeypatch):
-    """With graphs on, a sharded problem captures only when its mesh lies on
-    x's device in this process: a process group or a second device keeps
-    the eager loop, for every engine."""
+    """With graphs on, a sharded problem captures only when its mesh
+    captures on x's device: a gloo group or a second device keeps the
+    eager loop, a group reducing on the device captures, for every
+    engine."""
     monkeypatch.setattr(device_loop, "graphs", lambda t: True)
     x = torch.zeros(6, dtype=torch.float64)
     cfg = solver.LMConfig()
@@ -213,6 +216,7 @@ def test_meshes_off_one_device_stay_eager(monkeypatch):
     prob = port(make_synthetic_ba(C=4, L=8, n_fixed=2, seed=6)[0])
     for mesh, graph in [(make_mesh(3, device="cpu"), True),
                         (Mesh(devices=(cpu,), group=object(), n_processes=2), False),
+                        (Mesh(devices=(cpu,), group=object(), n_processes=2, transport="device"), True),
                         (Mesh(devices=(cpu, torch.device("cuda", 0))), False)]:
         sp = ShardedProblem(blocks=(), shards=(), mesh=mesh)
         assert solver._graphs(sp, x, cfg) == graph
