@@ -2,7 +2,8 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_profile.py [--path fleet|icp|pair|gicp|pgo|ring_cg|sharded_cg|sharded_sequence|mesh_barrier]
+    python3 chip_profile.py [--path fleet|icp|pair|gicp|pgo|ring_cg|sharded_cg|sharded_sequence|mesh_barrier|
+                                    multicard_cg]
                             [--unprofiled] [--processes N] [--spread] [--out DIR]
 
 ``--path fleet`` (the default) builds the expansion kernel K6, makes the
@@ -69,6 +70,14 @@ reason when it cannot. ``--processes N`` starts N processes (the flag is
 bounced by two only); ``--spread`` puts rank r on card r (the cards must
 be peers) and adds the headline CG BA with its observations over the
 processes, by its graph and its eager body (bit-equal, the ranks too).
+``--path multicard_cg`` (two cards or more) builds ``csrc/mesh_reduce.cu``
+and solves the headline BA by the CG engine with its observations over a
+one-process mesh of min(4, cards) cards, one shard a card
+(``chip_smoke.py`` phase 23): twice by its graphs, one a card (the
+capture, then the reference bits), then once under ``torch.profiler``,
+held to the reference bit for bit; it prints each card's device time and
+busy share, the card transport's share there, and the first card's kernels
+by device time.
 Prints the card, those host times and the traced one, the device time and busy share, the kernel
 launches and host syncs, the search kernel's share of device time and the
 kernels by device time, and writes the chrome trace to DIR (default
@@ -202,6 +211,57 @@ def sharded_cg(dev):
                       f"busy {ms / 1e3 / wall:.3f}, bit-equal to the unprofiled graph solve "
                       f"{cs._same_result(out, ref)}", flush=True)
         print(f"{name}: a graph solve after the profiles bit-equal {cs._same_result(solve(), ref)}", flush=True)
+
+
+def multicard_cg(dev, trace):
+    """``--path multicard_cg``: one profile of the headline CG BA's graphs
+    over a one-process mesh of min(4, cards) cards (module docstring)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise SystemExit(f"chip_profile --path multicard_cg: needs 2+ cards, found {n}")
+    mesh = cs.make_mesh(min(4, n))
+    prob = ba.make_ba_problem(cs.BA_O, cs.BA_C, cs.BA_L, seed=cs.SEED, dtype=torch.float32, device=dev)
+    solve = functools.partial(ba.solve_ba, cs._observation_sharded(prob, mesh))
+    solve()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        ref = solve()
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    print(f"CG BA over {len(mesh.cards)} cards by its graphs: {[f'{w:.4f}' for w in walls]} s", flush=True)
+    for d in mesh.cards:
+        torch.cuda.synchronize(d)
+    print("profiling one solve by its graphs ...", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = solve()
+        for d in mesh.cards:
+            torch.cuda.synchronize(d)
+        wall_s = time.perf_counter() - t0
+    cards = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name = cards.setdefault(e.device_index(), {})
+            t, k = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (t + e.duration_ns(), k + 1)
+    print(f"profiled solve: wall {wall_s:.4f} s, bit-equal to the unprofiled graph solve "
+          f"{cs._same_result(out, ref)}")
+    for index, by_name in sorted(cards.items()):
+        busy = sum(t for t, _ in by_name.values()) / 1e6
+        transport = sum(t for name, (t, _) in by_name.items() if "cards_kernel" in name) / 1e6
+        print(f"  card {index}: device {busy:.3f} ms in {sum(k for _, k in by_name.values())} events (busy "
+              f"{busy / 1e3 / wall_s:.3f}), card transport {transport:.3f} ms ({transport / max(busy, 1e-9):.1%}) in "
+              f"{sum(k for name, (_, k) in by_name.items() if 'cards_kernel' in name)} launches")
+    first = cards.get(dev.index, {})
+    busy = sum(t for t, _ in first.values()) / 1e6
+    print(f"card {dev.index}'s kernels by device time (ms, launches, share):")
+    for name, (t, k) in sorted(first.items(), key=lambda kv: -kv[1][0])[:20]:
+        print(f"  {t / 1e6:9.3f} ms {k:6d}  {t / 1e6 / max(busy, 1e-9):6.1%}  {name[:110]}")
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    print(f"chrome trace: {trace}")
 
 
 SEQUENCE_ROUNDS = 3
@@ -476,6 +536,7 @@ PATHS = {
                    None),
     "sharded_sequence": ("phase 22's sharded BA paths, repeated, profiled or not", None, None, None),
     "mesh_barrier": ("the device transport's barrier between two processes, with and without MPS", None, None, None),
+    "multicard_cg": ("the headline CG BA's graphs over one process's several cards", None, None, None),
 }
 
 
@@ -503,6 +564,10 @@ def main():
     if args.path == "sharded_sequence":
         build.build(cs.k_schur.NAME, cs.k_schur.SOURCES)
         sharded_sequence(dev, not args.unprofiled)
+        return
+    if args.path == "multicard_cg":
+        build.build(mesh_reduce.NAME, mesh_reduce.SOURCES)
+        multicard_cg(dev, Path(args.out) / "multicard_cg_trace.json")
         return
     if args.path in ("ring_cg", "sharded_cg", "mesh_barrier"):
         if args.path == "mesh_barrier":

@@ -203,7 +203,26 @@ prints no result):
     shards × outer iterations and K11's shards × S builds, each equal to the
     eager body's; walls, the eager body's mesh reductions, launch calls,
     device ms and busy share, each capture's warm-up, capture and
-    instantiation ms and pool bytes, and ``torch.cuda.max_memory_reserved()``.
+    instantiation ms and pool bytes, and ``torch.cuda.max_memory_reserved()``;
+23. (run last, with two cards or more; with one it prints that it needs
+    2+ cards and runs nothing) the one-process mesh over several cards
+    (``make_mesh(2)`` and ``make_mesh(min(4, cards))``, one shard a card,
+    and 4 shards over 2 cards): the curve fit and the distributed ICP
+    (``distributed_levenberg_marquardt``, K5 inside; the fachada scan's
+    first 29,304 points, which 4 shards divide), the observation-sharded
+    CG BA and self-calibration, and ``solve_ba_dense_sharded`` (K11 inside)
+    at the headline, each by its graphs (one a card, ``CardLoops``) twice and
+    by the mesh's eager body: bit-equal to the eager body and to the repeat,
+    every card's replicated state bit-equal to the first card's, within
+    1e-5 of the unsharded solve (x for the LM paths, the final cost for BA;
+    phases 5's, 12's and 18's BA solves, made here under ``--phase 23``),
+    the BA cameras within √ε_f32·max(1, max|cameras|) of its, no host read after the capture (the self-calibration one an outer
+    iteration), max_iterations replays on every card, and K5's (K11's)
+    replayed launches on every card equal to the eager body's launches
+    there; the card transport (``mesh_reduce.CardBuffers``) against its
+    plain version bit for bit, its µs, and a card that never arrives
+    raising through ``Mesh.check``. ``python3 chip_smoke.py --phase 23``
+    runs the build and this phase alone.
 
 Every LM, BA and PGO solve runs its step graph (outside phases 15's and
 19–22's eager runs and 15's gloo solve), the registrar's coarse multistart
@@ -3041,6 +3060,302 @@ def run_sharded_device_loop(icp_solves, ba_solves, cg_problems, selfcal_problems
     return out
 
 
+# Phase 23: the one-process mesh over several cards. Meshes: one shard a
+# card over 2 and over min(4, cards) cards, and 4 shards over 2 cards (two
+# slots a card); the curve fit's and ICP's x and the BA final costs within
+# MULTICARD_RTOL of the unsharded solves', and the BA cameras within
+# MULTICARD_CAMERA_BOUND·max(1, max|cameras|) of theirs: √ε_f32, the float32
+# SMALL_DELTA threshold (params6: metres and radians), below which the
+# solver itself counts a step as no move.
+MULTICARD_RTOL = 1e-5
+MULTICARD_CAMERA_BOUND = float(np.sqrt(np.finfo(np.float32).eps))
+MULTICARD_CURVE_ROWS = 64
+MULTICARD_TIMEOUT_S = 2.0
+MULTICARD_SIZES = ((6 * BA_C) ** 2, 1001)
+
+
+def _multicard_meshes():
+    """(name, mesh, paths) of phase 23: one shard a card on 2 and on
+    min(4, n) cards, every path; 4 shards round-robin on 2 cards (two slots
+    a card, K5 and K11 twice a card), the ICP and the dense BA."""
+    n = torch.cuda.device_count()
+    every = ("curve", "icp", "cg", "selfcal", "dense")
+    meshes = [("2 cards", make_mesh(2), every)]
+    if n >= 3:
+        meshes.append((f"{min(4, n)} cards", make_mesh(min(4, n)), every))
+    meshes.append(("4 shards on 2 cards", mesh_module.Mesh(devices=tuple(torch.device("cuda", j % 2)
+                                                                         for j in range(4))), ("icp", "dense")))
+    return meshes
+
+
+def _card_bits(loops):
+    """Whether every card's replicated carry, done, counter, status and
+    trace equal the first card's bit for bit."""
+    first = loops.loops[0]
+    for c, loop in enumerate(loops.loops[1:], 1):
+        mine = [i for i in loops._index[c] if loops.owners[i] is None]
+        theirs = [i for i in loops._index[0] if loops.owners[i] is None]
+        for i, j in zip(mine, theirs):
+            if not _same_result(loop.carry[loops._index[c].index(i)].cpu(), first.carry[loops._index[0].index(j)].cpu()):
+                return False
+        for a, b in ((loop.done, first.done), (loop.it, first.it), (loop.status, first.status)):
+            if not _same_result(a.cpu(), b.cpu()):
+                return False
+        if not _same_result({k: v.cpu() for k, v in loop.trace.items()}, {k: v.cpu() for k, v in first.trace.items()}):
+            return False
+    return True
+
+
+def _first_difference(a, b, path="result"):
+    """Where two results first part bit for bit (``_same_result``'s walk),
+    with the largest difference there; "" where they agree."""
+    if isinstance(a, torch.Tensor):
+        if _same_result(a, b):
+            return ""
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return f"{path}: {tuple(a.shape)} {a.dtype} against {tuple(b.shape)} {b.dtype}"
+        return f"{path}: max |diff| {float((a.double() - b.double()).abs().nan_to_num(float('inf')).max()):.3e}"
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        items = [(f.name, getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)]
+    elif isinstance(a, dict):
+        items = [(k, a[k], b[k]) for k in a]
+    elif isinstance(a, (tuple, list)):
+        items = [(str(i), x, y) for i, (x, y) in enumerate(zip(a, b))]
+    else:
+        return "" if a == b else f"{path}: {a!r} against {b!r}"
+    return next((d for d in (_first_difference(x, y, f"{path}.{k}") for k, x, y in items) if d), "")
+
+
+def _multicard_path(name, mesh, fn, kernel, lm, reference_gap):
+    """23: one path over one mesh: the first call (its capture), the graphs
+    again (timed, host reads counted, every kernel count 0 before), the
+    mesh's eager body (``device_loop.eager()``); checks and returns its row."""
+    dev = mesh.devices[0]
+    n0 = len(device_loop.CAPTURES)
+    first, first_s, _ = _loop_timed(fn)
+    captured = len(device_loop.CAPTURES) - n0
+    loops = _latest_loop()
+    if not isinstance(loops, device_loop.CardLoops):
+        raise AssertionError(f"multi-card {name}: the solve made no loop a card ({type(loops).__name__})")
+    replays = [loop.replays for loop in loops.loops]
+    _reset_launches()
+    graph, graph_s, graph_reads = _loop_timed(fn)
+    replays = [loop.replays - r for loop, r in zip(loops.loops, replays)]
+    per_card = _card_bits(loops)
+    cards = mesh.cards  # the counters of cards off this mesh (earlier meshes') read 0
+    k_replayed = {str(d): v for d, v in (kernel.replayed_by_card() if kernel else {}).items() if d in cards}
+    k_eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES
+    t_replayed = {str(d): v for d, v in k_mesh.replayed_by_card().items() if d in cards}
+    t_eager_in_graph = k_mesh.LAUNCHES
+    _reset_launches()
+    with device_loop.eager(), (capturable_linalg(dev) if lm else contextlib.nullcontext()):
+        eager, eager_s, eager_reads = _loop_timed(fn)
+    k_eager = {str(d): v for d, v in (kernel.LAUNCHES_BY_CARD if kernel else {}).items()}
+    res = graph if lm else _ba_result(graph)
+    run = _outer_run(res)
+    groups = mesh.card_groups()
+    if kernel is k_nn:
+        expect = {str(d): len(js) * int(torch.isfinite(res.trace["cost"]).sum()) for d, js in groups}
+    elif kernel is k_schur:
+        expect = {str(d): len(js) * sum(res.trace["trials"].tolist()) for d, js in groups}
+    else:
+        expect = {}
+    selfcal = name.startswith("selfcal")
+    gap, camera_gap = reference_gap(graph)
+    camera_bound = None if camera_gap is None else MULTICARD_CAMERA_BOUND * max(
+        1.0, float(_ba_result(graph).camera_params.abs().max()))
+    row = dict(first_s=first_s, captured=captured, graph_s=graph_s, eager_s=eager_s,
+               reads=dict(graph=graph_reads, eager=eager_reads), replays=replays,
+               bit_equal_eager=_same_result(graph, eager), bit_equal_repeat=_same_result(graph, first),
+               cards_bit_equal=per_card, iterations=int(res.iterations), status=Status(int(res.status)).name,
+               outer=run, unsharded_gap=gap, camera_gap=camera_gap, camera_bound=camera_bound, kernel_replayed=k_replayed, kernel_eager=k_eager, kernel_runs=expect,
+               transport_replayed=t_replayed,
+               captures=[dict(c) for c in device_loop.CAPTURES[n0:]])
+    print(f"multi-card {name}: {row['status']}, iterations {row['iterations']}; first call {first_s:.4f} s "
+          f"({captured} captures), graphs {graph_s:.4f} s, eager body {eager_s:.4f} s; host reads graph {graph_reads}, "
+          f"eager {eager_reads}; replays a card {replays}; bit-equal eager {row['bit_equal_eager']}, repeat "
+          f"{row['bit_equal_repeat']}, across cards {per_card}; {gap:.3e} from the unsharded solve (bound "
+          f"{MULTICARD_RTOL:g})"
+          + ("" if camera_gap is None else f", cameras {camera_gap:.3e} (bound {camera_bound:.3e})")
+          + f"; transport replayed a card {t_replayed}"
+          + (f"; {kernel.NAME} replayed a card {k_replayed}, eager {k_eager}, runs {expect}" if kernel else ""))
+    for c in row["captures"]:
+        print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
+              f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
+    if not (row["bit_equal_eager"] and row["bit_equal_repeat"] and per_card):
+        raise AssertionError(f"multi-card {name}: the graphs' solve differs from the eager body "
+                             f"({_first_difference(graph, eager)}), its repeat or across cards")
+    reads_expected = run if selfcal else 0
+    replays_expected = run if selfcal else loops.trace["cost"].shape[-1]
+    if graph_reads != reads_expected or set(replays) != {replays_expected} or k_eager_in_graph or t_eager_in_graph:
+        raise AssertionError(f"multi-card {name}: {graph_reads} host reads, replays {replays}, eager launches "
+                             f"{k_eager_in_graph} (transport {t_eager_in_graph}); expected {reads_expected} reads and "
+                             f"{replays_expected} replays a card")
+    if kernel and not k_replayed == k_eager == expect or kernel and not all(expect.values()):
+        raise AssertionError(f"multi-card {name}: {kernel.NAME} replayed {k_replayed}, eager {k_eager}, for {expect}")
+    if not all(t_replayed.get(str(d), 0) > 0 for d, _ in groups):
+        raise AssertionError(f"multi-card {name}: the card transport replayed {t_replayed}")
+    if not gap <= MULTICARD_RTOL or camera_gap is not None and not camera_gap <= camera_bound:
+        raise AssertionError(f"multi-card {name}: {gap} from the unsharded solve, cameras {camera_gap}")
+    return row
+
+
+def _multicard_transport(mesh, timeout=True):
+    """23: the card transport of ``mesh`` against its plain version
+    (``mesh_reduce.reduce_slots_plain``) bit for bit, sum and max, float32
+    and float64, at S's size and 1,001 (partials over 12 decades, a shard
+    each); its µs at both sizes (every card's launch enqueued, CUDA events
+    on the first card); then, with ``timeout``, a fresh transport with
+    MULTICARD_TIMEOUT_S whose second reduction the last card skips:
+    ``Mesh.check`` must raise."""
+    transport = mesh.card_transport()
+    groups = mesh.card_groups()
+    rng = np.random.default_rng(SEED + 60)
+    cases, worst = [], 0.0
+    _reset_launches()
+    for n in MULTICARD_SIZES:
+        for dtype in (torch.float32, torch.float64):
+            parts = [torch.as_tensor(rng.normal(size=n) * 10.0 ** rng.uniform(-6, 6, size=n), dtype=dtype, device=d)
+                     for d in mesh.devices]
+            for op in k_mesh.OPS:
+                outs = [transport.reduce([parts[j] for j in js], js, c, op) for c, (_, js) in enumerate(groups)]
+                plain = k_mesh.reduce_slots_plain([(js, [parts[j] for j in js]) for _, js in groups], op)[0]
+                same = all(_same_result(o.cpu(), plain.cpu()) for o in outs)
+                err = max(float((o.double().cpu() - plain.double().cpu()).abs().max()) for o in outs)
+                worst = max(worst, err)
+                cases.append(dict(n=n, dtype=str(dtype), op=op, bit_equal=same, max_abs_err=err))
+                if not same:
+                    raise AssertionError(f"card transport ({n}, {dtype}, {op}): differs from its plain version by {err}")
+    launches = k_mesh.LAUNCHES
+    times = {}
+    for key, n in (("s", MULTICARD_SIZES[0]), ("small", MULTICARD_SIZES[1])):
+        parts = [torch.ones(n, dtype=torch.float32, device=d) for d in mesh.devices]
+        args = [([parts[j] for j in js], js, c) for c, (_, js) in enumerate(groups)]
+
+        def all_cards():
+            for flats, js, c in args:
+                transport.reduce(flats, js, c, "sum")
+
+        all_cards()
+        for d in mesh.cards:
+            torch.cuda.synchronize(d)
+        reps = 50 if key == "s" else 200
+        times[key] = _time_ms(all_cards, reps) * 1e3
+        for d in mesh.cards:
+            torch.cuda.synchronize(d)
+        plain_parts = [(js, [parts[j] for j in js]) for _, js in groups]
+        times[f"plain_{key}"] = _time_ms(lambda: k_mesh.reduce_slots_plain(plain_parts, "sum"), 20) * 1e3
+    mesh.check()
+    bytes_s = MULTICARD_SIZES[0] * 4
+    # each card reads its shards' partials and every shard's slot, and writes its result
+    bound_ms = max((len(js) + mesh.size + 1) * bytes_s for _, js in groups) / PEAK_BYTES * 1e3
+    row = dict(cases=cases, max_abs_err=worst, us=times, bound_ms=bound_ms, launches=launches,
+               slot_bytes=transport.slot_bytes, buffers=len(transport.generations))
+    print(f"card transport over {len(mesh.cards)} cards, {mesh.size} shards: bit-equal to its plain version in "
+          f"{len(cases)} cases (max abs err {worst:.3e}); {times['s']:.1f} µs a reduction of S ({bytes_s} bytes, "
+          f"bound {bound_ms * 1e3:.1f} µs), {times['small']:.1f} µs of 1,001 floats, the plain version "
+          f"{times['plain_s']:.1f} µs and {times['plain_small']:.1f} µs")
+    if not timeout:
+        return row
+    probe = k_mesh.CardBuffers(mesh.cards, mesh.card_of(), timeout_s=MULTICARD_TIMEOUT_S)
+    small = [torch.ones(MULTICARD_SIZES[1], device=d) for d in mesh.devices]
+    for c, (_, js) in enumerate(groups):
+        probe.reduce([small[j] for j in js], js, c, "sum")
+    for c, (_, js) in enumerate(groups[:-1]):  # the last card never arrives
+        probe.reduce([small[j] for j in js], js, c, "sum")
+    saved = mesh_module._CARD_TRANSPORTS[mesh.devices]
+    mesh_module._CARD_TRANSPORTS[mesh.devices] = probe
+    t0 = time.perf_counter()
+    try:
+        mesh.check()
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        mesh_module._CARD_TRANSPORTS[mesh.devices] = saved
+    row["timeout"] = dict(raised=raised, wall_s=time.perf_counter() - t0)
+    probe.close()
+    print(f"  a card that never arrives: Mesh.check raised after {row['timeout']['wall_s']:.3f} s: {raised!r}")
+    if "epoch" not in raised:
+        raise AssertionError(f"card transport: a skipped reduction did not raise through Mesh.check ({raised!r})")
+    return row
+
+
+def run_multicard(dev, cloud, prob=None, refs=None):
+    """23: see the module docstring. ``prob``: the headline BA instance;
+    ``refs``: its unsharded CG, self-calibrating and dense solves
+    ({"cg", "selfcal", "dense"}: BAResult), as phases 12, 18 and 5 made
+    them; both made here when not given (``--phase 23``). Returns {mesh
+    name: {path: row, "transport": ...}} and the unsharded references'
+    walls."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"phase 23: needs 2+ cards, found {n_cards}")
+        return None
+    t_start = time.perf_counter()
+
+    def residual(x, d):
+        return torch.stack([d[1] - torch.exp(x[0] * d[0] + x[1])])
+
+    curve = problem(make_block(residual, data=torch.as_tensor(
+        curve_fitting.CERES_CURVE_DATA[:MULTICARD_CURVE_ROWS], dtype=torch.float64, device=dev)))
+    curve_x0, curve_cfg = torch.zeros(2, dtype=torch.float64, device=dev), LMConfig(max_iterations=25)
+    tgt = _transformed(cloud, X_A, np.random.default_rng(SEED + 1))
+    # an update hook's rows must divide the shards (ROADMAP Queue 3, shared
+    # with the JAX package): the source is the scan's first 29,304 points,
+    # which 2, 3, 4 and 6 shards divide
+    src = cloud[: cloud.shape[0] // 12 * 12]
+    icp_x0 = _centroid_seed(src, tgt)
+    icp = problem(icp_block(src, tgt))
+    if prob is None:
+        prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
+    start = _selfcal_start(prob)
+    cg_cfg = ba.BAConfig()
+    if refs is None:
+        refs = dict(cg=ba.solve_ba(prob, cg_cfg), selfcal=ba_intrinsics.solve_ba_selfcal(start, cg_cfg)[0],
+                    dense=ba_dense.solve_ba_dense(prob))
+    refs = dict(refs, curve=levenberg_marquardt(curve, curve_x0, curve_cfg).x,
+                icp=levenberg_marquardt(icp, icp_x0, _icp_config()).x)
+    ref_s = time.perf_counter() - t_start
+
+    def x_gap(key):
+        return lambda r: (float((r.x.double().cpu() - refs[key].double().cpu()).abs().max()), None)
+
+    def cost_gap(key):
+        def gap(r):
+            r, ref = _ba_result(r), refs[key]
+            return (abs(float(r.cost) / float(ref.cost) - 1),
+                    float((r.camera_params.double() - ref.camera_params.double()).abs().max()))
+
+        return gap
+
+    out = {}
+    for k, (mesh_name, mesh, names) in enumerate(_multicard_meshes()):
+        sp = _observation_sharded(prob, mesh)
+        ssp = _observation_sharded(start, mesh)
+        paths = [
+            ("curve", functools.partial(distributed_levenberg_marquardt, curve, curve_x0, mesh, curve_cfg), None,
+             True, x_gap("curve")),
+            ("icp", functools.partial(distributed_levenberg_marquardt, icp, icp_x0, mesh, _icp_config()), k_nn, True,
+             x_gap("icp")),
+            ("cg", functools.partial(ba.solve_ba, sp, cg_cfg), None, False, cost_gap("cg")),
+            ("selfcal", functools.partial(ba_intrinsics.solve_ba_selfcal, ssp, cg_cfg), None, False,
+             cost_gap("selfcal")),
+            ("dense", functools.partial(ba_dense.solve_ba_dense_sharded, prob, mesh), k_schur, False,
+             cost_gap("dense")),
+        ]
+        rows = {}
+        for name, fn, kernel, lm, gap in paths:
+            if name in names:
+                rows[name] = _multicard_path(f"{name} over {mesh_name}", mesh, fn, kernel, lm, gap)
+        rows["transport"] = _multicard_transport(mesh, timeout=k == 0)
+        out[mesh_name] = rows
+        mesh.close()
+    wall = time.perf_counter() - t_start
+    print(f"phase 23: {wall:.1f} s ({ref_s:.1f} s of it the unsharded references)")
+    return dict(meshes=out, wall_s=wall, reference_s=ref_s, cards=n_cards)
+
+
 @contextlib.contextmanager
 def _timed_all_reduces():
     """The mesh's all-reduces across processes while the block runs: their
@@ -3543,33 +3858,34 @@ def run_two_processes(ba4, cg4, selfcal):
                 transport={r["rank"]: dict(r["check"], launches=r["launches"]) for r in (a, b)})
 
 
-def transport_entry(two):
+def transport_entry(two, multicard=None):
     """The kernels line's row of the device all-reduce, a graph helper (the
     psum across processes), not a port of a TPU kernel: rank 0's launches on
     phase 15's main path, its worst difference from the plain version, its
     ms at S's size beside the plain version's and gloo's; the bound is the
     bytes (P + 1)·n over the card's rate (the barrier's round trip is
-    chip_profile.py --path mesh_barrier's)."""
+    chip_profile.py --path mesh_barrier's). With two cards or more, phase
+    23's card transport too (its µs, bound and replayed launches by mesh)."""
     c = two["transport"][0]
     n_bytes = (2 + 1) * c["bytes"]
+    cards = None if multicard is None else {
+        m: dict(us=rows["transport"]["us"], bound_ms=rows["transport"]["bound_ms"],
+                max_abs_err=rows["transport"]["max_abs_err"],
+                replayed={p: rows[p]["transport_replayed"] for p in rows if p != "transport"})
+        for m, rows in multicard["meshes"].items()}
     return dict(name="mesh_reduce", route="cuda", source="moptimizer_0_tpu_torch/csrc/mesh_reduce.cu",
                 replaces="moptimizer_0_tpu/parallel/sharded.py:55", kind="graph helper: the psum across processes",
                 launches=c["launches"], max_abs_err=max(c["max_abs_err"], two["transport"][1]["max_abs_err"]),
                 ms=c["ms"]["kernel"], plain_ms=c["ms"]["plain"], bound_ms=n_bytes / PEAK_BYTES * 1e3,
                 bound_by="bytes", library_ms=c["ms"]["library"], small_ms=c["ms"]["kernel_small"],
-                launches_by_path={k: v["launches"] for k, v in two["paths"].items()})
+                launches_by_path={k: v["launches"] for k, v in two["paths"].items()}, card_transport=cards)
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs on a GPU only")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    print(smi[0])
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    _smi()
     t_start = time.perf_counter()
 
     def stamp(phases):
@@ -3699,6 +4015,12 @@ def main():
     examples = run_examples()
     blocked = run_blocked(ba_prob, ba_res, dev)
     stamp(17)
+    refs = dict(cg=cg_res, selfcal=selfcal_res, dense=ba_res)
+    del ba_grouped, ba_res, cg_res, results
+    torch.cuda.empty_cache()
+    multicard = run_multicard(dev, cloud, ba_prob, refs)
+    del ba_prob, refs
+    stamp(23)
 
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
@@ -3717,6 +4039,7 @@ def main():
               distributed_icp_launches={n: r["launches"] for n, r in dist_icp.items()},
               sharded_device_loop_replayed_launches={k: r["kernel_replayed"] for k, r in sharded_loop.items()
                                                      if k.startswith("distributed_icp")},
+              multicard_replayed_launches=_multicard_launches(multicard, "icp"),
               examples_launches={k: v["k5"] for k, v in examples.items() if v["k5"]}),
         entry("nn_expand", "moptimizer_0_tpu_torch/csrc/nn_expand.cu",
               "moptimizer_0_tpu/ops/nn_search.py:43", e_launches, e_err, e_t, e_bound,
@@ -3734,13 +4057,14 @@ def main():
               sharded_ba_launches={n: r["launches"] for n, r in ba_sharded.items()},
               sharded_device_loop_replayed_launches={k: r["kernel_replayed"] for k, r in sharded_loop.items()
                                                      if k.startswith("dense")},
+              multicard_replayed_launches=_multicard_launches(multicard, "dense"),
               sharded_ba_shard_ms={n: r["k11_shard_ms"] for n, r in ba_sharded.items()},
               two_process_replayed_launches=two["k11"],
               sharded_cg_launches={k: r["k11"] for k, r in cg_sharded.items()},
               sharded_selfcal_launches={k: r["k11"] for k, r in selfcal_sharded.items()},
               examples_launches={k: v["k11"] for k, v in examples.items() if v["k11"]},
               blocked_dense_launches=blocked["k11"]),
-        transport_entry(two),
+        transport_entry(two, multicard),
     ]
     print(json.dumps({"slam": {
         m: {k: v for k, v in r.items() if k != "reg"} for m, r in slam.items()
@@ -3751,7 +4075,12 @@ def main():
                                       selfcal=selfcal_sharded, two_processes=two)}))
     print(json.dumps({"examples": examples, "blocked": blocked, "device_loop": device, "lm_device_loop": lm_loop,
                       "pgo_device_loop": pgo_loop, "sharded_device_loop": sharded_loop}))
+    print(json.dumps({"multicard": multicard}))
     print(json.dumps({"kernels": kernels}))
+    _print_ok()
+
+
+def _print_ok():
     print(
         json.dumps(
             {
@@ -3766,12 +4095,55 @@ def main():
     )
 
 
+def _smi():
+    """The card's name and power limit, as nvidia-smi gives them (printed
+    first)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    print(smi[0])
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} card(s)")
+
+
+def _multicard_launches(multicard, path):
+    """K5's or K11's replayed launches a card on phase 23's ``path``, by mesh."""
+    if multicard is None:
+        return None
+    return {m: rows[path]["kernel_replayed"] for m, rows in multicard["meshes"].items()}
+
+
+def multicard_main():
+    """``--phase 23``: the build and phase 23 alone, on two cards or more."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this check runs on a GPU only")
+    dev = torch.device("cuda", 0)
+    _smi()
+    kernels = (k_nn, k_expand, k_schur, graph_cond, k_mesh)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        for f in [pool.submit(build.build, k.NAME, k.SOURCES) for k in kernels]:
+            f.result()
+    print(f"build (one nvcc per source, in parallel): {time.perf_counter() - t0:.3f} s")
+    cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
+    multicard = run_multicard(dev, cloud)
+    if multicard is None:
+        raise SystemExit("chip_smoke --phase 23: needs 2+ cards")
+    print(json.dumps({"multicard": multicard}))
+    _print_ok()
+
+
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description="Drive the port's main paths on one CUDA card and check them.")
     parser.add_argument("--rank", type=int, help="run as one of phase 15's two processes (internal)")
     parser.add_argument("--port", type=int, help="phase 15's group port on localhost (internal)")
+    parser.add_argument("--phase", type=int, choices=(23,), help="run the build and this phase alone (23: the "
+                        "one-process mesh over several cards, on two cards or more)")
     args = parser.parse_args()
-    if args.rank is None:
-        main()
-    else:
+    if args.rank is not None:
         rank_main(args.rank, args.port)
+    elif args.phase == 23:
+        multicard_main()
+    else:
+        main()

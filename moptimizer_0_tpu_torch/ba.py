@@ -23,7 +23,7 @@ poses and L landmarks from O pixel observations.
   On CUDA an outer iteration is one replay of a CUDA graph (``ba_step``),
   and ``solve_ba`` enqueues max_iterations replays with no host read
   (``ops/device_loop.py``). Eagerly (on the CPU, or for a problem sharded
-  over a gloo mesh or across cards) the same body reads the device once a trial,
+  over a gloo mesh or cards without peer access) the same body reads the device once a trial,
   once every 32 PCG iterations and once an outer iteration (``HOST_READS``
   counts the reads).
 
@@ -46,8 +46,11 @@ every local shard on the cameras' device and the reductions device work
 through ``kernels/mesh_reduce.py``) the sharded step is captured as the
 unsharded one is: each PCG iteration's two reductions inside its IF node,
 the shards and their plans made before the capture, a graph in every
-process. A gloo mesh or one across cards runs the eager loop. A sharded
-solve or step ends with ``Mesh.check``.
+process. Over one process's several peer cards the step is a graph a
+card (``device_loop.CardLoops``), each card's over its own shards, its
+reductions through the card transport (``parallel.mesh.CardMesh``). A gloo
+mesh, or cards without peer access both ways, runs the eager loop. A
+sharded solve or step ends with ``Mesh.check``.
 """
 
 import dataclasses
@@ -680,28 +683,46 @@ def _observations_key(problem):
     return (mesh, *fields, *(f.local for f in fields))
 
 
+def _sharded_loop(problem, config, graph, make_body, carry, name):
+    """The StepLoop of an observation-sharded (or unsharded) step: the
+    shards and their plans made once, ``make_body(mesh, shards, plans)``
+    the step's body over them, its context (mesh, shards); a graph a card
+    over one process's several peer cards (``device_loop.card_loops``, every
+    carry entry on every card)."""
+    mesh, shards = _shards(problem)
+    plans = [_plans(s) for s in shards]
+    dtype = problem.camera_params.dtype
+
+    def make_loop(view, carry, capture):
+        body = make_body(view, [shards[j] for j in view.shards], [plans[j] for j in view.shards])
+        return device_loop.StepLoop(body, carry, config.max_iterations, _record_dtypes(dtype),
+                                    Status.MAXIMUM_ITERATIONS_REACHED, graph=capture, name=name,
+                                    context=(mesh, shards))
+
+    return device_loop.card_loops(mesh, graph, make_loop, carry, (None,) * len(carry), name, context=(mesh, shards))
+
+
 def _cg_loop(problem, config):
     """The StepLoop of the CG engine on this problem, its context (mesh,
     shards). On CUDA the loop is captured once per layout (the incidence,
     pixels, intrinsics, loss, gauge, shapes, dtype and config; the mesh and
-    the GlobalArrays of an observation-sharded problem) and kept; on the
-    CPU, or sharded over a gloo mesh or across cards, it is eager."""
+    the GlobalArrays of an observation-sharded problem) and kept, a graph a
+    card over one process's several peer cards; on the CPU, or sharded over
+    a gloo mesh or cards without peer access, it is eager."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     graph = _graphs(problem)
 
-    def make():
-        mesh, shards = _shards(problem)
-        plans = [_plans(s) for s in shards]
-
+    def make_body(mesh, shards, plans):
         def body(cams, pts, lam):
             prob = dataclasses.replace(problem, camera_params=cams, points=pts)
             cams, pts, lam, terminal, status, record = _outer_step(prob, lam, config, mesh, shards, plans)
             return (cams, pts, lam), terminal, status, record
 
+        return body
+
+    def make():
         carry = (problem.camera_params, problem.points, torch.full((), -1.0, dtype=dtype, device=dev))
-        return device_loop.StepLoop(body, carry, config.max_iterations, _record_dtypes(dtype),
-                                    Status.MAXIMUM_ITERATIONS_REACHED, graph=graph,
-                                    name=f"ba_step {_layout_name(problem)}", context=(mesh, shards))
+        return _sharded_loop(problem, config, graph, make_body, carry, f"ba_step {_layout_name(problem)}")
 
     if not graph:
         return make()
@@ -718,8 +739,8 @@ def ba_step(problem, lam, config=BAConfig()):
     seed λ from the GN diagonal. On CUDA the step is one replay of a graph
     captured at the first call of its layout, with no host read, an
     observation-sharded problem's too when its mesh captures on the
-    cameras' device; sharded over a gloo mesh or across cards it steps
-    eagerly."""
+    cameras' device (a graph a card over several peer cards); sharded over a
+    gloo mesh or cards without peer access it steps eagerly."""
     loop = _cg_loop(problem, config)
     loop.start((problem.camera_params, problem.points, lam))
     loop.step(_read)
@@ -829,7 +850,7 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
     host read after the first capture. ``host_loop=True`` reads done after
     each replay and stops there (one read an outer iteration). Both give the
     same bits. On the CPU, and for a problem sharded over a gloo mesh or
-    across cards (module docstring), the same step body runs eagerly, reading the
+    cards without peer access (module docstring), the same step body runs eagerly, reading the
     device once a trial, once every 32 PCG iterations and once an outer
     iteration, whatever ``host_loop`` says; the cameras and points of a
     sharded solve are replicated on every process, and "dense" takes it

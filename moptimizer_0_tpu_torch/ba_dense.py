@@ -33,9 +33,11 @@ metrics) are summed over the mesh, max|diag V| and max|δpt| maxed; the
 With every local shard on the cameras' device and the reductions device
 work (``Mesh.captures_on``: one process, or processes of one host reducing
 through ``kernels/mesh_reduce.py``) its step is a CUDA graph as the
-unsharded one's, K11 launched once a shard an S build inside it; over a
-gloo mesh or across cards it runs the eager loop, one host read a trial and
-an outer iteration.
+unsharded one's, K11 launched once a shard an S build inside it; over one
+process's several peer cards it is a graph a card, each card's over its
+own shards (K11 once each an S build), reducing through the card
+transport; over a gloo mesh or cards without peer access it runs the eager
+loop, one host read a trial and an outer iteration.
 """
 
 import collections
@@ -722,11 +724,14 @@ def _sharded_dense_loop(problem, mesh, config, grouped, n_shards):
     capture. On CUDA with a mesh that captures on the cameras' device the
     loop is captured once per layout (the mesh by value, the incidence
     and pixels by identity, ``grouped`` when given, intrinsics, loss, gauge,
-    shapes, dtype and config: K11 runs inside the graph) and kept;
-    otherwise it is eager."""
+    shapes, dtype and config: K11 runs inside the graph) and kept; over one
+    process's several peer cards it is a graph a card (``CardLoops``), card
+    c's over its shards' landmarks, with the cameras, λ and the intrinsics
+    on the card; otherwise it is eager."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     C = problem.camera_params.shape[0]
     graph = device_loop.graphs(problem.camera_params) and mesh.captures_on(dev)
+    name = f"ba_step_dense_sharded {ba._layout_name(problem)} shards={n_shards}"
 
     def make():
         shards = _shard_grids(problem, mesh, group_by_landmark(problem) if grouped is None else grouped, n_shards)
@@ -734,20 +739,25 @@ def _sharded_dense_loop(problem, mesh, config, grouped, n_shards):
             shard.camera_plan(C)
             if graph:
                 shard.schur_plan(C)
-        intr = problem.intrinsics
 
-        def body(cams, *rest):
-            *pts, lam = rest
-            cams, pts, lam, terminal, status, record = _dense_outer_step(
-                cams, tuple(pts), intr, shards, problem.loss, problem.n_fixed_cameras, lam, config, mesh
-            )
-            return (cams, *pts, lam), terminal, status, record
+        def make_loop(view, carry, capture):
+            own = [shards[j] for j in view.shards]
+            intr = problem.intrinsics.to(carry[0].device)
 
-        start = (problem.camera_params, *_shard_points(problem.points, mesh, n_shards),
+            def body(cams, *rest):
+                *pts, lam = rest
+                cams, pts, lam, terminal, status, record = _dense_outer_step(
+                    cams, tuple(pts), intr, own, problem.loss, problem.n_fixed_cameras, lam, config, view
+                )
+                return (cams, *pts, lam), terminal, status, record
+
+            return device_loop.StepLoop(body, carry, config.max_iterations, ba._record_dtypes(dtype),
+                                        Status.MAXIMUM_ITERATIONS_REACHED, graph=capture, context=own, name=name)
+
+        carry = (problem.camera_params, *_shard_points(problem.points, mesh, n_shards),
                  torch.full((), -1.0, dtype=dtype, device=dev))
-        return device_loop.StepLoop(body, start, config.max_iterations, ba._record_dtypes(dtype),
-                                    Status.MAXIMUM_ITERATIONS_REACHED, graph=graph, context=shards,
-                                    name=f"ba_step_dense_sharded {ba._layout_name(problem)} shards={n_shards}")
+        return device_loop.card_loops(mesh, graph, make_loop, carry, (None, *range(mesh.n_local), None), name,
+                                      context=shards)
 
     if not graph:
         return make()
@@ -777,8 +787,9 @@ def solve_ba_dense_sharded(problem, mesh, config=DenseBAConfig(), axis="data", g
     captured at the first solve of its layout (K11 once a shard an S build
     inside it) and the loop reads nothing back; a repeat solve of the same
     problem replays, with ``grouped`` None too (its grouping is made once,
-    with the graph). Over a gloo mesh or across cards the step runs
-    eagerly, one host read a trial and an outer iteration. The solve ends
+    with the graph); over one process's several peer cards it replays a
+    graph a card. Over a gloo mesh or cards without peer access the step
+    runs eagerly, one host read a trial and an outer iteration. The solve ends
     with ``Mesh.check``, then gathers the points over the group.
     """
     n_shards = mesh.check_axis(axis)

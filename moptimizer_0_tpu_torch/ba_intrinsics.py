@@ -28,7 +28,8 @@ cameras and landmarks, so they need no reduction of their own. The JAX
 package runs the same solve under GSPMD and refuses only a row count the
 mesh does not divide; so does this. The unsharded solve is the one-shard
 case, and a sharded step is a CUDA graph where the CG engine's is (its
-mesh captures on the cameras' device, ``Mesh.captures_on``).
+mesh captures on the cameras' device, ``Mesh.captures_on``; a graph a card
+over one process's several peer cards).
 """
 
 import dataclasses
@@ -163,24 +164,24 @@ def _selfcal_loop(problem, config):
     """The StepLoop of the self-calibrating step, the intrinsics part of the
     carry, its context (mesh, shards): captured once per layout on CUDA, as
     ``ba._cg_loop``'s (an observation-sharded problem's when its mesh
-    captures on the cameras' device), eager otherwise."""
+    captures on the cameras' device, a graph a card over several peer
+    cards), eager otherwise."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     graph = ba._graphs(problem)
 
-    def make():
-        mesh, shards = ba._shards(problem)
-        plans = [ba._plans(s) for s in shards]
-
+    def make_body(mesh, shards, plans):
         def body(cams, pts, intr, lam):
             prob = dataclasses.replace(problem, camera_params=cams, points=pts, intrinsics=intr)
             cams, pts, intr, lam, terminal, status, record = _step_selfcal(prob, lam, config, mesh, shards, plans)
             return (cams, pts, intr, lam), terminal, status, record
 
+        return body
+
+    def make():
         carry = (problem.camera_params, problem.points, problem.intrinsics,
                  torch.full((), -1.0, dtype=dtype, device=dev))
-        return device_loop.StepLoop(body, carry, config.max_iterations, ba._record_dtypes(dtype),
-                                    Status.MAXIMUM_ITERATIONS_REACHED, graph=graph,
-                                    name=f"ba_step_selfcal {ba._layout_name(problem)}", context=(mesh, shards))
+        return ba._sharded_loop(problem, config, graph, make_body, carry,
+                                f"ba_step_selfcal {ba._layout_name(problem)}")
 
     if not graph:
         return make()
@@ -195,8 +196,9 @@ def ba_step_selfcal(problem, lam, config=ba.BAConfig()):
     (cams, pts, θ, λ′, terminal, status, record), all tensors; λ = −1 seeds
     λ. On CUDA the step is one replay of a graph captured at the first call
     of its layout, with no host read, an observation-sharded problem's too
-    when its mesh captures on the cameras' device; sharded over a gloo mesh
-    or across cards it steps eagerly."""
+    when its mesh captures on the cameras' device (a graph a card over
+    several peer cards); sharded over a gloo mesh or cards without peer
+    access it steps eagerly."""
     loop = _selfcal_loop(problem, config)
     loop.start((problem.camera_params, problem.points, problem.intrinsics, lam))
     loop.step(ba._read)
@@ -211,7 +213,7 @@ def solve_ba_selfcal(problem, config=ba.BAConfig()):
     replay) and one read of its terminal flag. Returns (BAResult with an
     empty trace, θ). An observation-sharded problem steps so too when its
     mesh captures on the cameras' device, and eagerly over a gloo mesh or
-    across cards; the cameras, points and θ of the result are replicated
+    cards without peer access; the cameras, points and θ of the result are replicated
     on every process."""
     loop = _selfcal_loop(problem, config)
     loop.start((problem.camera_params, problem.points, problem.intrinsics, -1.0))

@@ -41,8 +41,11 @@ work (``Mesh.captures_on``: one process, or processes of one host reducing
 through ``kernels/mesh_reduce.py``) is captured like any other, its shards'
 data leaves in the carry and the mesh and every shard's block structure in
 the key; every process of a mesh captures and replays its own graph. A
-gloo mesh (processes on several hosts) or one across cards runs the eager
-body.
+mesh of one process over several peer cards gets a graph a card
+(``device_loop.CardLoops``): card c's step runs over its own shards with x,
+λ and the flags replicated in its carry, and reduces through the card
+transport (``parallel.mesh``). A gloo mesh (processes on several hosts),
+or cards without peer access both ways, runs the eager body.
 A capture records PyTorch's factorizations on cuSOLVER and cuBLAS
 (``ops.small_solve.capturable_linalg``); the eager body runs on PyTorch's
 default routes, which send a batched Cholesky solve to MAGMA, and equals
@@ -487,23 +490,32 @@ def _graphs(problem, x, config):
 def _single_loop(problem, x, config, manifold):
     """The StepLoop of ``levenberg_marquardt`` and ``lm_step`` on this
     problem: cached per layout when its step is a graph, made anew (eager)
-    otherwise. Its carry: x, λ and the problem's data leaves."""
+    otherwise. Its carry: x, λ and the problem's data leaves. A problem
+    sharded over one process's several cards gets a ``device_loop.CardLoops``
+    of a graph a card, each card's carry x, λ and its shards' leaves."""
     dtype, dev = _trace_dtype(config, x), x.device
     graph = _graphs(problem, x, config)
+    mesh = problem.mesh if _sharded(problem) else None
+    name = f"lm_step P={x.shape[0]}" + (f" shards={mesh.size}" if mesh is not None else "")
 
-    def make():
+    def make_loop(view, carry, capture):
+        prob = problem if view is mesh else problem.on(view)
+
         def body(x, lam, *data):
-            prob, x, lam, terminal, status, record = _outer_iteration(
-                _with_data(problem, data), x, lam, config, manifold, _read
+            prob_i, x, lam, terminal, status, record = _outer_iteration(
+                _with_data(prob, data), x, lam, config, manifold, _read
             )
-            return (x, lam, *_data_leaves(prob)), terminal, status, _flat(record)
+            return (x, lam, *_data_leaves(prob_i)), terminal, status, _flat(record)
 
-        carry = (x, _full(-1.0, _lam_dtype(problem, x, config), dev), *_data_leaves(problem))
         return device_loop.StepLoop(
             body, carry, config.max_iterations, _record_spec(config, len(problem.blocks), dtype),
-            Status.MAXIMUM_ITERATIONS_REACHED, graph=graph, context=problem,
-            name=f"lm_step P={x.shape[0]}" + (f" shards={problem.mesh.size}" if _sharded(problem) else ""),
+            Status.MAXIMUM_ITERATIONS_REACHED, graph=capture, context=problem, name=name,
         )
+
+    def make():
+        carry = (x, _full(-1.0, _lam_dtype(problem, x, config), dev), *_data_leaves(problem))
+        shard_of = (None, None, *(j for j, p in enumerate(problem.shards) for _ in _data_leaves(p))) if mesh else ()
+        return device_loop.card_loops(mesh, graph, make_loop, carry, shard_of, name, context=problem)
 
     if not graph:
         return make()
@@ -523,8 +535,10 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
     problem sharded over a mesh that captures on x's device included; on
     the CPU, inside ``device_loop.eager()``, with ``verbose=True`` (which
     prints every trial from the host) or for a problem sharded over a gloo
-    mesh or across cards the same step runs eagerly. A sharded solve ends
-    with ``Mesh.check``."""
+    mesh or over cards without peer access the same step runs eagerly. A
+    problem sharded over one process's several cards replays a graph a card
+    and returns on the first shard's card. A sharded solve ends with
+    ``Mesh.check``."""
     problem = _as_problem(problem)
     x = torch.as_tensor(x0)
     problem = _on_device(problem, x)

@@ -19,7 +19,18 @@ class ReplayCounter:
 
     def total(self):
         """Launches made by graph replays (one host read a card)."""
-        return sum(int(c.item()) for c in self._counters.values())
+        return sum(self.by_device().values())
+
+    def by_device(self):
+        """{card: launches made there by graph replays} (one read a card)."""
+        return {d: int(c.item()) for d, c in self._counters.items()}
+
+    def prepare(self, device):
+        """Make the card's counter, for a kernel whose first launch on it may
+        be a captured one."""
+        device = torch.device(device)
+        if device not in self._counters:
+            self._counters[device] = torch.zeros((), dtype=torch.int64, device=device)
 
     def reset(self):
         for c in self._counters.values():

@@ -1,21 +1,35 @@
-"""Binding of ``csrc/mesh_reduce.cu``: the device all-reduce of a mesh whose
-processes share one host, through CUDA IPC buffers.
+"""Binding of ``csrc/mesh_reduce.cu``: the device all-reduce of a mesh's
+members, the processes of one host (through CUDA IPC buffers) or the cards
+of one process (through buffers the cards read from each other). One kernel
+serves both: every member copies its shards' partials into their slots,
+waits at a device-side barrier for every other member, and combines all the
+slots in shard order, as ``Mesh.psum`` does, so every member writes psum's
+bits. It launches on the current stream and reads nothing back, so a CUDA
+graph can capture it (inside IF nodes too); it takes CUDA tensors only and
+raises on anything else.
 
-``IpcBuffers`` is one process's side of a mesh's transport
-(``parallel.multihost.global_mesh`` makes it for a ``"device"`` mesh on
-CUDA): its buffer, every peer's buffer mapped into this process, and
-``all_reduce``, which launches the kernel on the current stream and reads
-nothing back, so a CUDA graph can capture it (inside IF nodes too). It
-takes CUDA tensors only and raises on anything else; the plain version it
-must equal bit for bit is ``parallel.mesh._all_reduce_plain``.
+``_Transport`` keeps the buffers of one transport: a generation of buffers,
+one a member, grown (a new generation, larger slots) only outside a capture
+and kept until ``close()``, since a cached graph may point into any of
+them; ``check()`` reads the error word that a member's bounded spin sets
+when a peer does not arrive within ``timeout_s``, and raises, naming the
+epoch. Its two kinds differ only in how a generation's buffers are had:
 
-The buffer is sized from the reductions that run eagerly: one larger than
-its slots makes every process allocate a larger buffer and exchange the
-handles again over the gloo group, which every process reaches at the same
-reduction because they run in lockstep. Under capture that raises. Every
-buffer made stays mapped until ``close()``, since a cached graph may point
-into any of them. A peer that does not arrive within ``timeout_s`` sets the
-buffer's error word; ``check()`` reads it and raises, naming the epoch.
+* ``IpcBuffers``, one process's side of a ``"device"`` mesh
+  (``parallel.multihost.global_mesh`` makes it on CUDA): its own buffer,
+  and every peer's mapped from the handles exchanged over the gloo group,
+  which every process reaches at the same reduction because they run in
+  lockstep. ``all_reduce`` reduces one partial a process, in rank order;
+  its plain version is ``parallel.mesh._all_reduce_plain``.
+* ``CardBuffers``, the transport of a one-process mesh over several cards
+  (``parallel.mesh.CardMesh``): a buffer ``cudaMalloc``'d on every card,
+  which the others read through peer access. ``reduce`` is one card's
+  launch, in that card's own CUDA graph, with the partials of the card's
+  shards. Its plain version, for CPU tensors, is ``reduce_slots_plain``. A
+  graph's warm-up does not launch it (a launch would wait for cards whose
+  warm-up has not been enqueued yet): it sizes the slots (``reserve``) and
+  stands in with the card's own partials' sum, which the warm-up discards
+  with the rest of its values.
 """
 
 import ctypes
@@ -30,8 +44,10 @@ from moptimizer_0_tpu_torch.kernels.launches import ReplayCounter
 NAME = "mesh_reduce"
 SOURCES = ("mesh_reduce.cu",)
 
-# Processes a device transport spans at most (MR_MAX_PROCS in the source).
-MAX_PROCESSES = 8
+# Members (processes or cards) and shards a transport spans at most
+# (MR_MAX_MEMBERS, MR_MAX_SHARDS in the source).
+MAX_MEMBERS = 8
+MAX_SHARDS = 32
 # The dtypes the engines' mesh reductions carry.
 DTYPES = {torch.float32: 0, torch.float64: 1}
 OPS = ("sum", "max")
@@ -55,6 +71,11 @@ def launches():
     return LAUNCHES + replayed()
 
 
+def replayed_by_card():
+    """{card: launches that graph replays made there} (one read a card)."""
+    return _REPLAYED.by_device()
+
+
 def reset_launches():
     global LAUNCHES
     LAUNCHES = 0
@@ -73,19 +94,23 @@ def _library():
     lib = ctypes.CDLL(str(path))
     p, i, u64, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_longlong
     sig = {
-        "mr_header_bytes": [], "mr_handle_bytes": [], "mr_max_processes": [],
-        "mr_alloc": [i, u64, ctypes.POINTER(p), p],
+        "mr_header_bytes": [], "mr_handle_bytes": [], "mr_max_members": [], "mr_max_shards": [],
+        "mr_alloc": [i, u64, ctypes.POINTER(p)],
+        "mr_handle": [p, p],
         "mr_open": [i, p, ctypes.POINTER(p)],
         "mr_close": [p], "mr_free": [p],
-        "mr_reduce": [p, p, ll, i, i, ctypes.POINTER(u64), i, i, u64, u64, p],
+        "mr_prepare": [i, i],
+        "mr_reduce": [ctypes.POINTER(u64), i, p, ll, i, i, ctypes.POINTER(u64), i, ctypes.POINTER(i),
+                      ctypes.POINTER(i), i, i, i, u64, u64, p],
         "mr_error": [p, ctypes.POINTER(u64), p],
         "mr_pingpong": [p, p, i, ll, ll, u64, p],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i
-    if lib.mr_max_processes() != MAX_PROCESSES:
-        raise RuntimeError(f"mesh_reduce.cu takes {lib.mr_max_processes()} processes, the binding {MAX_PROCESSES}")
+    limits = (lib.mr_max_members(), lib.mr_max_shards())
+    if limits != (MAX_MEMBERS, MAX_SHARDS):
+        raise RuntimeError(f"mesh_reduce.cu takes {limits} members, shards; the binding {(MAX_MEMBERS, MAX_SHARDS)}")
     return lib
 
 
@@ -95,42 +120,139 @@ def _ok(err, what):
 
 
 class _Generation:
-    """One buffer of every process: this process's own pointer and every
-    rank's as mapped here, and its slot bytes."""
+    """One buffer of every member: ``bases``, each member's as mapped here;
+    ``owned``, the (device, pointer) of those this process allocated; and
+    their slot bytes."""
 
-    def __init__(self, own, bases, cap):
-        self.own, self.bases, self.cap = own, bases, cap
+    def __init__(self, bases, owned, cap):
+        self.bases, self.owned, self.cap = bases, owned, cap
         self.array = (ctypes.c_ulonglong * len(bases))(*bases)
 
 
-class IpcBuffers:
-    """One process's side of a device transport over ``group`` (``size``
-    processes, this one ``rank``), its buffer on ``device``. Collective:
-    every process of the group makes it at the same point."""
+def _check_flat(flat, device):
+    if not flat.is_cuda or flat.device != device:
+        raise ValueError(f"mesh_reduce: the tensor is on {flat.device}, the transport on {device}")
+    if flat.dtype not in DTYPES:
+        raise TypeError(f"mesh_reduce: {flat.dtype} is not one of {list(DTYPES)}")
+    if flat.ndim != 1 or not flat.is_contiguous():
+        raise ValueError("mesh_reduce: the tensor must be 1-D and contiguous")
 
-    def __init__(self, group, rank, size, device, timeout_s=TIMEOUT_S):
-        if not 1 < size <= MAX_PROCESSES:
-            raise ValueError(f"a device transport spans 2..{MAX_PROCESSES} processes, not {size}")
-        self.group, self.rank, self.size = group, rank, size
-        self.device = torch.device(device)
+
+class _Transport:
+    """The buffers of a transport whose shard j lies on member
+    ``member_of[j]``, and its launch; a subclass says how a generation's
+    buffers are had (``_alloc``) and given back (``close``)."""
+
+    def __init__(self, member_of, timeout_s):
+        self.member_of = tuple(int(m) for m in member_of)
+        self.pos_of = tuple(self.member_of[:j].count(m) for j, m in enumerate(self.member_of))
+        self.per = max(self.member_of.count(m) for m in self.member_of)
         self.timeout_s = float(timeout_s)
         self.generations = []
-        self._pings = 0
-        self._grow(INITIAL_SLOT_BYTES)
+        self._placement = ((ctypes.c_int * len(self.member_of))(*self.member_of),
+                           (ctypes.c_int * len(self.pos_of))(*self.pos_of))
 
     @property
     def slot_bytes(self):
         return self.generations[-1].cap
 
+    def _buffer_bytes(self, cap):
+        return _library().mr_header_bytes() + 2 * self.per * cap
+
     def _grow(self, cap):
-        """A new buffer with slots of at least ``cap`` bytes in every process,
-        the handles exchanged over the group."""
+        """New buffers with slots of at least ``cap`` bytes on every member."""
+        self.generations.append(self._alloc(-(-int(cap) // 4096) * 4096))
+
+    def reserve(self, n_bytes):
+        """Slots of at least ``n_bytes`` on every member; grows them outside
+        a capture and raises inside one (graphs already captured keep the
+        buffers they point into)."""
+        if n_bytes <= self.slot_bytes:
+            return
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"mesh_reduce: a {n_bytes}-byte reduction under capture exceeds the "
+                               f"{self.slot_bytes}-byte slots; the eager warm-up sizes them")
+        self._grow(max(n_bytes, 2 * self.slot_bytes))
+
+    def _launch(self, flats, me, device, op):
+        """Member ``me``'s launch: ``flats``, the partials of its shards in
+        shard order, 1-D, contiguous, of one dtype and size, on ``device``;
+        returns every shard's, combined in shard order, as a new tensor."""
+        for f in flats:
+            _check_flat(f, device)
+        if len({(f.dtype, f.numel()) for f in flats}) != 1 or len(flats) != self.member_of.count(me):
+            raise ValueError("mesh_reduce: a member's partials must be one a shard it holds, of one dtype and size")
+        if op not in OPS:
+            raise ValueError(f"mesh_reduce: op must be one of {OPS}, got {op!r}")
+        first = flats[0]
+        self.reserve(first.numel() * first.element_size())
+        gen = self.generations[-1]
+        out = torch.empty_like(first)
+        ins = (ctypes.c_ulonglong * len(flats))(*(f.data_ptr() for f in flats))
+        with torch.cuda.device(device):
+            err = _library().mr_reduce(
+                ins, len(flats), out.data_ptr(), first.numel(), DTYPES[first.dtype], OPS.index(op), gen.array,
+                len(gen.bases), *self._placement, len(self.member_of), me, self.per, gen.cap,
+                int(self.timeout_s * 1e9), torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"mr_reduce launch failed with code {err}")
+        _count(device)
+        return out
+
+    def _who(self, device):
+        return str(device)
+
+    def check(self):
+        """Raise if a reduction of any buffer this process owns timed out
+        waiting for a peer (one read of the device a buffer, after the
+        current stream's work)."""
         lib = _library()
-        cap = -(-int(cap) // 4096) * 4096
+        for g in self.generations:
+            for dev, base in g.owned:
+                word = ctypes.c_ulonglong()
+                with torch.cuda.device(dev):
+                    _ok(lib.mr_error(base, ctypes.byref(word), torch.cuda.current_stream().cuda_stream), "mr_error")
+                if word.value:
+                    raise RuntimeError(
+                        f"mesh all-reduce: {self._who(dev)} waited more than {self.timeout_s:g} s for a peer at "
+                        f"epoch {word.value} (a peer skipped a reduction, failed or stopped)"
+                    )
+
+    def _free_owned(self):
+        lib = _library()
+        for g in self.generations:
+            for dev, base in g.owned:
+                with torch.cuda.device(dev):
+                    _ok(lib.mr_free(base), "mr_free")
+        self.generations = []
+
+
+class IpcBuffers(_Transport):
+    """One process's side of a device transport over ``group`` (``size``
+    processes, this one ``rank``, one shard each), its buffer on
+    ``device``. Collective: every process of the group makes it at the same
+    point."""
+
+    def __init__(self, group, rank, size, device, timeout_s=TIMEOUT_S):
+        if not 1 < size <= MAX_MEMBERS:
+            raise ValueError(f"a device transport spans 2..{MAX_MEMBERS} processes, not {size}")
+        super().__init__(range(size), timeout_s)
+        self.group, self.rank, self.size = group, rank, size
+        self.device = torch.device(device)
+        self._pings = 0
+        with torch.cuda.device(self.device):
+            _ok(_library().mr_prepare(self.device.index, -1), "mr_prepare")
+        self._grow(INITIAL_SLOT_BYTES)
+
+    def _alloc(self, cap):
+        """This process's buffer, and every peer's mapped from the handles
+        exchanged over the group."""
+        lib = _library()
         own, handle = ctypes.c_void_p(), ctypes.create_string_buffer(lib.mr_handle_bytes())
         with torch.cuda.device(self.device):
-            _ok(lib.mr_alloc(self.device.index, lib.mr_header_bytes() + 2 * cap, ctypes.byref(own), handle),
-                "mr_alloc")
+            _ok(lib.mr_alloc(self.device.index, self._buffer_bytes(cap), ctypes.byref(own)), "mr_alloc")
+            _ok(lib.mr_handle(own, handle), "mr_handle")
         handles = [None] * self.size
         dist.all_gather_object(handles, handle.raw, group=self.group)
         bases = []
@@ -142,55 +264,17 @@ class IpcBuffers:
             with torch.cuda.device(self.device):
                 _ok(lib.mr_open(self.device.index, h, ctypes.byref(ptr)), f"mr_open of rank {r}'s buffer")
             bases.append(ptr.value)
-        self.generations.append(_Generation(own.value, bases, cap))
+        return _Generation(bases, ((self.device, own.value),), cap)
 
     def all_reduce(self, flat, op):
         """Σ (op "sum") or max (op "max") of ``flat`` over the processes, in
         rank order, as a new tensor; one kernel launch on the current stream.
         ``flat``: a contiguous 1-D CUDA tensor on the transport's device, of
         a dtype in DTYPES."""
-        if not flat.is_cuda or flat.device != self.device:
-            raise ValueError(f"mesh_reduce: the tensor is on {flat.device}, the transport on {self.device}")
-        if flat.dtype not in DTYPES:
-            raise TypeError(f"mesh_reduce: {flat.dtype} is not one of {list(DTYPES)}")
-        if flat.ndim != 1 or not flat.is_contiguous():
-            raise ValueError("mesh_reduce: the tensor must be 1-D and contiguous")
-        if op not in OPS:
-            raise ValueError(f"mesh_reduce: op must be one of {OPS}, got {op!r}")
-        n_bytes = flat.numel() * flat.element_size()
-        if n_bytes > self.slot_bytes:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    f"mesh_reduce: a {n_bytes}-byte reduction under capture exceeds the {self.slot_bytes}-byte "
-                    "slots; the eager warm-up sizes them"
-                )
-            self._grow(max(n_bytes, 2 * self.slot_bytes))
-        gen = self.generations[-1]
-        out = torch.empty_like(flat)
-        with torch.cuda.device(self.device):
-            err = _library().mr_reduce(
-                flat.data_ptr(), out.data_ptr(), flat.numel(), DTYPES[flat.dtype], OPS.index(op), gen.array,
-                self.size, self.rank, gen.cap, int(self.timeout_s * 1e9), torch.cuda.current_stream().cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"mr_reduce launch failed with code {err}")
-        _count(self.device)
-        return out
+        return self._launch([flat], self.rank, self.device, op)
 
-    def check(self):
-        """Raise if a reduction of any of the transport's buffers timed out
-        waiting for a peer (one read of the device a buffer, after the
-        current stream's work)."""
-        lib = _library()
-        for g in self.generations:
-            word = ctypes.c_ulonglong()
-            with torch.cuda.device(self.device):
-                _ok(lib.mr_error(g.own, ctypes.byref(word), torch.cuda.current_stream().cuda_stream), "mr_error")
-            if word.value:
-                raise RuntimeError(
-                    f"mesh all-reduce: rank {self.rank} waited more than {self.timeout_s:g} s for a peer at epoch "
-                    f"{word.value} (a process skipped a reduction, failed or stopped)"
-                )
+    def _who(self, device):
+        return f"rank {self.rank}"
 
     def pingpong(self, iters, peer=None):
         """``iters`` flag round trips between rank 0 and ``peer`` (rank 1) in
@@ -199,7 +283,7 @@ class IpcBuffers:
         peer = 1 - self.rank if peer is None else peer
         gen = self.generations[-1]
         with torch.cuda.device(self.device):
-            _ok(_library().mr_pingpong(gen.own, gen.bases[peer], self.rank, self._pings, iters,
+            _ok(_library().mr_pingpong(gen.bases[self.rank], gen.bases[peer], self.rank, self._pings, iters,
                                        int(self.timeout_s * 1e9), torch.cuda.current_stream().cuda_stream),
                 "mr_pingpong")
         self._pings += iters
@@ -218,7 +302,81 @@ class IpcBuffers:
                     if r != self.rank:
                         _ok(lib.mr_close(base), "mr_close")
         dist.barrier(group=self.group)
-        with torch.cuda.device(self.device):
-            for g in self.generations:
-                _ok(lib.mr_free(g.own), "mr_free")
-        self.generations = []
+        self._free_owned()
+
+
+# The combine of a reduction, as Mesh.psum/pmax apply it.
+COMBINE = {"sum": torch.add, "max": torch.maximum}
+
+
+def reduce_slots_plain(groups, op):
+    """``CardBuffers.reduce``'s plain version: ``groups`` holds each card's
+    (shard indices, partials); every partial goes into its shard's slot and
+    the slots are combined in shard order (((s0 ∘ s1) ∘ s2) ...), the order
+    of ``Mesh.psum``. Returns each card's result (the same tensor, on the
+    first card's device, for every card)."""
+    slots = {}
+    for shards, parts in groups:
+        for j, part in zip(shards, parts):
+            if j in slots:
+                raise ValueError(f"shard {j} is in two cards' groups")
+            slots[j] = part
+    if sorted(slots) != list(range(len(slots))):
+        raise ValueError(f"the groups hold shards {sorted(slots)}, not 0..{len(slots) - 1}")
+    acc = slots[0]
+    for j in range(1, len(slots)):
+        acc = COMBINE[op](acc, slots[j].to(acc.device))
+    return [acc] * len(groups)
+
+
+class CardBuffers(_Transport):
+    """The transport of a one-process mesh over several cards: ``cards``
+    (torch.devices, pairwise peers both ways) and ``card_of``, each shard's
+    index into ``cards``. Every card enables peer access to every other and
+    loads the kernel once here, so that no capture does either."""
+
+    def __init__(self, cards, card_of, timeout_s=TIMEOUT_S):
+        cards = tuple(torch.device(c) for c in cards)
+        card_of = tuple(int(c) for c in card_of)
+        if not 1 < len(cards) <= MAX_MEMBERS or len(card_of) > MAX_SHARDS:
+            raise ValueError(f"a card transport spans 2..{MAX_MEMBERS} cards and at most {MAX_SHARDS} shards, not "
+                             f"{len(cards)} and {len(card_of)}")
+        if sorted(set(card_of)) != list(range(len(cards))):
+            raise ValueError(f"shards on cards {card_of}: every one of {len(cards)} cards needs a shard")
+        super().__init__(card_of, timeout_s)
+        self.cards, self.card_of = cards, card_of
+        lib = _library()
+        for dev in self.cards:
+            for peer in [d for d in self.cards if d != dev]:
+                with torch.cuda.device(dev):
+                    _ok(lib.mr_prepare(dev.index, peer.index), f"mr_prepare of {dev} with {peer}")
+            _REPLAYED.prepare(dev)
+        self._grow(INITIAL_SLOT_BYTES)
+
+    def _alloc(self, cap):
+        """A buffer on every card."""
+        lib = _library()
+        bases = []
+        for dev in self.cards:
+            ptr = ctypes.c_void_p()
+            with torch.cuda.device(dev):
+                _ok(lib.mr_alloc(dev.index, self._buffer_bytes(cap), ctypes.byref(ptr)), f"mr_alloc on {dev}")
+            bases.append(ptr.value)
+        return _Generation(bases, tuple(zip(self.cards, bases)), cap)
+
+    def reduce(self, flats, shards, card, op):
+        """Card ``card``'s launch of one reduction over the mesh: ``flats``
+        are the partials of its shards ``shards`` (mesh indices, every shard
+        of the card, ascending); returns Σ (or max) over every shard in
+        shard order, a new tensor on the card. One kernel launch on the
+        card's current stream, nothing read back: every other card must
+        launch its own for the same reduction."""
+        if tuple(shards) != tuple(j for j, c in enumerate(self.card_of) if c == card):
+            raise ValueError(f"mesh_reduce: shards {shards} are not card {card}'s")
+        return self._launch(flats, card, self.cards[card], op)
+
+    def close(self):
+        """Free every card's buffers, after every card's work."""
+        for dev in self.cards:
+            torch.cuda.synchronize(dev)
+        self._free_owned()

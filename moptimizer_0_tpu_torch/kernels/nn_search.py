@@ -20,6 +20,8 @@ SOURCES = ("nn_search.cu",)
 # counts the launches made eagerly, ``replayed()`` those that CUDA-graph
 # replays made (``kernels.launches``), ``launches()`` both.
 LAUNCHES = 0
+# LAUNCHES by card (a torch.device).
+LAUNCHES_BY_CARD = {}
 _REPLAYED = ReplayCounter("nn_cuda")
 
 
@@ -31,9 +33,15 @@ def launches():
     return LAUNCHES + replayed()
 
 
+def replayed_by_card():
+    """{card: launches that graph replays made there} (one read a card)."""
+    return _REPLAYED.by_device()
+
+
 def reset_launches():
     global LAUNCHES
     LAUNCHES = 0
+    LAUNCHES_BY_CARD.clear()
     _REPLAYED.reset()
 
 
@@ -41,6 +49,7 @@ def _count(device):
     global LAUNCHES
     if not _REPLAYED.captured(device):
         LAUNCHES += 1
+        LAUNCHES_BY_CARD[device] = LAUNCHES_BY_CARD.get(device, 0) + 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,8 @@ SOURCES = ("schur.cu",)
 # counts the launches made eagerly, ``replayed()`` those that CUDA-graph
 # replays made (``kernels.launches``), ``launches()`` both.
 LAUNCHES = 0
+# LAUNCHES by card (a torch.device).
+LAUNCHES_BY_CARD = {}
 _REPLAYED = ReplayCounter("schur_corr_cuda")
 
 
@@ -33,9 +35,15 @@ def launches():
     return LAUNCHES + replayed()
 
 
+def replayed_by_card():
+    """{card: launches that graph replays made there} (one read a card)."""
+    return _REPLAYED.by_device()
+
+
 def reset_launches():
     global LAUNCHES
     LAUNCHES = 0
+    LAUNCHES_BY_CARD.clear()
     _REPLAYED.reset()
 
 
@@ -43,6 +51,7 @@ def _count(device):
     global LAUNCHES
     if not _REPLAYED.captured(device):
         LAUNCHES += 1
+        LAUNCHES_BY_CARD[device] = LAUNCHES_BY_CARD.get(device, 0) + 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,6 +19,10 @@ captured once per layout and replayed:
   advances them by one outer iteration under IF(¬done). With
   ``graph=True`` that iteration is captured once and every step is one
   replay: a solve enqueues max_iterations replays and reads nothing back.
+* ``CardLoops`` stands for a StepLoop over a one-process mesh of several
+  cards (``parallel.mesh``): a StepLoop a card, each captured on its card
+  with the step over that card's shards, replayed in card order;
+  ``card_loops`` makes one StepLoop or the other for the engines.
 * ``cached(parts, make)`` keeps the StepLoops of the last few layouts.
 * ``eager()`` is a context in which the engines run the step's body eagerly
   on the card, op by op: the reference the graph must equal bit for bit.
@@ -87,6 +91,11 @@ def tracing():
     """True while a step is warmed up or captured: every IF body is then
     recorded (or run) whatever its flag, and nothing reads the device."""
     return _flag("warm") or _flag("capturing")
+
+
+def capturing():
+    """True while a step is captured (not in its warm-up)."""
+    return _flag("capturing")
 
 
 def _stream(device, role):
@@ -242,40 +251,49 @@ class StepLoop:
                 {k: v.clone() for k, v in self.record.items()})
 
     def _capture(self, name):
-        with torch.cuda.device(self.done.device):
-            self._capture_on_device(name)
+        self.warm_up()
+        self.capture(name)
 
-    def _capture_on_device(self, name):
+    def warm_up(self):
+        """The capture's warm-up (module docstring), on the loop's card."""
         dev = self.done.device
-        graph_cond.load()
-        for d in range(MAX_DEPTH):
-            _stream(dev, d)
-        stream = _stream(dev, "capture")
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            _local.warm = True
-            try:
-                self._iterate()
-            finally:
-                _local.warm = False
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        self.bodies = torch.cuda.MemPool()
-        with torch.cuda.graph(self.graph, stream=stream):
-            with torch.cuda.use_mem_pool(self.bodies, device=dev):
-                _local.capturing = True
+        with torch.cuda.device(dev):
+            graph_cond.load()
+            for d in range(MAX_DEPTH):
+                _stream(dev, d)
+            stream = _stream(dev, "capture")
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                _local.warm = True
                 try:
                     self._iterate()
                 finally:
-                    _local.capturing = False
-        t2 = time.perf_counter()
-        self.graph.instantiate()
-        torch.cuda.synchronize(dev)
-        t3 = time.perf_counter()
-        self.stats = dict(name=name, warm_ms=(t1 - t0) * 1e3, capture_ms=(t2 - t1) * 1e3,
+                    _local.warm = False
+            torch.cuda.synchronize(dev)
+        self.stats = dict(warm_ms=(time.perf_counter() - t0) * 1e3)
+
+    def capture(self, name):
+        """Capture one iteration into the loop's graph, after ``warm_up``."""
+        dev = self.done.device
+        with torch.cuda.device(dev):
+            stream = _stream(dev, "capture")
+            t1 = time.perf_counter()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            self.bodies = torch.cuda.MemPool()
+            with torch.cuda.graph(self.graph, stream=stream):
+                with torch.cuda.use_mem_pool(self.bodies, device=dev):
+                    _local.capturing = True
+                    try:
+                        self._iterate()
+                    finally:
+                        _local.capturing = False
+            t2 = time.perf_counter()
+            self.graph.instantiate()
+            torch.cuda.synchronize(dev)
+            t3 = time.perf_counter()
+        self.stats = dict(name=name, warm_ms=self.stats["warm_ms"], capture_ms=(t2 - t1) * 1e3,
                           instantiate_ms=(t3 - t2) * 1e3, pool_bytes=self.pool_bytes())
         CAPTURES.append(self.stats)
 
@@ -290,6 +308,115 @@ class StepLoop:
         if self.graph is not None:
             self.graph.reset()
         self.graph = self.bodies = None
+
+
+class CardLoops:
+    """The loops of one solve over a one-process mesh of several cards
+    (``parallel.mesh.Mesh.captures_on``): a StepLoop a card, each with the
+    step body over that card's shards, its own carry and its own graph, and
+    in their place everything a StepLoop offers a solve (``start``,
+    ``step``, ``solve``, ``outputs``, ``carry``, ``done``, ``it``,
+    ``status``, ``record``, ``trace``, ``replays``, ``stats``).
+
+    loops: each card's StepLoop, made with graph=False; the first card's is
+    the first shard's, where the result lands. owners: for each entry of
+    the solve's whole carry, None for a replicated entry (x, λ, cameras: on
+    every card) or the card whose carry holds it (a shard's data or
+    points), in the order each card's carry lists them. Every card's
+    warm-up runs before any capture, so every graph points into the same
+    transport buffers; each capture runs on its card's streams and pools.
+    A step enqueues every card's replay before anything waits, and the
+    replicated entries, done, the counter, the status, the record and the
+    trace are read from the first card."""
+
+    def __init__(self, loops, owners, name="", context=None):
+        self.loops = list(loops)
+        self.owners = tuple(owners)
+        self.context = context
+        self._index = [[i for i, o in enumerate(self.owners) if o is None or o == c] for c in range(len(self.loops))]
+        for c, loop in enumerate(self.loops):
+            if len(loop.carry) != len(self._index[c]):
+                raise ValueError(f"card {c}'s carry has {len(loop.carry)} entries, its owners say {len(self._index[c])}")
+        for loop in self.loops:
+            loop.warm_up()
+        for c, loop in enumerate(self.loops):
+            loop.capture(f"{name} card={c}")
+        first = self.loops[0]
+        self.done, self.it, self.status = first.done, first.it, first.status
+        self.record, self.trace = first.record, first.trace
+
+    @property
+    def graph(self):
+        return self.loops[0].graph
+
+    @property
+    def replays(self):
+        return self.loops[0].replays
+
+    @property
+    def stats(self):
+        return self.loops[0].stats
+
+    @property
+    def carry(self):
+        """The whole carry: a replicated entry from the first card, a
+        card's own from that card."""
+        out = []
+        for i, o in enumerate(self.owners):
+            c = 0 if o is None else o
+            out.append(self.loops[c].carry[self._index[c].index(i)])
+        return out
+
+    def start(self, carry):
+        """Each card's part of the whole carry into its loop (copied onto
+        the card)."""
+        for c, loop in enumerate(self.loops):
+            loop.start([carry[i] for i in self._index[c]])
+
+    def step(self, read):
+        """One outer iteration: every card's replay, enqueued in card order
+        with nothing read between them."""
+        for loop in self.loops:
+            loop.step(read)
+        return True
+
+    def solve(self, n, read, host_loop=False):
+        """n steps; with ``host_loop`` reads the first card's done after
+        each (after every card's replay is enqueued) and stops there."""
+        for _ in range(n):
+            self.step(read)
+            if host_loop and read(self.done):
+                break
+
+    def outputs(self):
+        return ([t.clone() for t in self.carry], self.done.clone(), self.status.clone(),
+                {k: v.clone() for k, v in self.record.items()})
+
+    def close(self):
+        for loop in self.loops:
+            loop.close()
+
+
+def card_loops(mesh, graph, make_loop, carry, shard_of, name, context=None):
+    """The loop of a step over ``mesh`` (None: unsharded) from ``carry``:
+    ``make_loop(mesh, carry, graph)``; or, over one process's several peer
+    cards with ``graph`` (``mesh.per_card`` on the carry's device), a
+    CardLoops of ``make_loop(view, the card's carry, False)`` for each
+    card's view (``mesh.on_card``: its shards, ``view.shards``, reducing
+    through the mesh's card transport). shard_of: for each carry entry,
+    None where every card holds it (x, λ, the cameras), else the shard it
+    belongs to; a card's carry is its entries in the carry's order, on the
+    card."""
+    if mesh is None or not (graph and mesh.per_card(carry[0].device)):
+        return make_loop(mesh, carry, graph)
+    card_of = mesh.card_of()
+    owners = tuple(None if j is None else card_of[j] for j in shard_of)
+    transport = mesh.card_transport()
+    loops = []
+    for c, card in enumerate(mesh.cards):
+        own = tuple(t.to(card) for t, o in zip(carry, owners) if o is None or o == c)
+        loops.append(make_loop(mesh.on_card(c, transport), own, False))
+    return CardLoops(loops, owners, name, context=context)
 
 
 def key_part(p):
@@ -323,8 +450,9 @@ def lookup(store, parts, make, size, drop=None):
 
 
 def cached(parts, make):
-    """The StepLoop of a layout (``lookup`` over the last MAX_LOOPS)."""
-    return lookup(_LOOPS, parts, make, MAX_LOOPS, drop=StepLoop.close)
+    """The StepLoop (or CardLoops, one entry for all its cards) of a layout
+    (``lookup`` over the last MAX_LOOPS)."""
+    return lookup(_LOOPS, parts, make, MAX_LOOPS, drop=lambda loop: loop.close())
 
 
 def clear():

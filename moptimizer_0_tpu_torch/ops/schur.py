@@ -179,7 +179,11 @@ def _schur_corr_torch(segments, C, chunk=512):
             A2.index_add_(0, idx.reshape(-1), vals.reshape(-1))
             A2 = A2.reshape(n * 3, 6 * C)
             S.addmm_(A2.T, A2)
-    return S
+    # A2ᵀA2 is symmetric, but a BLAS need not sum (i, j) and (j, i) in one
+    # order: keep the upper triangle and mirror it, so S is symmetric to the
+    # bit, as the kernel's build is
+    i = torch.arange(6 * C, device=S.device)
+    return torch.where(i[:, None] <= i[None, :], S, S.mT)
 
 
 def _schur_corr_pairs_torch(plan, G, chunk=1 << 16):

@@ -14,6 +14,8 @@ one after another:
   is the same with a max.
 * Shard ``j`` of process ``r`` is the mesh's shard ``r·n_local + j``: a
   block's rows split into ``mesh.size`` equal parts in that order.
+* ``make_mesh(n)`` puts the shards round-robin on the visible cards: with k
+  cards, card c holds shards c, c + k, ... (``Mesh.card_groups``).
 
 A mesh's transport (``Mesh.transport``), chosen once by
 ``multihost.global_mesh`` (``multihost.choose_transport``):
@@ -29,26 +31,42 @@ A mesh's transport (``Mesh.transport``), chosen once by
 * ``"gloo"``: any other mesh (processes on several hosts): gloo's
   all-reduce on the host.
 
-With every local shard on one device and a ``"local"`` or ``"device"``
-transport (``Mesh.captures_on``), a reduction is device work, and the
-engines capture a sharded solve's step into a CUDA graph as they do an
-unsharded one's (``ops.device_loop``); across processes every process
-captures its own graph and replays it. The processes stay in lockstep:
+Which meshes the engines capture into CUDA graphs (``Mesh.captures_on``):
+
+* every local shard on the solve's card, with a ``"local"`` or ``"device"``
+  transport: a reduction is device work, and the step is one graph, as an
+  unsharded one's is (``ops.device_loop``); across processes every process
+  captures its own graph and replays it;
+* one process (``"local"``) over several cards, the solve on the first
+  shard's card, every pair of the cards with peer access both ways
+  (``torch.cuda.can_device_access_peer``, decided once a solve): one graph
+  a card (``device_loop.CardLoops``). Card c's graph runs the step over its
+  own shards only, with the replicated state (x, λ, flags) in its own
+  carry, and its reductions go through ``CardMesh``, the card's view of the
+  mesh, to ``kernels.mesh_reduce.CardBuffers``: a slot a shard, every card
+  summing all the slots in shard order. That is the order ``Mesh.psum``
+  sums in, so each card's graph equals the mesh's eager body bit for bit
+  and every card holds the same bits. The host enqueues every card's replay
+  before it waits on any. Cards without peer access both ways run the eager
+  body, by that decision and nothing else.
+
+The processes (or cards) stay in lockstep:
 
 * every IF predicate of a step (a trial's, a PCG iteration's, ¬done) is
-  computed from reduced values, which are the same bits on every process,
-  so every process takes the same branches and runs the same reductions;
-* a capture's warm-up runs every IF body on every process, so the eager
+  computed from reduced values, which are the same bits everywhere, so
+  every graph takes the same branches and runs the same reductions;
+* a capture's warm-up runs every IF body everywhere, so the eager
   reductions that size the transport's buffers match too;
 * a capture executes nothing, so it makes no reduction that a peer would
   wait for.
 
 A peer that never arrives (a failed capture, a crash) makes the kernel's
 bounded spin set an error word, and ``Mesh.check`` (called at the end of
-every sharded solve) raises, naming the epoch. Gathers after a loop
-(``gather_rows``, ``ba._global_pt_idx``) stay on the gloo group; no step
-body runs one. A ``"gloo"`` mesh, or shards on several cards, runs the
-eager loop.
+every sharded solve) reads every process's or card's word and raises,
+naming the epoch. Gathers after a loop (``gather_rows``,
+``ba._global_pt_idx``) stay on the gloo group; no step body runs one. A
+``"gloo"`` mesh, and a mesh across processes whose processes hold several
+cards each, run the eager loop.
 """
 
 import dataclasses
@@ -57,6 +75,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from moptimizer_0_tpu_torch.kernels import mesh_reduce
 from moptimizer_0_tpu_torch.ops import device_loop
 from moptimizer_0_tpu_torch.utils.device import require
 
@@ -71,6 +90,18 @@ REDUCTIONS = 0
 ALL_REDUCES = 0
 
 TRANSPORTS = ("local", "device", "gloo")
+
+# The card transports of one-process meshes over several cards, by the
+# mesh's devices: made at a mesh's first graph and kept, since a cached
+# graph points into their buffers (``Mesh.close`` frees them).
+_CARD_TRANSPORTS = {}
+
+
+def peers_both_ways(cards):
+    """Whether every pair of these CUDA devices has peer access both ways
+    (never without CUDA)."""
+    return torch.cuda.is_available() and all(
+        torch.cuda.can_device_access_peer(a.index, b.index) for a in cards for b in cards if a != b)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -118,16 +149,70 @@ class Mesh:
         return {self.axis_names[0]: self.size}
 
     @property
+    def shards(self):
+        """This process's shards, as indices into its lists of shards (a
+        card's view, ``CardMesh``, holds its card's)."""
+        return tuple(range(self.n_local))
+
+    @property
     def first_shard(self):
         """The mesh index of this process's first shard."""
         return self.process_index * self.n_local
 
+    def card_groups(self):
+        """((card, shard indices), ...): this process's shards grouped by
+        device, the devices in the order of their first shard, each group's
+        shards ascending. ``make_mesh(n)`` over k cards gives card c the
+        shards c, c + k, ...."""
+        groups = {}
+        for j, d in enumerate(self.devices):
+            groups.setdefault(torch.device(d), []).append(j)
+        return tuple((d, tuple(js)) for d, js in groups.items())
+
+    def card_of(self):
+        """Each local shard's card, as an index into ``cards``."""
+        index = {d: c for c, (d, _) in enumerate(self.card_groups())}
+        return tuple(index[torch.device(d)] for d in self.devices)
+
+    @property
+    def cards(self):
+        """The distinct devices of this process's shards, in shard order."""
+        return tuple(d for d, _ in self.card_groups())
+
     def captures_on(self, device):
-        """Whether a sharded step on ``device`` can be a CUDA graph: every
-        local shard there, and its reductions device work (a "local" or
-        "device" transport). The engines capture a sharded step only then."""
+        """Whether a sharded step on ``device`` can be CUDA graphs (module
+        docstring): every local shard there and its reductions device work
+        (a "local" or "device" transport), one graph; or one process over
+        several cards, ``device`` the first shard's, every pair of the cards
+        with peer access both ways, one graph a card (``per_card``). The
+        engines capture a sharded step only then."""
         device = torch.device(device)
-        return self.transport != "gloo" and all(torch.device(d) == device for d in self.devices)
+        if self.transport == "gloo":
+            return False
+        cards = self.cards
+        if len(cards) == 1:
+            return cards[0] == device
+        return (self.group is None and device.type == "cuda" and device == cards[0]
+                and all(d.type == "cuda" for d in cards) and peers_both_ways(cards))
+
+    def per_card(self, device):
+        """Whether the engines capture a step on ``device`` as one graph a
+        card (``captures_on`` with several cards)."""
+        return len(self.cards) > 1 and self.captures_on(device)
+
+    def card_transport(self):
+        """The ``mesh_reduce.CardBuffers`` of this mesh's cards, made at the
+        first call for these devices, then kept."""
+        if self.devices not in _CARD_TRANSPORTS:
+            _CARD_TRANSPORTS[self.devices] = mesh_reduce.CardBuffers(self.cards, self.card_of())
+        return _CARD_TRANSPORTS[self.devices]
+
+    def on_card(self, card, transport=None):
+        """The ``CardMesh`` of the card ``self.cards[card]``: its shards and
+        their reductions through ``transport``, the mesh's
+        ``card_transport()``."""
+        device, shards = self.card_groups()[card]
+        return CardMesh(mesh=self, card=card, shards=shards, device=device, transport=transport)
 
     def layout(self):
         """The mesh by value, for a cache key: its devices, axis name,
@@ -137,17 +222,26 @@ class Mesh:
 
     def check(self):
         """Raise if a device all-reduce of this mesh gave up on a peer (one
-        read of the device); nothing for another transport."""
+        read of the device, or of each card of a card transport); nothing
+        for another transport."""
         if self.ipc is not None:
             self.ipc.check()
+        cards = _CARD_TRANSPORTS.get(self.devices)
+        if cards is not None:
+            cards.check()
 
     def close(self):
         """Tear the transport down: drop every cached step graph (they may
-        point into its buffers), then unmap and free the buffers.
-        Collective across the mesh's processes."""
-        if self.ipc is not None:
+        point into its buffers), then unmap and free the buffers (an IPC
+        transport's collectively across the mesh's processes, a card
+        transport's on each card)."""
+        cards = _CARD_TRANSPORTS.pop(self.devices, None)
+        if self.ipc is not None or cards is not None:
             device_loop.clear()
+        if self.ipc is not None:
             self.ipc.close()
+        if cards is not None:
+            cards.close()
 
     def check_axis(self, axis):
         if axis not in self.axis_names:
@@ -195,8 +289,114 @@ class Mesh:
         return out.bool() if as_bool else out
 
 
-COMBINE = {"sum": torch.add, "max": torch.maximum}
+COMBINE = mesh_reduce.COMBINE
 _GLOO_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CardMesh:
+    """One card's view of a one-process mesh over several cards, for the
+    step body that card's graph runs (``Mesh.captures_on``).
+
+    mesh: the whole mesh. card: the card's index in ``mesh.cards``.
+    shards: the mesh indices of the card's shards, ascending; ``devices``
+    (each the card) lines up with them as a mesh's devices do with its
+    shards. transport: the mesh's ``card_transport()``.
+
+    ``psum``/``pmax`` take this card's shards' parts and return the whole
+    mesh's reduction in shard order, on the card, as every other card's
+    graph does at the same point (one transport launch a dtype; its plain
+    version is ``mesh_reduce.reduce_slots_plain``). In a graph's warm-up
+    they launch nothing (the other cards' warm-ups are not enqueued yet):
+    they size the slots and return the card's own parts' reduction, which
+    the warm-up discards.
+    """
+
+    mesh: Mesh
+    card: int
+    shards: tuple
+    device: Any
+    transport: Any = None
+
+    @property
+    def devices(self):
+        return (self.device,) * len(self.shards)
+
+    def psum(self, parts, device=None):
+        return self._reduce(parts, device, "sum")
+
+    def pmax(self, parts, device=None):
+        return self._reduce(parts, device, "max")
+
+    def _reduce(self, parts, device, op):
+        if device is not None and torch.device(device) != self.device:
+            raise ValueError(f"a card's reduction lands on its card {self.device}, not {device}")
+        tuples = isinstance(parts[0], tuple)
+        rows = [p if tuples else (p,) for p in parts]
+        out = [None] * len(rows[0])
+        by_dtype = {}
+        for i, t in enumerate(rows[0]):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        # one reduction a dtype: each shard's tensors of it in one flat, each
+        # in the memory order of its layout and at a 256-byte boundary, so
+        # that each output has the strides and alignment of the eager psum's
+        # fresh torch.add result (a reduction's order, and cuBLAS's choice
+        # of algorithm, follow both)
+        for idx in by_dtype.values():
+            dense = [[_dense(row[i]) for i in idx] for row in rows]
+            likes = dense[0]
+            if any(t.stride() != like.stride() for ts in dense for t, like in zip(ts, likes)):
+                raise ValueError("a card's shards handed a reduction partials of different layouts")
+            step = ALIGN_BYTES // likes[0].element_size()
+            offsets, end = [], 0
+            for t in likes:
+                offsets.append(end)
+                end = -(-(end + t.numel()) // step) * step
+            flats = [_padded_flat(ts, offsets) for ts in dense]
+            total = self._combine(flats, op)
+            for i, like, off in zip(idx, likes, offsets):
+                out[i] = torch.as_strided(total, like.shape, like.stride(), total.storage_offset() + off)
+        return tuple(out) if tuples else out[0]
+
+    def _combine(self, flats, op):
+        if device_loop.tracing() and not device_loop.capturing():
+            self.transport.reserve(flats[0].numel() * flats[0].element_size())
+            acc = flats[0]
+            for f in flats[1:]:
+                acc = COMBINE[op](acc, f)
+            return acc
+        return self.transport.reduce(flats, self.shards, self.card, op)
+
+
+# A card reduction's outputs start at this alignment, as a fresh allocation's
+# would (cuBLAS picks its algorithm by alignments up to 256 bytes).
+ALIGN_BYTES = 256
+
+
+def _dense(t):
+    """t where it is non-overlapping and dense (its elements fill a block of
+    memory in some order of its dimensions); else a copy in the layout
+    ``empty_like`` gives it, which is that of an elementwise op's output."""
+    dims = sorted((st, n) for st, n in zip(t.stride(), t.shape) if n != 1)
+    expected = 1
+    for st, n in dims:
+        if st != expected:
+            d = torch.empty_like(t)
+            return d.copy_(t)
+        expected *= n
+    return t
+
+
+def _padded_flat(tensors, offsets):
+    """Dense tensors in their memory order, one flat, tensor k at
+    ``offsets[k]`` (zeros between them)."""
+    pieces, end = [], 0
+    for t, off in zip(tensors, offsets):
+        if off > end:
+            pieces.append(t.new_zeros(off - end))
+        pieces.append(torch.as_strided(t, (t.numel(),), (1,)))
+        end = off + t.numel()
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
 
 def _all_reduce(tensors, op, mesh):
@@ -241,8 +441,10 @@ def make_mesh(n_devices=None, axis="data", device="cuda"):
     """1-D mesh of ``n_devices`` shards placed round-robin on the visible
     devices of ``device``'s type (one shard a device when None). On the CPU,
     or on a machine with one card, n shards share that one device, as the
-    JAX package's tests share one CPU between 8 forced host devices. Raises
-    without a card unless ``device`` says otherwise."""
+    JAX package's tests share one CPU between 8 forced host devices; on
+    several peer cards the engines run it as a graph a card
+    (``Mesh.captures_on``). Raises without a card unless ``device`` says
+    otherwise."""
     dev = require(device)
     if dev.index is not None:
         visible = [dev]

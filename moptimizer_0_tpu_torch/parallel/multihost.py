@@ -19,6 +19,13 @@ over gloo. Every process runs the same program:
 Each process feeds only its own rows; the engine's sums over the mesh end in
 one all-reduce over the group (``mesh.Mesh.psum``). ``mesh.close()``, on
 every process, tears a device transport down before the group goes.
+
+One process over several cards needs none of this: ``make_mesh(n)`` puts
+its shards on every visible card and reduces them on the cards (one graph
+a card, ``mesh.CardMesh``). Processes that each hold several cards reduce
+across processes from their first shard's card and run the eager loop: a
+process's graph would have to span its cards and the other processes at
+once, which no transport here does.
 """
 
 import dataclasses
@@ -95,11 +102,11 @@ def placement(device):
 def choose_transport(places):
     """A mesh's transport from every process's ``placement``: "local" for
     one process; "device" when every process is on one host, there are at
-    most ``mesh_reduce.MAX_PROCESSES`` of them, and every pair shares a card
+    most ``mesh_reduce.MAX_MEMBERS`` of them, and every pair shares a card
     or has peer access both ways; "gloo" otherwise."""
     if len(places) == 1:
         return "local"
-    if len({host for host, _, _ in places}) > 1 or len(places) > mesh_reduce.MAX_PROCESSES:
+    if len({host for host, _, _ in places}) > 1 or len(places) > mesh_reduce.MAX_MEMBERS:
         return "gloo"
     for (_, a, peers_a), (_, b, peers_b) in itertools.combinations(places, 2):
         if a != b and not (b in peers_a and a in peers_b):
@@ -112,8 +119,12 @@ def global_mesh(axis="data", shards_per_process=None, device="cuda"):
     ``make_mesh(shards_per_process, axis, device)``, the default group
     (every process must have as many shards) and the transport
     ``choose_transport`` picks from the processes' placements of their
-    first shard; a "device" mesh on CUDA gets its IPC buffers
-    (collectively). Without a group, that local mesh."""
+    first shard, where a process's sums over its shards land and its
+    all-reduce runs; a "device" mesh on CUDA gets its IPC buffers there
+    (collectively). A process whose shards lie on several cards gets the
+    same transport for that all-reduce and the eager loop
+    (``Mesh.captures_on``). Without a group, that local mesh, which
+    captures a graph a card when it spans several peer cards."""
     local = make_mesh(shards_per_process, axis, device)
     rank, size = _rank_and_size()
     if size == 1:

@@ -19,7 +19,8 @@ then across processes.
   (``Mesh.captures_on``: one process, or processes of one host reducing on
   the device), the solve is the unsharded one's CUDA graph in every
   process: one replay an outer iteration, the shards' data in its carry
-  (``core.solver``).
+  (``core.solver``). Over one process's several peer cards it is one graph
+  a card, each running its own shards (``ShardedProblem.on``).
 """
 
 import dataclasses
@@ -51,6 +52,12 @@ class ShardedProblem(Problem):
         """Every shard's update hooks, each on its shard's device."""
         shards = tuple(p.update(x.to(dev)) for p, dev in zip(self.shards, self.mesh.devices))
         return dataclasses.replace(self, shards=shards)
+
+    def on(self, view):
+        """The part of this problem that ``view``, a card's view of its mesh
+        (``Mesh.on_card``), runs: that card's shards, reducing over the
+        whole mesh through the view."""
+        return dataclasses.replace(self, shards=tuple(self.shards[j] for j in view.shards), mesh=view)
 
     def over_shards(self, fn, x):
         """Σ over the mesh of fn(shard's problem, x on the shard's device),
@@ -117,8 +124,10 @@ def distributed_levenberg_marquardt(problem, x0, mesh, config=LMConfig(), manifo
     ``levenberg_marquardt`` does: one replay an outer iteration of a graph
     captured once per layout (the mesh and every shard's block structure in
     its key), each update hook (a shard's correspondence search) inside it,
-    no host read in the loop. A gloo mesh (processes on several hosts) or
-    one across cards runs the LM step's eager body, one read a trial."""
+    no host read in the loop; over one process's several peer cards, one
+    graph a card, each over its own shards. A gloo mesh (processes on
+    several hosts) or cards without peer access both ways run the LM
+    step's eager body, one read a trial."""
     if not isinstance(problem, Problem):
         problem = Problem(blocks=(problem,))
     mesh.check_axis(axis)

@@ -19,6 +19,7 @@ end) with any of the three methods, searching through the hash grid
 import collections
 import dataclasses
 import math
+from typing import Any
 
 import torch
 
@@ -105,10 +106,30 @@ def _search_plan(tgt_cloud, nn_backend, max_corr_dist):
     return "grid", build(tgt_cloud, _grid_cell(tgt_cloud, max_corr_dist))
 
 
+_GRID_TENSORS = ("table_idx", "table_pts", "cell_size")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Search:
+    """warped → (idx, d²) against a fixed target: the grid's query, or the
+    brute-force ``backend``'s."""
+
+    backend: str
+    tgt_cloud: torch.Tensor
+    grid: Any = None
+
+    def __call__(self, warped):
+        if self.grid is not None:
+            return grid_nearest_neighbors(warped, self.grid)
+        return nearest_neighbors(warped, self.tgt_cloud, backend=self.backend)
+
+    def on(self, tgt_cloud, grid):
+        """The same search over copies of its target side on another card."""
+        return dataclasses.replace(self, tgt_cloud=tgt_cloud, grid=grid)
+
+
 def _searcher(backend, tgt_cloud, grid):
-    if grid is not None:
-        return lambda warped: grid_nearest_neighbors(warped, grid)
-    return lambda warped: nearest_neighbors(warped, tgt_cloud, backend=backend)
+    return _Search(backend, tgt_cloud, grid)
 
 
 def make_searcher(tgt_cloud, nn_backend, max_corr_dist):
@@ -196,24 +217,49 @@ class _Matcher:
         self.tgt, self.extra, self.grid = tgt, extra, grid
         self.search = search  # warped → (idx, d²)
         self.max_corr_dist = max_corr_dist
+        # the target side on other cards: {card: (tgt, extra, search, grid)}
+        self.copies = {}
 
     def load(self, tgt, extra, grid):
-        """Copy a pair's target side into the buffers (on the stream, after
-        the solves already queued there)."""
-        self.tgt.copy_(tgt)
-        if extra is not None:
-            self.extra.copy_(extra)
-        if grid is not None:
-            for f in ("table_idx", "table_pts", "cell_size"):
-                getattr(self.grid, f).copy_(getattr(grid, f))
+        """Copy a pair's target side into the buffers, and into their copies
+        on other cards (on the stream, after the solves already queued
+        there)."""
+        sides = [(self.tgt, self.extra, self.grid)] + [(t, e, g) for t, e, _, g in self.copies.values()]
+        for t, e, g in sides:
+            t.copy_(tgt)
+            if extra is not None:
+                e.copy_(extra)
+            if grid is not None:
+                for f in _GRID_TENSORS:
+                    getattr(g, f).copy_(getattr(grid, f))
+
+    def _side(self, device):
+        """(target, extra, search) on ``device``: the matcher's own, or for a
+        shard on another card (a mesh over several cards) copies made at
+        the first search there, which runs eagerly (a capture's warm-up is
+        one), so every search reads its own card's memory."""
+        if device == self.tgt.device:
+            return self.tgt, self.extra, self.search
+        if device not in self.copies:
+            if not isinstance(self.search, _Search):
+                raise ValueError(f"a searcher over {self.tgt.device} cannot search from {device}")
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"the target side's copy on {device} is made under a capture")
+            grid = None if self.grid is None else dataclasses.replace(
+                self.grid, **{f: getattr(self.grid, f).to(device) for f in _GRID_TENSORS})
+            tgt = self.tgt.to(device)
+            extra = None if self.extra is None else self.extra.to(device)
+            self.copies[device] = (tgt, extra, self.search.on(tgt, grid), grid)
+        return self.copies[device][:3]
 
     def __call__(self, x, data):
-        idx, d2 = self.search(_warp(x, data["src"]))
-        new = dict(matched=_take(self.tgt, idx), valid=_gate(d2, self.max_corr_dist))
+        tgt, extra, search = self._side(data["src"].device)
+        idx, d2 = search(_warp(x, data["src"]))
+        new = dict(matched=_take(tgt, idx), valid=_gate(d2, self.max_corr_dist))
         if self.method == "point2plane":
-            new["normal"] = _take(self.extra, idx)
+            new["normal"] = _take(extra, idx)
         elif self.method == "gicp":
-            new["matched_cov"] = self.extra[_wrap(idx, self.extra.shape[0])]
+            new["matched_cov"] = extra[_wrap(idx, extra.shape[0])]
         return dict(data, **new)
 
 

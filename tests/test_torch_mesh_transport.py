@@ -51,7 +51,7 @@ PLACEMENTS = [
     ("two hosts", [("h1", "GPU-a", frozenset()), ("h2", "GPU-a", frozenset())], "gloo"),
     ("one host, the CPU", [("h", "cpu", frozenset())] * 2, "device"),
     ("one host, the CPU and a card", [("h", "cpu", frozenset()), ("h", "GPU-a", frozenset())], "gloo"),
-    ("one host, one card, too many processes", [("h", "GPU-a", frozenset())] * (mesh_reduce.MAX_PROCESSES + 1),
+    ("one host, one card, too many processes", [("h", "GPU-a", frozenset())] * (mesh_reduce.MAX_MEMBERS + 1),
      "gloo"),
 ]
 
@@ -111,7 +111,7 @@ def test_gathers_stay_out_of_step_bodies():
 
 
 def test_ipc_buffers_refuse_process_counts():
-    for size in (1, mesh_reduce.MAX_PROCESSES + 1):
+    for size in (1, mesh_reduce.MAX_MEMBERS + 1):
         with pytest.raises(ValueError):
             mesh_reduce.IpcBuffers(None, 0, size, CUDA0)
 
