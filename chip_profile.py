@@ -402,7 +402,7 @@ def barrier_rank(rank, port, n, spread):
     device = torch.device("cuda", rank % torch.cuda.device_count()) if spread else torch.device("cuda", 0)
     torch.cuda.set_device(device)  # the events, the synchronisations and the capture's stream on its card
     mesh = multihost.global_mesh(shards_per_process=1, device=str(device))
-    ipc = mesh.ipc
+    ipc = mesh.link.buffers[0]  # the device transport of its one card
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def timed(fn, reps):

@@ -252,9 +252,11 @@ import functools
 import hashlib
 import inspect
 import json
+import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -272,6 +274,7 @@ from moptimizer_0_tpu_torch.core.solver import LMConfig, Status, levenberg_marqu
 from moptimizer_0_tpu_torch.evaluation import ate_rmse, rpe
 from moptimizer_0_tpu_torch.kernels import build, graph_cond
 from moptimizer_0_tpu_torch.kernels import mesh_reduce as k_mesh
+from moptimizer_0_tpu_torch.kernels import nccl_transport
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
@@ -561,7 +564,7 @@ PEAK_BYTES = 3.35e12
 
 def _reset_launches():
     """Every kernel's launch count set to 0, its replayed launches too."""
-    for k in (k_nn, k_expand, k_schur, k_mesh):
+    for k in (k_nn, k_expand, k_schur, k_mesh, nccl_transport):
         k.reset_launches()
 
 
@@ -3556,7 +3559,7 @@ def _gloo_mesh():
 
 
 def _transport_checks(mesh, dev):
-    """15, in each process: the transport kernel (``mesh.ipc.all_reduce``)
+    """15, in each process: the transport kernel (``mesh.link.all_reduce``)
     against its plain version on the card, bit for bit, for sum and max in
     float32 and float64 at TRANSPORT_SIZES (partials over 12 decades, each
     rank its own); its ms at S's size (float32 sum) beside the plain
@@ -3572,7 +3575,7 @@ def _transport_checks(mesh, dev):
         for dtype in (torch.float32, torch.float64):
             x = torch.as_tensor(rng.normal(size=n) * 10.0 ** rng.uniform(-6, 6, size=n), dtype=dtype, device=dev)
             for op in k_mesh.OPS:
-                kernel = mesh.ipc.all_reduce(x, op)
+                kernel = mesh.link.all_reduce(x, op)
                 plain = mesh_module._all_reduce_plain(x, op, mesh.group)
                 same = _same_result(kernel, plain)
                 err = float((kernel.double() - plain.double()).abs().max())
@@ -3583,19 +3586,19 @@ def _transport_checks(mesh, dev):
     small = s[:TRANSPORT_SIZES[1]].clone()
     times = {}
     for name, t, reps in (("kernel", s, 50), ("kernel_small", small, 200)):
-        mesh.ipc.all_reduce(t, "sum")
+        mesh.link.all_reduce(t, "sum")
         torch.cuda.synchronize()
         dist.barrier()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            mesh.ipc.all_reduce(t, "sum")
+            mesh.link.all_reduce(t, "sum")
         end.record()
         end.synchronize()
         times[name] = start.elapsed_time(end) / reps
     times["plain"] = _host_ms(lambda: mesh_module._all_reduce_plain(s, "sum", mesh.group))
     times["library"] = _host_ms(lambda: dist.all_reduce(s.clone()))
-    mesh.ipc.check()
+    mesh.link.check()
 
     probe = k_mesh.IpcBuffers(mesh.group, mesh.process_index, mesh.n_processes, dev, timeout_s=TRANSPORT_TIMEOUT_S)
     probe.all_reduce(small, "sum")
@@ -3610,7 +3613,7 @@ def _transport_checks(mesh, dev):
     timeout = dict(raised=raised, wall_s=time.perf_counter() - t0)
     probe.close()
     return dict(cases=cases, max_abs_err=worst, ms=times, timeout=timeout, bytes=s.numel() * 4,
-                slot_bytes=mesh.ipc.slot_bytes, buffers=len(mesh.ipc.generations))
+                slot_bytes=mesh.link.buffers[0].slot_bytes, buffers=len(mesh.link.buffers[0].generations))
 
 
 def rank_main(rank, port):
@@ -3631,7 +3634,7 @@ def rank_main(rank, port):
                          initialization_timeout=TWO_PROCESS_TIMEOUT_S)
     mesh = multihost.global_mesh(shards_per_process=2)
     out = dict(rank=rank, shards=mesh.shape["data"], transport=mesh.transport)
-    if mesh.transport != "device" or mesh.ipc is None:
+    if mesh.transport != "device" or mesh.link is None:
         raise AssertionError(f"rank {rank}: two processes on one card took the {mesh.transport!r} transport")
 
     def residual(x, d):
@@ -3858,14 +3861,460 @@ def run_two_processes(ba4, cg4, selfcal):
                 transport={r["rank"]: dict(r["check"], launches=r["launches"]) for r in (a, b)})
 
 
-def transport_entry(two, multicard=None):
+# Phase 24: the sharded solves across processes on two cards or more. Every
+# layout is 2 processes × 2 shards, and so the same split of the rows as
+# phase 23's 4 shards: processes that each see only their own card(s)
+# (CUDA_VISIBLE_DEVICES a process) take the NCCL transport with no switch,
+# processes that see every card the device transport (its grouped form
+# with two cards a process); each layout's paths are held as phase 23's
+# (bit-equal to the eager body, the repeat, across processes and cards;
+# within MULTICARD_RTOL, the cameras MULTICARD_CAMERA_BOUND, of the
+# unsharded solves; K5's and K11's replayed launches a card equal to the
+# eager body's), and a mesh over NCCL must give the bits of the device
+# transport's mesh of the same shape: both combine in rank order.
+MULTIPROCESS_TIMEOUT_S = 200
+MULTIPROCESS_SHARDS = 2
+# name → each rank's CUDA_VISIBLE_DEVICES (cards of the machine, shifted by
+# the layout's first card) and its devices among those it sees; the
+# transport global_mesh must pick; the cards the layout needs.
+MULTIPROCESS_LAYOUTS = {
+    "a card a process, NCCL": dict(visible=("0", "1"), devices=((0,), (0,)), transport="nccl", cards=2),
+    "a card a process, device": dict(visible=("0,1", "0,1"), devices=((0,), (1,)), transport="device", cards=2),
+    "2 cards a process, device": dict(visible=("0,1,2,3", "0,1,2,3"), devices=((0, 1), (2, 3)), transport="device",
+                                      cards=4),
+    "2 cards a process, NCCL": dict(visible=("0,1", "2,3"), devices=((0, 1), (0, 1)), transport="nccl", cards=4),
+}
+# the layouts whose processes run the timeout probe and the gloo CG
+MULTIPROCESS_PROBED = ("a card a process, NCCL", "2 cards a process, NCCL")
+MULTIPROCESS_GLOO = "a card a process, NCCL"
+MULTIPROCESS_PATHS = ("curve", "icp", "cg", "selfcal", "dense")
+
+
+def _link_module(mesh):
+    return nccl_transport if mesh.transport == "nccl" else k_mesh
+
+
+def _mp_path(name, mesh, fn, kernel, lm):
+    """24, in each process: one path over the mesh by its graphs twice (the
+    first captures) and by its eager body, every count set to 0 before each
+    (as ``_multicard_path``); returns its row, with the result's digests."""
+    dev = mesh.devices[0]
+    link = _link_module(mesh)
+    n0 = len(device_loop.CAPTURES)
+    _reset_launches()
+    first, first_s, _ = _loop_timed(fn)
+    captured = len(device_loop.CAPTURES) - n0
+    loops = _latest_loop()
+    each = loops.loops if isinstance(loops, device_loop.CardLoops) else [loops]
+    replays = [loop.replays for loop in each]
+    _reset_launches()
+    graph, graph_s, graph_reads = _loop_timed(fn)
+    replays = [loop.replays - r for loop, r in zip(each, replays)]
+    per_card = _card_bits(loops) if len(each) > 1 else True
+    cards = mesh.cards
+    k_replayed = {str(d): v for d, v in (kernel.replayed_by_card() if kernel else {}).items() if d in cards}
+    k_eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES
+    t_replayed = {str(d): v for d, v in link.replayed_by_card().items() if d in cards}
+    c_replayed = {str(d): v for d, v in k_mesh.replayed_by_card().items() if d in cards} if len(cards) > 1 else {}
+    t_eager_in_graph = link.LAUNCHES + (k_mesh.LAUNCHES if link is not k_mesh else 0)
+    _reset_launches()
+    with device_loop.eager(), (capturable_linalg(dev) if lm else contextlib.nullcontext()):
+        eager, eager_s, eager_reads = _loop_timed(fn)
+    k_eager = {str(d): v for d, v in (kernel.LAUNCHES_BY_CARD if kernel else {}).items()}
+    t_eager = link.LAUNCHES
+    res = graph if lm else _ba_result(graph)
+    groups = mesh.card_groups()
+    if kernel is k_nn:
+        expect = {str(d): len(js) * int(torch.isfinite(res.trace["cost"]).sum()) for d, js in groups}
+    elif kernel is k_schur:
+        expect = {str(d): len(js) * sum(res.trace["trials"].tolist()) for d, js in groups}
+    else:
+        expect = {}
+    run = _outer_run(res)
+    if lm:
+        digests, value = [_digest(res.x)], dict(x=res.x.double().cpu().tolist())
+    else:
+        intr = graph[1] if not isinstance(graph, ba.BAResult) else None
+        digests = _ba_digests(res, intr)
+        value = dict(cost=float(res.cost), cams=res.camera_params.double().cpu().tolist())
+    return dict(first_s=first_s, graph_s=graph_s, eager_s=eager_s, captured=captured,
+                captures=[dict(c) for c in device_loop.CAPTURES[n0:]], reads=dict(graph=graph_reads, eager=eager_reads),
+                replays=replays, trace_len=int(loops.trace["cost"].shape[-1]), outer=run,
+                iterations=int(res.iterations), status=Status(int(res.status)).name,
+                bit_equal_eager=_same_result(graph, eager), bit_equal_repeat=_same_result(graph, first),
+                cards_bit_equal=per_card, difference="" if _same_result(graph, eager) else _first_difference(graph, eager),
+                kernel_replayed=k_replayed, kernel_eager=k_eager, kernel_runs=expect,
+                kernel_eager_in_graph=k_eager_in_graph, transport_replayed=t_replayed, card_replayed=c_replayed,
+                transport_eager_in_graph=t_eager_in_graph, transport_eager=t_eager, digests=digests, **value)
+
+
+def _mp_transport(mesh, dev, probe):
+    """24, in each process: the mesh's link against its plain version
+    (``_all_reduce_plain``) bit for bit on every card, sum and max, float32
+    and float64 at TRANSPORT_SIZES; its µs at both sizes on the first card
+    (CUDA events, both processes after a barrier); with ``probe``, a fresh
+    link of the same kind with TRANSPORT_TIMEOUT_S whose second reduction
+    rank 1 skips: rank 0's check must raise, naming the epoch."""
+    import torch.distributed as dist
+
+    link = mesh.link
+    rng = np.random.default_rng(SEED + 70 + mesh.process_index)
+    cases, worst = [], 0.0
+    for c, card in enumerate(mesh.cards):
+        for n in TRANSPORT_SIZES:
+            for dtype in (torch.float32, torch.float64):
+                x = torch.as_tensor(rng.normal(size=n) * 10.0 ** rng.uniform(-6, 6, size=n), dtype=dtype,
+                                    device=card)
+                for op in k_mesh.OPS:
+                    got = link.all_reduce(x, op, c)
+                    plain = mesh_module._all_reduce_plain(x, op, mesh.group)
+                    err = float((got.double() - plain.double()).abs().max())
+                    worst = max(worst, err)
+                    cases.append(dict(card=c, n=n, dtype=str(dtype), op=op, bit_equal=_same_result(got, plain),
+                                      max_abs_err=err, digest=_digest(got)))
+    us = {}
+    for key, n, reps in (("s", TRANSPORT_SIZES[0], 50), ("small", TRANSPORT_SIZES[1], 200)):
+        x = torch.ones(n, dtype=torch.float32, device=dev)
+        link.all_reduce(x, "sum", 0)
+        torch.cuda.synchronize()
+        dist.barrier()
+        us[key] = _time_ms(lambda: link.all_reduce(x, "sum", 0), reps) * 1e3
+    s = torch.ones(TRANSPORT_SIZES[0], dtype=torch.float32, device=dev)
+    us["plain_s"] = _host_ms(lambda: mesh_module._all_reduce_plain(s, "sum", mesh.group)) * 1e3
+    mesh.check()
+    row = dict(cases=cases, max_abs_err=worst, us=us, bytes=TRANSPORT_SIZES[0] * 4)
+    if mesh.transport == "nccl":
+        row["nccl_version"] = nccl_transport.version()
+    if probe:
+        kind = nccl_transport.NcclTransport if mesh.transport == "nccl" else k_mesh.IpcLinks
+        fresh = kind(mesh.group, mesh.process_index, mesh.n_processes, mesh.cards, timeout_s=TRANSPORT_TIMEOUT_S)
+        small = torch.ones(TRANSPORT_SIZES[1], device=dev)
+        fresh.all_reduce(small, "sum", 0)
+        if mesh.process_index == 0:
+            fresh.all_reduce(small, "sum", 0)  # rank 1 never arrives
+        t0 = time.perf_counter()
+        try:
+            fresh.check()
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        row["timeout"] = dict(raised=raised, wall_s=time.perf_counter() - t0)
+        fresh.close()
+    return row
+
+
+def multiprocess_rank_main(rank, port, layout):
+    """One of phase 24's two processes in ``layout`` (MULTIPROCESS_LAYOUTS):
+    a gloo group at localhost:port, a global mesh of 2 processes × 2 shards
+    over its devices, whose transport must be the layout's, and over it the
+    curve fit (float64, each process its 32 of 64 rows), the distributed
+    ICP (K5; the fachada scan's first 29,304 points), the CG and
+    self-calibrating BA (each process its rows) and the sharded dense BA
+    (K11) at the headline, each by ``_mp_path``; the link's checks
+    (``_mp_transport``); in one layout the CG again over a gloo mesh.
+    Prints one RESULT line of JSON."""
+    import torch.distributed as dist
+
+    spec = MULTIPROCESS_LAYOUTS[layout]
+    # every thread's stack, before the parent kills a process that hangs
+    faulthandler.dump_traceback_later(MULTIPROCESS_TIMEOUT_S - 30)
+    devices = [torch.device("cuda", i) for i in spec["devices"][rank]]
+    dev = devices[0]
+    torch.cuda.set_device(dev)
+    multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
+                         initialization_timeout=MULTIPROCESS_TIMEOUT_S)
+    t0 = time.perf_counter()
+    mesh = multihost.global_mesh(shards_per_process=MULTIPROCESS_SHARDS, device=devices)
+    out = dict(rank=rank, layout=layout, transport=mesh.transport, cards=[str(c) for c in mesh.cards],
+               mesh_s=time.perf_counter() - t0, visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+               in_if_bodies=getattr(mesh.link, "in_if_bodies", None))
+    if mesh.transport != spec["transport"] or mesh.link is None:
+        raise AssertionError(f"phase 24 {layout}, rank {rank}: the {mesh.transport!r} transport, link {mesh.link}")
+
+    def residual(x, d):
+        return torch.stack([d[1] - torch.exp(x[0] * d[0] + x[1])])
+
+    data = torch.as_tensor(curve_fitting.CERES_CURVE_DATA[:MULTICARD_CURVE_ROWS], dtype=torch.float64, device=dev)
+    curve = problem(multihost.make_global_block(make_block(residual, data=multihost.host_local_shard(data)), mesh))
+    cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
+    tgt = _transformed(cloud, X_A, np.random.default_rng(SEED + 1))
+    src = cloud[: cloud.shape[0] // 12 * 12]
+    icp_x0 = _centroid_seed(src, tgt)
+    prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
+    sp = _observation_sharded(prob, mesh, multihost.host_local_shard)
+    ssp = _observation_sharded(_selfcal_start(prob), mesh, multihost.host_local_shard)
+    cfg = ba.BAConfig()
+    paths = {
+        "curve": (functools.partial(distributed_levenberg_marquardt, curve, torch.zeros(2, dtype=torch.float64,
+                                                                                         device=dev), mesh,
+                                    LMConfig(max_iterations=25)), None, True),
+        "icp": (functools.partial(distributed_levenberg_marquardt, problem(icp_block(src, tgt)), icp_x0, mesh,
+                                  _icp_config()), k_nn, True),
+        "cg": (functools.partial(ba.solve_ba, sp, cfg), None, False),
+        "selfcal": (functools.partial(ba_intrinsics.solve_ba_selfcal, ssp, cfg), None, False),
+        "dense": (functools.partial(ba_dense.solve_ba_dense_sharded, prob, mesh), k_schur, False),
+    }
+    for name in MULTIPROCESS_PATHS:
+        fn, kernel, lm = paths[name]
+        print(f"rank {rank} ({layout}): {name} at {time.perf_counter() - t0:.1f} s", flush=True)
+        out[name] = _mp_path(name, mesh, fn, kernel, lm)
+    out["captures"] = len(device_loop.CAPTURES)
+    out["transport_check"] = _mp_transport(mesh, dev, layout in MULTIPROCESS_PROBED)
+    if layout == MULTIPROCESS_GLOO:
+        gloo_sp = _observation_sharded(prob, _gloo_mesh(), multihost.host_local_shard)
+        with _timed_all_reduces() as stats:
+            gloo, _, gloo_s, gloo_reads = _solve_cg(gloo_sp)
+        out["cg"]["gloo"] = dict(wall_s=gloo_s, reads=gloo_reads, all_reduces=stats, digests=_ba_digests(gloo),
+                                 transport=gloo_sp.pixels.mesh.transport)
+    print("RESULT " + json.dumps(out), flush=True)
+    mesh.close()
+    dist.destroy_process_group()
+
+
+def _spawn_layout(layout, first_card):
+    """Start ``layout``'s two processes (``--rank r --port P --layout``),
+    their cards shifted by ``first_card``, each writing to a temporary file
+    (a pipe that nobody drains would stop a process at its long RESULT
+    line); returns [(Popen, file)]."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    spec = MULTIPROCESS_LAYOUTS[layout]
+    procs = []
+    for r in range(2):
+        visible = ",".join(str(int(c) + first_card) for c in spec["visible"][r].split(","))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=visible, NCCL_DEBUG="WARN")
+        out = tempfile.TemporaryFile(mode="w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--port", str(port), "--layout",
+             layout], stdout=out, stderr=subprocess.STDOUT, text=True, env=env), out))
+    return procs
+
+
+def _collect_layouts(rounds):
+    """Run each round's layouts together (each [(layout, first card)]), the
+    rounds one after another; every process must exit 0 within
+    MULTIPROCESS_TIMEOUT_S (all are killed otherwise). Returns {layout:
+    (rank 0's result, rank 1's, wall s)}."""
+    results = {}
+    for layouts in rounds:
+        t0 = time.perf_counter()
+        running = [(layout, _spawn_layout(layout, first)) for layout, first in layouts]
+        outs = {}
+        try:
+            for layout, procs in running:
+                for p, _ in procs:
+                    p.wait(timeout=max(1.0, MULTIPROCESS_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            late = True
+        else:
+            late = False
+        finally:
+            for _, procs in running:
+                for p, _ in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        for layout, procs in running:
+            outs[layout] = []
+            for _, f in procs:
+                f.seek(0)
+                outs[layout].append(f.read())
+                f.close()
+        if late:
+            tails = "\n".join(f"--- {layout}, rank {r}:\n{text[-4000:]}" for layout, texts in outs.items()
+                               for r, text in enumerate(texts))
+            raise AssertionError(f"phase 24: a process ran past {MULTIPROCESS_TIMEOUT_S} s; the output:\n{tails}")
+        wall = time.perf_counter() - t0
+        for layout, procs in running:
+            got = {}
+            for r, ((p, _), text) in enumerate(zip(procs, outs[layout])):
+                if p.returncode != 0:
+                    raise AssertionError(f"phase 24 {layout}: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+                for line in text.splitlines():
+                    if line.startswith("RESULT "):
+                        got[r] = json.loads(line[len("RESULT "):])
+            if set(got) != {0, 1}:
+                raise AssertionError(f"phase 24 {layout}: results from ranks {sorted(got)}:\n{outs[layout]}")
+            results[layout] = (got[0], got[1], wall)
+    return results
+
+
+def _hold_mp_path(layout, name, a, b, ref, lm):
+    """24: one path of a layout's two processes against the checks of the
+    module docstring; prints its line."""
+    ra, rb = a[name], b[name]
+    for row, rank in ((ra, 0), (rb, 1)):
+        print(f"multi-process {name} over {layout}, rank {rank}: {row['status']}, iterations {row['iterations']}; "
+              f"first call {row['first_s']:.4f} s ({row['captured']} captures), graphs {row['graph_s']:.4f} s, eager "
+              f"body {row['eager_s']:.4f} s; host reads graph {row['reads']['graph']}, eager {row['reads']['eager']}; "
+              f"replays a card {row['replays']}; bit-equal eager {row['bit_equal_eager']}, repeat "
+              f"{row['bit_equal_repeat']}, across cards {row['cards_bit_equal']}; link replayed "
+              f"{row['transport_replayed']} (+{row['transport_eager_in_graph']} eager after the loop), eager body "
+              f"{row['transport_eager']}"
+              + (f", card transport replayed {row['card_replayed']}" if row["card_replayed"] else "")
+              + (f"; kernel replayed {row['kernel_replayed']}, eager {row['kernel_eager']}, runs {row['kernel_runs']}"
+                 if row["kernel_runs"] else ""))
+        for c in row["captures"]:
+            print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
+                  f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
+        if not (row["bit_equal_eager"] and row["bit_equal_repeat"] and row["cards_bit_equal"] and row["captured"]):
+            raise AssertionError(f"multi-process {name} over {layout}, rank {rank}: captures {row['captured']}, the "
+                                 f"graphs differ from the eager body ({row['difference']}), the repeat or across cards")
+        reads = row["outer"] if name == "selfcal" else 0
+        replays = row["outer"] if name == "selfcal" else row["trace_len"]
+        if (row["reads"]["graph"] != reads or set(row["replays"]) != {replays} or row["kernel_eager_in_graph"]
+                or not all(v > 0 for v in row["transport_replayed"].values())
+                or len(row["transport_replayed"]) != len(row["replays"])):
+            raise AssertionError(f"multi-process {name} over {layout}, rank {rank}: {row}")
+        if row["kernel_runs"] and not (row["kernel_replayed"] == row["kernel_eager"] == row["kernel_runs"]
+                                       and all(row["kernel_runs"].values())):
+            raise AssertionError(f"multi-process {name} over {layout}, rank {rank}: kernel replayed "
+                                 f"{row['kernel_replayed']}, eager {row['kernel_eager']}, for {row['kernel_runs']}")
+    if ra["digests"] != rb["digests"]:
+        raise AssertionError(f"multi-process {name} over {layout}: the ranks' results differ")
+    if lm:
+        gap, camera_gap, camera_bound = float(np.abs(np.array(ra["x"]) - np.array(ref)).max()), None, None
+    else:
+        gap = abs(ra["cost"] / float(ref.cost) - 1)
+        cams = np.array(ra["cams"])
+        camera_gap = float(np.abs(cams - ref.camera_params.double().cpu().numpy()).max())
+        camera_bound = MULTICARD_CAMERA_BOUND * max(1.0, float(np.abs(cams).max()))
+    print(f"multi-process {name} over {layout}: ranks bit-equal; {gap:.3e} from the unsharded solve (bound "
+          f"{MULTICARD_RTOL:g})" + ("" if camera_gap is None else f", cameras {camera_gap:.3e} (bound "
+                                                                  f"{camera_bound:.3e})"))
+    if not gap <= MULTICARD_RTOL or camera_gap is not None and not camera_gap <= camera_bound:
+        raise AssertionError(f"multi-process {name} over {layout}: {gap} from the unsharded solve, cameras "
+                             f"{camera_gap}")
+    return dict({k: ra[k] for k in ("first_s", "graph_s", "eager_s", "captured", "reads", "replays", "iterations",
+                                    "status", "kernel_replayed", "kernel_eager", "transport_replayed",
+                                    "card_replayed", "transport_eager")},
+                eager_s_rank1=rb["eager_s"], graph_s_rank1=rb["graph_s"], unsharded_gap=gap, camera_gap=camera_gap,
+                digests=ra["digests"])
+
+
+def _hold_mp_transport(layout, a, b):
+    """24: a layout's link checks of both processes: every case bit-equal
+    to the plain version and the same bits in both; where probed, rank 0's
+    check raised naming an epoch within TRANSPORT_TIMEOUT_S + 1 s (the
+    NCCL watchdog polls every 0.25 s), rank 1's did not."""
+    ca, cb = a["transport_check"], b["transport_check"]
+    for res, c in ((a, ca), (b, cb)):
+        print(f"multi-process {layout}, rank {res['rank']}: {res['transport']} link (cards {res['cards']}, made in "
+              f"{res['mesh_s']:.3f} s" + (f", NCCL {c['nccl_version']}" if "nccl_version" in c else "")
+              + f") against its plain version: {sum(k['bit_equal'] for k in c['cases'])} of {len(c['cases'])} cases "
+              f"bit-equal; an all-reduce of S ({c['bytes']} bytes) {c['us']['s']:.1f} µs, of {TRANSPORT_SIZES[1]} "
+              f"floats {c['us']['small']:.1f} µs; the plain version (all-gather over gloo + sum) "
+              f"{c['us']['plain_s']:.1f} µs at S"
+              + (f"; probe: raised {bool(c['timeout']['raised'])} in {c['timeout']['wall_s']:.3f} s "
+                 f"({c['timeout']['raised'][:140]})" if "timeout" in c else ""))
+    if not all(k["bit_equal"] for c in (ca, cb) for k in c["cases"]) or [k["digest"] for k in ca["cases"]] != [
+            k["digest"] for k in cb["cases"]]:
+        raise AssertionError(f"multi-process {layout}: the link differs from its plain version or across ranks")
+    if "timeout" in ca:
+        t0, t1 = ca["timeout"], cb["timeout"]
+        if "epoch" not in t0["raised"] or t0["wall_s"] > TRANSPORT_TIMEOUT_S + 1.0 or t1["raised"]:
+            raise AssertionError(f"multi-process {layout}: the skipped reduction: rank 0 {t0}, rank 1 {t1}")
+    return dict(us=ca["us"], max_abs_err=max(ca["max_abs_err"], cb["max_abs_err"]), timeout=ca.get("timeout"),
+                nccl_version=ca.get("nccl_version"), mesh_s=a["mesh_s"])
+
+
+def run_multiprocess(dev, cloud, prob=None, refs=None):
+    """24: see the module docstring. ``prob`` and ``refs`` as
+    ``run_multicard``'s (made here when not given, ``--phase 24``). On four
+    cards the two one-card layouts run together, on cards 0-1 and 2-3."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"phase 24: needs 2+ cards, found {n_cards}")
+        return None
+    t_start = time.perf_counter()
+
+    def residual(x, d):
+        return torch.stack([d[1] - torch.exp(x[0] * d[0] + x[1])])
+
+    curve = problem(make_block(residual, data=torch.as_tensor(
+        curve_fitting.CERES_CURVE_DATA[:MULTICARD_CURVE_ROWS], dtype=torch.float64, device=dev)))
+    tgt = _transformed(cloud, X_A, np.random.default_rng(SEED + 1))
+    src = cloud[: cloud.shape[0] // 12 * 12]
+    if prob is None:
+        prob = ba.make_ba_problem(BA_O, BA_C, BA_L, seed=SEED, dtype=torch.float32, device=dev)
+    if refs is None:
+        cg_cfg = ba.BAConfig()
+        refs = dict(cg=ba.solve_ba(prob, cg_cfg), selfcal=ba_intrinsics.solve_ba_selfcal(_selfcal_start(prob),
+                                                                                           cg_cfg)[0],
+                    dense=ba_dense.solve_ba_dense(prob))
+    refs = dict(refs, curve=levenberg_marquardt(curve, torch.zeros(2, dtype=torch.float64, device=dev),
+                                                LMConfig(max_iterations=25)).x.double().cpu().tolist(),
+                icp=levenberg_marquardt(problem(icp_block(src, tgt)), _centroid_seed(src, tgt),
+                                        _icp_config()).x.double().cpu().tolist())
+    ref_s = time.perf_counter() - t_start
+    one = ["a card a process, NCCL", "a card a process, device"]
+    if n_cards >= 4:
+        rounds = [[(one[0], 0), (one[1], 2)], [("2 cards a process, device", 0)], [("2 cards a process, NCCL", 0)]]
+    else:
+        rounds = [[(one[0], 0)], [(one[1], 0)]]
+    results = _collect_layouts(rounds)
+    out = {}
+    for layout, (a, b, wall) in results.items():
+        rows = {name: _hold_mp_path(layout, name, a, b, refs[name], name in ("curve", "icp"))
+                for name in MULTIPROCESS_PATHS}
+        rows["transport"] = _hold_mp_transport(layout, a, b)
+        rows["captures"] = [a["captures"], b["captures"]]
+        rows["wall_s"] = wall
+        print(f"multi-process {layout}: {a['transport']} transport (CUDA_VISIBLE_DEVICES {a['visible']} and "
+              f"{b['visible']}), captures {a['captures']} and {b['captures']}, NCCL inside IF nodes: "
+              + ("not used" if a["transport"] != "nccl" else "yes (graph mixing off; every path captured, replayed "
+                 "and bit-equal)" if a["in_if_bodies"] else "no (the eager body over NCCL)")
+              + f"; round wall {wall:.1f} s")
+        if "gloo" in a["cg"]:
+            for res in (a, b):
+                g = res["cg"]["gloo"]
+                print(f"multi-process {layout}, rank {res['rank']}: the CG over gloo: wall {g['wall_s']:.4f} s, "
+                      f"all-reduces {g['all_reduces']['count']} ({g['all_reduces']['ms']:.1f} ms), host reads "
+                      f"{g['reads']}; digests equal to the graphs' {g['digests'] == res['cg']['digests']}")
+                if g["digests"] != res["cg"]["digests"] or g["transport"] != "gloo":
+                    raise AssertionError(f"multi-process {layout}: the CG over gloo differs from the graphs'")
+            rows["cg"]["gloo"] = a["cg"]["gloo"]
+        out[layout] = rows
+    for nccl, device in ((one[0], one[1]), ("2 cards a process, NCCL", "2 cards a process, device")):
+        if nccl in out and device in out:
+            same = {p: out[nccl][p]["digests"] == out[device][p]["digests"] for p in MULTIPROCESS_PATHS}
+            print(f"multi-process: {nccl} against {device}, bit-equal by path: {same}")
+            if not all(same.values()):
+                raise AssertionError(f"multi-process: NCCL and the device transport differ: {same}")
+    across = {p: len({tuple(rows[p]["digests"]) for rows in out.values()}) == 1 for p in MULTIPROCESS_PATHS}
+    print(f"multi-process: every layout bit-equal by path (a card or two a process): {across}")
+    wall = time.perf_counter() - t_start
+    print(f"phase 24: {wall:.1f} s ({ref_s:.1f} s of it the unsharded references)")
+    return dict(layouts=out, wall_s=wall, reference_s=ref_s, cards=n_cards, all_layouts_bit_equal=across)
+
+
+def multiprocess_main():
+    """``--phase 24``: the build and phase 24 alone, on two cards or more."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this check runs on a GPU only")
+    dev = torch.device("cuda", 0)
+    _smi()
+    _build_all()
+    cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
+    multiprocess = run_multiprocess(dev, cloud)
+    if multiprocess is None:
+        raise SystemExit("chip_smoke --phase 24: needs 2+ cards")
+    print(json.dumps({"multiprocess": multiprocess}))
+    _print_ok()
+
+
+def transport_entry(two, multicard=None, multiprocess=None):
     """The kernels line's row of the device all-reduce, a graph helper (the
     psum across processes), not a port of a TPU kernel: rank 0's launches on
     phase 15's main path, its worst difference from the plain version, its
     ms at S's size beside the plain version's and gloo's; the bound is the
     bytes (P + 1)·n over the card's rate (the barrier's round trip is
     chip_profile.py --path mesh_barrier's). With two cards or more, phase
-    23's card transport too (its µs, bound and replayed launches by mesh)."""
+    23's card transport too (its µs, bound and replayed launches by mesh),
+    and phase 24's links across processes (the device transport's IPC links
+    and the NCCL transport, a library's all-gather, not a kernel of the
+    port: µs at S and 1,001 floats, replayed launches by path)."""
     c = two["transport"][0]
     n_bytes = (2 + 1) * c["bytes"]
     cards = None if multicard is None else {
@@ -3873,12 +4322,16 @@ def transport_entry(two, multicard=None):
                 max_abs_err=rows["transport"]["max_abs_err"],
                 replayed={p: rows[p]["transport_replayed"] for p in rows if p != "transport"})
         for m, rows in multicard["meshes"].items()}
+    links = None if multiprocess is None else {
+        layout: dict(transport=rows["transport"], replayed={p: rows[p]["transport_replayed"] for p in MULTIPROCESS_PATHS})
+        for layout, rows in multiprocess["layouts"].items()}
     return dict(name="mesh_reduce", route="cuda", source="moptimizer_0_tpu_torch/csrc/mesh_reduce.cu",
                 replaces="moptimizer_0_tpu/parallel/sharded.py:55", kind="graph helper: the psum across processes",
                 launches=c["launches"], max_abs_err=max(c["max_abs_err"], two["transport"][1]["max_abs_err"]),
                 ms=c["ms"]["kernel"], plain_ms=c["ms"]["plain"], bound_ms=n_bytes / PEAK_BYTES * 1e3,
                 bound_by="bytes", library_ms=c["ms"]["library"], small_ms=c["ms"]["kernel_small"],
-                launches_by_path={k: v["launches"] for k, v in two["paths"].items()}, card_transport=cards)
+                launches_by_path={k: v["launches"] for k, v in two["paths"].items()}, card_transport=cards,
+                links=links)
 
 
 def main():
@@ -3891,17 +4344,7 @@ def main():
     def stamp(phases):
         print(f"time {time.perf_counter() - t_start:.1f} s: phases {phases} done", flush=True)
 
-    t0 = time.perf_counter()
-    kernels = (k_nn, k_expand, k_schur, graph_cond, k_mesh)
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        futures = [pool.submit(build.build, k.NAME, k.SOURCES) for k in kernels]
-        built = [f.result() for f in futures]
-    print(f"build (one nvcc per source, in parallel): {time.perf_counter() - t0:.3f} s")
-    for path, log in built:
-        print(f"  -> {path.relative_to(ROOT)}")
-        for line in log.splitlines():
-            if "ptxas" in line and ("registers" in line or "Compiling" in line):
-                print(f"  {line.strip()}")
+    _build_all()
 
     rng = np.random.default_rng(SEED)
     cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
@@ -4019,8 +4462,10 @@ def main():
     del ba_grouped, ba_res, cg_res, results
     torch.cuda.empty_cache()
     multicard = run_multicard(dev, cloud, ba_prob, refs)
-    del ba_prob, refs
     stamp(23)
+    multiprocess = run_multiprocess(dev, cloud, ba_prob, refs)
+    del ba_prob, refs
+    stamp(24)
 
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
@@ -4064,7 +4509,7 @@ def main():
               sharded_selfcal_launches={k: r["k11"] for k, r in selfcal_sharded.items()},
               examples_launches={k: v["k11"] for k, v in examples.items() if v["k11"]},
               blocked_dense_launches=blocked["k11"]),
-        transport_entry(two, multicard),
+        transport_entry(two, multicard, multiprocess),
     ]
     print(json.dumps({"slam": {
         m: {k: v for k, v in r.items() if k != "reg"} for m, r in slam.items()
@@ -4076,6 +4521,7 @@ def main():
     print(json.dumps({"examples": examples, "blocked": blocked, "device_loop": device, "lm_device_loop": lm_loop,
                       "pgo_device_loop": pgo_loop, "sharded_device_loop": sharded_loop}))
     print(json.dumps({"multicard": multicard}))
+    print(json.dumps({"multiprocess": multiprocess}))
     print(json.dumps({"kernels": kernels}))
     _print_ok()
 
@@ -4107,6 +4553,22 @@ def _smi():
           f"{torch.cuda.device_count()} card(s)")
 
 
+def _build_all():
+    """Every CUDA source compiled, one nvcc each, all started together; the
+    libraries and ptxas's register lines printed."""
+    t0 = time.perf_counter()
+    kernels = (k_nn, k_expand, k_schur, graph_cond, k_mesh)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        futures = [pool.submit(build.build, k.NAME, k.SOURCES) for k in kernels]
+        built = [f.result() for f in futures]
+    print(f"build (one nvcc per source, in parallel): {time.perf_counter() - t0:.3f} s")
+    for path, log in built:
+        print(f"  -> {path.relative_to(ROOT)}")
+        for line in log.splitlines():
+            if "ptxas" in line and ("registers" in line or "Compiling" in line):
+                print(f"  {line.strip()}")
+
+
 def _multicard_launches(multicard, path):
     """K5's or K11's replayed launches a card on phase 23's ``path``, by mesh."""
     if multicard is None:
@@ -4120,12 +4582,7 @@ def multicard_main():
         raise SystemExit("chip_smoke: no CUDA device; this check runs on a GPU only")
     dev = torch.device("cuda", 0)
     _smi()
-    kernels = (k_nn, k_expand, k_schur, graph_cond, k_mesh)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        for f in [pool.submit(build.build, k.NAME, k.SOURCES) for k in kernels]:
-            f.result()
-    print(f"build (one nvcc per source, in parallel): {time.perf_counter() - t0:.3f} s")
+    _build_all()
     cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
     multicard = run_multicard(dev, cloud)
     if multicard is None:
@@ -4138,12 +4595,19 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description="Drive the port's main paths on one CUDA card and check them.")
     parser.add_argument("--rank", type=int, help="run as one of phase 15's two processes (internal)")
     parser.add_argument("--port", type=int, help="phase 15's group port on localhost (internal)")
-    parser.add_argument("--phase", type=int, choices=(23,), help="run the build and this phase alone (23: the "
-                        "one-process mesh over several cards, on two cards or more)")
+    parser.add_argument("--layout", choices=tuple(MULTIPROCESS_LAYOUTS), help="run as one of phase 24's processes in "
+                        "this layout (internal)")
+    parser.add_argument("--phase", type=int, choices=(23, 24), help="run the build and this phase alone (23: the "
+                        "one-process mesh over several cards; 24: meshes across processes over several cards; both "
+                        "on two cards or more)")
     args = parser.parse_args()
-    if args.rank is not None:
+    if args.layout is not None:
+        multiprocess_rank_main(args.rank, args.port, args.layout)
+    elif args.rank is not None:
         rank_main(args.rank, args.port)
     elif args.phase == 23:
         multicard_main()
+    elif args.phase == 24:
+        multiprocess_main()
     else:
         main()

@@ -42,11 +42,11 @@ JAX engine. Cameras, points and the solver's vectors are replicated, so
 every process reads the same flags and the processes' loops stay in
 lockstep. The unsharded solve is the one-shard case of the same step. With
 every local shard on the cameras' device and the reductions device work
-(``Mesh.captures_on``: one process, or processes of one host reducing
-through ``kernels/mesh_reduce.py``) the sharded step is captured as the
+(``Mesh.captures_on``: one process, or processes reducing through
+``kernels/mesh_reduce.py`` or ``kernels/nccl_transport.py``) the sharded step is captured as the
 unsharded one is: each PCG iteration's two reductions inside its IF node,
 the shards and their plans made before the capture, a graph in every
-process. Over one process's several peer cards the step is a graph a
+process. Over a process's several peer cards the step is a graph a
 card (``device_loop.CardLoops``), each card's over its own shards, its
 reductions through the card transport (``parallel.mesh.CardMesh``). A gloo
 mesh, or cards without peer access both ways, runs the eager loop. A
@@ -687,7 +687,7 @@ def _sharded_loop(problem, config, graph, make_body, carry, name):
     """The StepLoop of an observation-sharded (or unsharded) step: the
     shards and their plans made once, ``make_body(mesh, shards, plans)``
     the step's body over them, its context (mesh, shards); a graph a card
-    over one process's several peer cards (``device_loop.card_loops``, every
+    over a process's several peer cards (``device_loop.card_loops``, every
     carry entry on every card)."""
     mesh, shards = _shards(problem)
     plans = [_plans(s) for s in shards]
@@ -707,7 +707,7 @@ def _cg_loop(problem, config):
     shards). On CUDA the loop is captured once per layout (the incidence,
     pixels, intrinsics, loss, gauge, shapes, dtype and config; the mesh and
     the GlobalArrays of an observation-sharded problem) and kept, a graph a
-    card over one process's several peer cards; on the CPU, or sharded over
+    card over a process's several peer cards; on the CPU, or sharded over
     a gloo mesh or cards without peer access, it is eager."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     graph = _graphs(problem)

@@ -31,9 +31,9 @@ S correction, the rhs reduction and the landmark terms of the step's
 metrics) are summed over the mesh, max|diag V| and max|δpt| maxed; the
 (6C)² Cholesky and the camera step run once per process on reduced inputs.
 With every local shard on the cameras' device and the reductions device
-work (``Mesh.captures_on``: one process, or processes of one host reducing
-through ``kernels/mesh_reduce.py``) its step is a CUDA graph as the
-unsharded one's, K11 launched once a shard an S build inside it; over one
+work (``Mesh.captures_on``: one process, or processes reducing through
+``kernels/mesh_reduce.py`` or ``kernels/nccl_transport.py``) its step is a CUDA graph as the
+unsharded one's, K11 launched once a shard an S build inside it; over a
 process's several peer cards it is a graph a card, each card's over its
 own shards (K11 once each an S build), reducing through the card
 transport; over a gloo mesh or cards without peer access it runs the eager
@@ -787,7 +787,7 @@ def solve_ba_dense_sharded(problem, mesh, config=DenseBAConfig(), axis="data", g
     captured at the first solve of its layout (K11 once a shard an S build
     inside it) and the loop reads nothing back; a repeat solve of the same
     problem replays, with ``grouped`` None too (its grouping is made once,
-    with the graph); over one process's several peer cards it replays a
+    with the graph); over a process's several peer cards it replays a
     graph a card. Over a gloo mesh or cards without peer access the step
     runs eagerly, one host read a trial and an outer iteration. The solve ends
     with ``Mesh.check``, then gathers the points over the group.

@@ -29,7 +29,7 @@ package runs the same solve under GSPMD and refuses only a row count the
 mesh does not divide; so does this. The unsharded solve is the one-shard
 case, and a sharded step is a CUDA graph where the CG engine's is (its
 mesh captures on the cameras' device, ``Mesh.captures_on``; a graph a card
-over one process's several peer cards).
+over a process's several peer cards).
 """
 
 import dataclasses

@@ -37,15 +37,15 @@ counted ``_read`` (``HOST_READS``) once before each trial and once an outer
 iteration. ``verbose=True`` prints every trial, so it runs the eager body
 on the card too. A problem sharded over a mesh (``parallel.sharded``)
 whose local shards all lie on x's device and whose reductions are device
-work (``Mesh.captures_on``: one process, or processes of one host reducing
-through ``kernels/mesh_reduce.py``) is captured like any other, its shards'
+work (``Mesh.captures_on``: one process, or processes reducing through
+``kernels/mesh_reduce.py`` or ``kernels/nccl_transport.py``) is captured like any other, its shards'
 data leaves in the carry and the mesh and every shard's block structure in
 the key; every process of a mesh captures and replays its own graph. A
-mesh of one process over several peer cards gets a graph a card
+mesh whose process holds several peer cards gets a graph a card
 (``device_loop.CardLoops``): card c's step runs over its own shards with x,
 λ and the flags replicated in its carry, and reduces through the card
-transport (``parallel.mesh``). A gloo mesh (processes on several hosts),
-or cards without peer access both ways, runs the eager body.
+transport (``parallel.mesh``), then, across processes, through its card's link. A
+gloo mesh, or cards without peer access both ways, runs the eager body.
 A capture records PyTorch's factorizations on cuSOLVER and cuBLAS
 (``ops.small_solve.capturable_linalg``); the eager body runs on PyTorch's
 default routes, which send a batched Cholesky solve to MAGMA, and equals
@@ -491,7 +491,7 @@ def _single_loop(problem, x, config, manifold):
     """The StepLoop of ``levenberg_marquardt`` and ``lm_step`` on this
     problem: cached per layout when its step is a graph, made anew (eager)
     otherwise. Its carry: x, λ and the problem's data leaves. A problem
-    sharded over one process's several cards gets a ``device_loop.CardLoops``
+    sharded over a process's several cards gets a ``device_loop.CardLoops``
     of a graph a card, each card's carry x, λ and its shards' leaves."""
     dtype, dev = _trace_dtype(config, x), x.device
     graph = _graphs(problem, x, config)
@@ -536,7 +536,7 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
     the CPU, inside ``device_loop.eager()``, with ``verbose=True`` (which
     prints every trial from the host) or for a problem sharded over a gloo
     mesh or over cards without peer access the same step runs eagerly. A
-    problem sharded over one process's several cards replays a graph a card
+    problem sharded over a process's several cards replays a graph a card
     and returns on the first shard's card. A sharded solve ends with
     ``Mesh.check``."""
     problem = _as_problem(problem)

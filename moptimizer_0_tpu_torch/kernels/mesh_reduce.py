@@ -21,7 +21,7 @@ epoch. Its two kinds differ only in how a generation's buffers are had:
   which every process reaches at the same reduction because they run in
   lockstep. ``all_reduce`` reduces one partial a process, in rank order;
   its plain version is ``parallel.mesh._all_reduce_plain``.
-* ``CardBuffers``, the transport of a one-process mesh over several cards
+* ``CardBuffers``, the transport of a process's several cards
   (``parallel.mesh.CardMesh``): a buffer ``cudaMalloc``'d on every card,
   which the others read through peer access. ``reduce`` is one card's
   launch, in that card's own CUDA graph, with the partials of the card's
@@ -30,6 +30,16 @@ epoch. Its two kinds differ only in how a generation's buffers are had:
   warm-up has not been enqueued yet): it sizes the slots (``reserve``) and
   stands in with the card's own partials' sum, which the warm-up discards
   with the rest of its values.
+
+Processes that each hold several cards (the grouped device transport)
+reduce in two launches a card: ``CardBuffers`` sums the process's shards
+on every card, then ``IpcLinks``, an ``IpcBuffers`` a card index, combines
+card c's sum with card c of every other process in rank order. Each
+process's shards in shard order, then the processes in rank order, is
+``Mesh.psum``'s order (((s0 + s1) + (s2 + s3)) for 2 × 2 shards, not
+the flat ((s0 + s1) + s2) + s3); ``reduce_slots_plain(groups, op,
+n_processes)`` is the plain version of both launches. Every IPC handle is
+opened once a process, on its own card of that index.
 """
 
 import ctypes
@@ -243,6 +253,7 @@ class IpcBuffers(_Transport):
         self._pings = 0
         with torch.cuda.device(self.device):
             _ok(_library().mr_prepare(self.device.index, -1), "mr_prepare")
+        _REPLAYED.prepare(self.device)
         self._grow(INITIAL_SLOT_BYTES)
 
     def _alloc(self, cap):
@@ -305,28 +316,66 @@ class IpcBuffers(_Transport):
         self._free_owned()
 
 
+class IpcLinks:
+    """The device transport of a process over its cards: an ``IpcBuffers``
+    a card index, card c's buffer shared with card c of every other process
+    (all of one host, each pair of them one card or peers both ways), made
+    collectively in card order. ``all_reduce(flat, op, card)`` reduces one
+    partial a process on that card, in rank order, as the NCCL transport's
+    does (``kernels/nccl_transport.py``); a process over several cards
+    first sums its own shards on every card (``CardBuffers``), so the two
+    launches give ``Mesh.psum``'s order: each process's shards in shard
+    order, then the processes in rank order."""
+
+    in_if_bodies = True  # its kernel records inside IF nodes
+
+    def __init__(self, group, rank, size, cards, timeout_s=TIMEOUT_S):
+        self.cards = tuple(torch.device(c) for c in cards)
+        self.buffers = tuple(IpcBuffers(group, rank, size, c, timeout_s) for c in self.cards)
+
+    def all_reduce(self, flat, op, card=0):
+        return self.buffers[card].all_reduce(flat, op)
+
+    def check(self):
+        for b in self.buffers:
+            b.check()
+
+    def close(self):
+        for b in self.buffers:
+            b.close()
+
+
 # The combine of a reduction, as Mesh.psum/pmax apply it.
 COMBINE = {"sum": torch.add, "max": torch.maximum}
 
 
-def reduce_slots_plain(groups, op):
-    """``CardBuffers.reduce``'s plain version: ``groups`` holds each card's
-    (shard indices, partials); every partial goes into its shard's slot and
-    the slots are combined in shard order (((s0 ∘ s1) ∘ s2) ...), the order
-    of ``Mesh.psum``. Returns each card's result (the same tensor, on the
-    first card's device, for every card)."""
+def reduce_slots_plain(groups, op, n_processes=1):
+    """The card transport's plain version, followed by the processes'
+    rank-order combine where there are several: ``groups`` holds each card's
+    (shard indices, partials) of every process, shard j of process r being
+    ``r·n + j`` for n shards a process; every partial goes into its shard's
+    slot, each process's slots are combined in shard order and the
+    processes' results in rank order (((p0 ∘ p1) ∘ p2) ...), the order of
+    ``Mesh.psum`` (with one process, (((s0 ∘ s1) ∘ s2) ...)). Returns each
+    card's result (the same tensor, on the first card's device, for every
+    card)."""
     slots = {}
     for shards, parts in groups:
         for j, part in zip(shards, parts):
             if j in slots:
                 raise ValueError(f"shard {j} is in two cards' groups")
             slots[j] = part
-    if sorted(slots) != list(range(len(slots))):
-        raise ValueError(f"the groups hold shards {sorted(slots)}, not 0..{len(slots) - 1}")
-    acc = slots[0]
-    for j in range(1, len(slots)):
-        acc = COMBINE[op](acc, slots[j].to(acc.device))
-    return [acc] * len(groups)
+    if sorted(slots) != list(range(len(slots))) or len(slots) % n_processes:
+        raise ValueError(f"the groups hold shards {sorted(slots)}, not 0..{len(slots) - 1} over {n_processes} "
+                         f"processes")
+    per = len(slots) // n_processes
+    total = None
+    for r in range(n_processes):
+        acc = slots[r * per]
+        for j in range(r * per + 1, (r + 1) * per):
+            acc = COMBINE[op](acc, slots[j].to(acc.device))
+        total = acc if total is None else COMBINE[op](total, acc.to(total.device))
+    return [total] * len(groups)
 
 
 class CardBuffers(_Transport):

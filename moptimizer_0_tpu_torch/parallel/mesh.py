@@ -22,33 +22,47 @@ A mesh's transport (``Mesh.transport``), chosen once by
 
 * ``"local"``: one process, no group; a reduction is ``torch.add`` (or
   ``torch.maximum``) in shard order.
-* ``"device"``: every process on this host, each pair sharing a card or
-  with peer access between theirs. The all-reduce of CUDA tensors is the
+* ``"device"``: every process on this host, each pair of their cards one
+  card or with peer access both ways. The all-reduce of CUDA tensors is the
   hand-written kernel of ``kernels/mesh_reduce.py`` (every process's
   partial summed in rank order through CUDA IPC buffers, with no host
-  read); of CPU tensors its plain version, ``_all_reduce_plain`` (an
-  all-gather over the gloo group, then the same rank-order sum).
-* ``"gloo"``: any other mesh (processes on several hosts): gloo's
-  all-reduce on the host.
+  read; ``Mesh.link``, an ``IpcLinks`` of a buffer a card index); of CPU
+  tensors its plain version, ``_all_reduce_plain`` (an all-gather over the
+  gloo group, then the same rank-order sum).
+* ``"nccl"``: processes on CUDA that the device transport cannot join
+  (other hosts, cards without peer access both ways, cards a process cannot
+  see) and no two of which share a card. The all-reduce of CUDA tensors is
+  ``kernels/nccl_transport.py`` (an all-gather on the device, a
+  communicator a card index, then the same rank-order combine, so the same
+  bits as the device transport); of CPU tensors ``_all_reduce_plain``.
+* ``"gloo"``: any other mesh (CPU processes of several hosts, a CPU process
+  beside a card, processes sharing a card across hosts or more than
+  ``mesh_reduce.MAX_MEMBERS`` of them): gloo's all-reduce on the host.
 
-Which meshes the engines capture into CUDA graphs (``Mesh.captures_on``):
+Which meshes the engines capture into CUDA graphs (``Mesh.captures_on``,
+decided once a solve, before any capture; a failed capture raises and
+never falls back):
 
-* every local shard on the solve's card, with a ``"local"`` or ``"device"``
-  transport: a reduction is device work, and the step is one graph, as an
-  unsharded one's is (``ops.device_loop``); across processes every process
-  captures its own graph and replays it;
-* one process (``"local"``) over several cards, the solve on the first
-  shard's card, every pair of the cards with peer access both ways
-  (``torch.cuda.can_device_access_peer``, decided once a solve): one graph
-  a card (``device_loop.CardLoops``). Card c's graph runs the step over its
-  own shards only, with the replicated state (x, λ, flags) in its own
-  carry, and its reductions go through ``CardMesh``, the card's view of the
-  mesh, to ``kernels.mesh_reduce.CardBuffers``: a slot a shard, every card
-  summing all the slots in shard order. That is the order ``Mesh.psum``
-  sums in, so each card's graph equals the mesh's eager body bit for bit
-  and every card holds the same bits. The host enqueues every card's replay
-  before it waits on any. Cards without peer access both ways run the eager
-  body, by that decision and nothing else.
+* every local shard on the solve's card, with a ``"local"``, ``"device"``
+  or ``"nccl"`` transport: a reduction is device work, and the step is one
+  graph, as an unsharded one's is (``ops.device_loop``); across processes
+  every process captures its own graph and replays it;
+* a process over several cards, the solve on its first shard's card, every
+  pair of its cards with peer access both ways
+  (``torch.cuda.can_device_access_peer``), alone (``"local"``) or across
+  processes that each hold as many cards (``"device"`` or ``"nccl"``): one
+  graph a card (``device_loop.CardLoops``). Card c's graph runs the step
+  over its own shards only, with the replicated state (x, λ, flags) in its
+  own carry, and its reductions go through ``CardMesh``, the card's view of
+  the mesh: to ``kernels.mesh_reduce.CardBuffers`` (a slot a shard, every
+  card summing its process's slots in shard order), then, across
+  processes, to card c's link of ``Mesh.link`` (the rank-order combine of
+  the processes' sums with card c of every other process). That is the
+  order ``Mesh.psum`` sums in, so each card's graph equals the mesh's eager
+  body bit for bit and every card of every process holds the same bits.
+  The host enqueues every card's replay before it waits on any. Cards
+  without peer access both ways run the eager body, by that decision and
+  nothing else.
 
 The processes (or cards) stay in lockstep:
 
@@ -63,10 +77,10 @@ The processes (or cards) stay in lockstep:
 A peer that never arrives (a failed capture, a crash) makes the kernel's
 bounded spin set an error word, and ``Mesh.check`` (called at the end of
 every sharded solve) reads every process's or card's word and raises,
-naming the epoch. Gathers after a loop (``gather_rows``,
-``ba._global_pt_idx``) stay on the gloo group; no step body runs one. A
-``"gloo"`` mesh, and a mesh across processes whose processes hold several
-cards each, run the eager loop.
+naming the epoch; the NCCL transport's watchdog aborts a reduction that
+waits longer than its bound, and ``Mesh.check`` raises the same way. Gathers
+after a loop (``gather_rows``, ``ba._global_pt_idx``) stay on the gloo
+group; no step body runs one. A ``"gloo"`` mesh runs the eager loop.
 """
 
 import dataclasses
@@ -89,7 +103,7 @@ from moptimizer_0_tpu_torch.utils.device import require
 REDUCTIONS = 0
 ALL_REDUCES = 0
 
-TRANSPORTS = ("local", "device", "gloo")
+TRANSPORTS = ("local", "device", "nccl", "gloo")
 
 # The card transports of one-process meshes over several cards, by the
 # mesh's devices: made at a mesh's first graph and kept, since a cached
@@ -114,9 +128,12 @@ class Mesh:
     group: the torch.distributed process group the mesh spans, or None for
         a mesh inside one process.
     n_processes, process_index: the group's size and this process's rank.
-    transport: "local", "device" or "gloo" (module docstring); by default
-        "local" without a group and "gloo" with one.
-    ipc: the ``kernels.mesh_reduce.IpcBuffers`` of a "device" mesh on CUDA.
+    transport: "local", "device", "nccl" or "gloo" (module docstring); by
+        default "local" without a group and "gloo" with one.
+    link: the cross-process transport of a "device" or "nccl" mesh on CUDA
+        (``kernels.mesh_reduce.IpcLinks`` or
+        ``kernels.nccl_transport.NcclTransport``), a link for each of
+        ``cards``.
     """
 
     devices: tuple
@@ -125,7 +142,7 @@ class Mesh:
     n_processes: int = 1
     process_index: int = 0
     transport: str = None
-    ipc: Any = None
+    link: Any = None
 
     def __post_init__(self):
         if self.transport is None:
@@ -182,17 +199,19 @@ class Mesh:
     def captures_on(self, device):
         """Whether a sharded step on ``device`` can be CUDA graphs (module
         docstring): every local shard there and its reductions device work
-        (a "local" or "device" transport), one graph; or one process over
-        several cards, ``device`` the first shard's, every pair of the cards
-        with peer access both ways, one graph a card (``per_card``). The
-        engines capture a sharded step only then."""
+        (a "local", "device" or "nccl" transport; an NCCL transport whose
+        all-gather cannot sit in IF bodies, ``kernels/nccl_transport.py``,
+        runs the eager body), one graph; or a process over several cards,
+        ``device`` its first shard's, every pair of its cards with peer
+        access both ways, one graph a card (``per_card``). The engines
+        capture a sharded step only then."""
         device = torch.device(device)
-        if self.transport == "gloo":
+        if self.transport == "gloo" or self.link is not None and not self.link.in_if_bodies:
             return False
         cards = self.cards
         if len(cards) == 1:
             return cards[0] == device
-        return (self.group is None and device.type == "cuda" and device == cards[0]
+        return (device.type == "cuda" and device == cards[0]
                 and all(d.type == "cuda" for d in cards) and peers_both_ways(cards))
 
     def per_card(self, device):
@@ -218,28 +237,28 @@ class Mesh:
         """The mesh by value, for a cache key: its devices, axis name,
         processes and transport, and the transport's buffers by identity (a
         graph points into them, and the key keeps them alive)."""
-        return (self.devices, self.axis_names, self.n_processes, self.process_index, self.transport, self.ipc)
+        return (self.devices, self.axis_names, self.n_processes, self.process_index, self.transport, self.link)
 
     def check(self):
-        """Raise if a device all-reduce of this mesh gave up on a peer (one
-        read of the device, or of each card of a card transport); nothing
-        for another transport."""
-        if self.ipc is not None:
-            self.ipc.check()
+        """Raise if an all-reduce of this mesh gave up on a peer (one read of
+        the device, or of each card of a card transport, after a bounded wait
+        for the NCCL transport's work); nothing for another transport."""
+        if self.link is not None:
+            self.link.check()
         cards = _CARD_TRANSPORTS.get(self.devices)
         if cards is not None:
             cards.check()
 
     def close(self):
         """Tear the transport down: drop every cached step graph (they may
-        point into its buffers), then unmap and free the buffers (an IPC
-        transport's collectively across the mesh's processes, a card
-        transport's on each card)."""
+        point into its buffers), then free the link's buffers or
+        communicators (collectively across the mesh's processes) and the card
+        transport's buffers on each card."""
         cards = _CARD_TRANSPORTS.pop(self.devices, None)
-        if self.ipc is not None or cards is not None:
+        if self.link is not None or cards is not None:
             device_loop.clear()
-        if self.ipc is not None:
-            self.ipc.close()
+        if self.link is not None:
+            self.link.close()
         if cards is not None:
             cards.close()
 
@@ -295,21 +314,25 @@ _GLOO_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class CardMesh:
-    """One card's view of a one-process mesh over several cards, for the
+    """One card's view of a mesh whose process holds several cards, for the
     step body that card's graph runs (``Mesh.captures_on``).
 
     mesh: the whole mesh. card: the card's index in ``mesh.cards``.
-    shards: the mesh indices of the card's shards, ascending; ``devices``
-    (each the card) lines up with them as a mesh's devices do with its
-    shards. transport: the mesh's ``card_transport()``.
+    shards: this process's indices of the card's shards, ascending;
+    ``devices`` (each the card) lines up with them as a mesh's devices do
+    with its shards. transport: the mesh's ``card_transport()``.
 
     ``psum``/``pmax`` take this card's shards' parts and return the whole
-    mesh's reduction in shard order, on the card, as every other card's
-    graph does at the same point (one transport launch a dtype; its plain
-    version is ``mesh_reduce.reduce_slots_plain``). In a graph's warm-up
-    they launch nothing (the other cards' warm-ups are not enqueued yet):
-    they size the slots and return the card's own parts' reduction, which
-    the warm-up discards.
+    mesh's reduction in ``Mesh.psum``'s order, on the card, as every other
+    card's graph does at the same point: one card-transport launch a dtype
+    (the process's shards in shard order) and, across processes, the eager
+    body's all-reduce (``_all_reduce``) over card c's link (the processes
+    in rank order); the plain version of both is
+    ``mesh_reduce.reduce_slots_plain``. In a graph's warm-up the card
+    transport launches nothing (the other cards' warm-ups are not enqueued
+    yet): it sizes the slots and stands in with the card's own parts'
+    reduction, which the warm-up discards; the link launches, as every
+    process warms its cards up in the same order.
     """
 
     mesh: Mesh
@@ -356,6 +379,12 @@ class CardMesh:
             total = self._combine(flats, op)
             for i, like, off in zip(idx, likes, offsets):
                 out[i] = torch.as_strided(total, like.shape, like.stride(), total.storage_offset() + off)
+        if self.mesh.group is not None:
+            # the process's sums across processes as the eager body sends
+            # them (``_all_reduce``: packed, then split into views), over
+            # this card's link: the later steps then see the eager body's
+            # layouts, and so its bits
+            out = _all_reduce(out, op, self.mesh)
         return tuple(out) if tuples else out[0]
 
     def _combine(self, flats, op):
@@ -401,9 +430,10 @@ def _padded_flat(tensors, offsets):
 
 def _all_reduce(tensors, op, mesh):
     """One all-reduce over the mesh's processes of a list of same-dtype
-    tensors (each reshaped back), by the mesh's transport: on a "device"
-    mesh the kernel for CUDA tensors (it launches or raises) and
-    ``_all_reduce_plain`` for CPU ones; on a "gloo" mesh gloo's."""
+    tensors (each reshaped back), by the mesh's transport: on a "device" or
+    "nccl" mesh the link of the tensors' card for CUDA tensors (it launches
+    or raises) and ``_all_reduce_plain`` for CPU ones; on a "gloo" mesh
+    gloo's."""
     global ALL_REDUCES
     if len({t.dtype for t in tensors}) != 1:
         return [_all_reduce([t], op, mesh)[0] for t in tensors]
@@ -414,10 +444,10 @@ def _all_reduce(tensors, op, mesh):
         dist.all_reduce(flat, op=_GLOO_OPS[op], group=mesh.group)
     elif not flat.is_cuda:
         flat = _all_reduce_plain(flat, op, mesh.group)
-    elif mesh.ipc is None:
-        raise RuntimeError(f"a device mesh with no CUDA transport got a tensor on {flat.device}")
+    elif mesh.link is None or flat.device not in mesh.cards:
+        raise RuntimeError(f"a {mesh.transport} mesh with no CUDA transport on {flat.device} got a tensor there")
     else:
-        flat = mesh.ipc.all_reduce(flat, op)
+        flat = mesh.link.all_reduce(flat, op, mesh.cards.index(flat.device))
     out, off = [], 0
     for t in tensors:
         out.append(flat[off : off + t.numel()].reshape(t.shape))
@@ -426,7 +456,7 @@ def _all_reduce(tensors, op, mesh):
 
 
 def _all_reduce_plain(flat, op, group):
-    """The device transport's plain version: every process's ``flat``
+    """The device and NCCL transports' plain version: every process's ``flat``
     gathered over the gloo group, then combined in rank order
     (((x0 ∘ x1) ∘ x2) ...), the same bits on every process."""
     parts = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
@@ -439,14 +469,15 @@ def _all_reduce_plain(flat, op, group):
 
 def make_mesh(n_devices=None, axis="data", device="cuda"):
     """1-D mesh of ``n_devices`` shards placed round-robin on the visible
-    devices of ``device``'s type (one shard a device when None). On the CPU,
-    or on a machine with one card, n shards share that one device, as the
-    JAX package's tests share one CPU between 8 forced host devices; on
-    several peer cards the engines run it as a graph a card
-    (``Mesh.captures_on``). Raises without a card unless ``device`` says
-    otherwise."""
-    dev = require(device)
-    if dev.index is not None:
+    devices of ``device``'s type (one shard a device when None), or on the
+    devices of a list or tuple ``device``. On the CPU, or on a machine with
+    one card, n shards share that one device, as the JAX package's tests
+    share one CPU between 8 forced host devices; on several peer cards the
+    engines run it as a graph a card (``Mesh.captures_on``). Raises without
+    a card unless ``device`` says otherwise."""
+    if isinstance(device, (list, tuple)):
+        visible = [require(d) for d in device]
+    elif (dev := require(device)).index is not None:
         visible = [dev]
     elif dev.type == "cuda":
         visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

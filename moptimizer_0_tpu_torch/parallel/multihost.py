@@ -1,13 +1,15 @@
 """Multi-process initialization and global-array helpers.
 
 PyTorch counterpart of ``moptimizer_0_tpu.parallel.multihost``, on
-torch.distributed with the gloo backend (NCCL refuses two processes on one
-card), which makes the group, exchanges the handles and carries the
-gathers. A mesh's all-reduces take the transport ``choose_transport``
-picks from where the processes run (``parallel.mesh``): processes of one
-host whose cards are one or peers reduce on the device
-(``kernels/mesh_reduce.py``, through CUDA IPC buffers), any other mesh
-over gloo. Every process runs the same program:
+torch.distributed with the gloo backend, which makes the group, exchanges
+the handles and carries the gathers (the default group stays gloo: NCCL
+refuses two processes on one card). A mesh's all-reduces take the
+transport ``choose_transport`` picks from where the processes run
+(``parallel.mesh``): processes of one host whose cards are one or peers
+reduce on the device (``kernels/mesh_reduce.py``, through CUDA IPC
+buffers), other processes on CUDA that share no card over NCCL
+(``kernels/nccl_transport.py``, still on the device), any other mesh over
+gloo. Every process runs the same program:
 
     from moptimizer_0_tpu_torch.parallel import multihost
     multihost.initialize(coordinator_address="host:port", num_processes=N,
@@ -22,10 +24,11 @@ every process, tears a device transport down before the group goes.
 
 One process over several cards needs none of this: ``make_mesh(n)`` puts
 its shards on every visible card and reduces them on the cards (one graph
-a card, ``mesh.CardMesh``). Processes that each hold several cards reduce
-across processes from their first shard's card and run the eager loop: a
-process's graph would have to span its cards and the other processes at
-once, which no transport here does.
+a card, ``mesh.CardMesh``). Processes that each hold several cards (as
+many each; ``global_mesh(device=[...])`` names them where a process sees
+more) capture a graph a card too: card c sums its process's shards with
+the process's other cards, then combines that sum with card c of every
+other process (an IPC buffer or an NCCL communicator a card index).
 """
 
 import dataclasses
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from moptimizer_0_tpu_torch.kernels import mesh_reduce
+from moptimizer_0_tpu_torch.kernels import mesh_reduce, nccl_transport
 from moptimizer_0_tpu_torch.parallel.mesh import GlobalArray, Mesh, make_mesh, tree_map
 
 BACKEND = "gloo"
@@ -82,65 +85,82 @@ def _rank_and_size():
     return 0, 1
 
 
-def placement(device):
-    """Where this process reduces: (host name, card, cards it has peer
-    access to), a card by its UUID, or "cpu" for a CPU device."""
-    device = torch.device(device)
+def placement(devices):
+    """Where this process reduces: (host name, ((card, peers), ...)) for
+    each of its cards (a device or a sequence of them), a card by its UUID
+    and its peers the UUIDs of the visible cards it has peer access to; a
+    CPU device is ("cpu", frozenset())."""
+    devices = [torch.device(d) for d in (devices if isinstance(devices, (list, tuple)) else (devices,))]
     host = socket.gethostname()
-    if device.type != "cuda":
-        return host, device.type, frozenset()
-    index = device.index if device.index is not None else torch.cuda.current_device()
 
     def uuid(i):
         return str(torch.cuda.get_device_properties(i).uuid)
 
-    peers = frozenset(uuid(j) for j in range(torch.cuda.device_count())
-                      if j != index and torch.cuda.can_device_access_peer(index, j))
-    return host, uuid(index), peers
+    def card(device):
+        if device.type != "cuda":
+            return device.type, frozenset()
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        peers = frozenset(uuid(j) for j in range(torch.cuda.device_count())
+                          if j != index and torch.cuda.can_device_access_peer(index, j))
+        return uuid(index), peers
+
+    return host, tuple(card(d) for d in devices)
 
 
 def choose_transport(places):
     """A mesh's transport from every process's ``placement``: "local" for
     one process; "device" when every process is on one host, there are at
-    most ``mesh_reduce.MAX_MEMBERS`` of them, and every pair shares a card
-    or has peer access both ways; "gloo" otherwise."""
+    most ``mesh_reduce.MAX_MEMBERS`` of them, and every two cards of two
+    processes are one card or have peer access both ways; "nccl" when every
+    card is a CUDA card and no two processes share one (NCCL refuses a
+    shared card), a card known by its host and UUID; "gloo" otherwise."""
     if len(places) == 1:
         return "local"
-    if len({host for host, _, _ in places}) > 1 or len(places) > mesh_reduce.MAX_MEMBERS:
-        return "gloo"
-    for (_, a, peers_a), (_, b, peers_b) in itertools.combinations(places, 2):
-        if a != b and not (b in peers_a and a in peers_b):
-            return "gloo"
-    return "device"
+
+    def joined(a, b):
+        (card_a, peers_a), (card_b, peers_b) = a, b
+        return card_a == card_b or (card_b in peers_a and card_a in peers_b)
+
+    one_host = len({host for host, _ in places}) == 1
+    if one_host and len(places) <= mesh_reduce.MAX_MEMBERS and all(
+            joined(a, b) for (_, cards_i), (_, cards_j) in itertools.combinations(places, 2)
+            for a in cards_i for b in cards_j):
+        return "device"
+    held = [{(host, card) for card, _ in cards} for host, cards in places]
+    on_cuda = all(card != "cpu" for _, cards in places for card, _ in cards)
+    return "nccl" if on_cuda and sum(map(len, held)) == len(set().union(*held)) else "gloo"
 
 
 def global_mesh(axis="data", shards_per_process=None, device="cuda"):
     """A mesh over every process's shards: this process's
-    ``make_mesh(shards_per_process, axis, device)``, the default group
-    (every process must have as many shards) and the transport
+    ``make_mesh(shards_per_process, axis, device)`` (``device`` a list of
+    devices names this process's cards), the default group (every process
+    must have as many shards and as many cards) and the transport
     ``choose_transport`` picks from the processes' placements of their
-    first shard, where a process's sums over its shards land and its
-    all-reduce runs; a "device" mesh on CUDA gets its IPC buffers there
-    (collectively). A process whose shards lie on several cards gets the
-    same transport for that all-reduce and the eager loop
-    (``Mesh.captures_on``). Without a group, that local mesh, which
+    cards. A "device" or "nccl" mesh on CUDA gets its link, a transport a
+    card index (process r's card c joined with card c of every other
+    process), made here collectively and outside any capture; NCCL missing
+    from a CUDA build raises here. Without a group, that local mesh, which
     captures a graph a card when it spans several peer cards."""
     local = make_mesh(shards_per_process, axis, device)
     rank, size = _rank_and_size()
     if size == 1:
         return local
     counts = [None] * size
-    dist.all_gather_object(counts, local.n_local)
+    dist.all_gather_object(counts, (local.n_local, len(local.cards)))
     if len(set(counts)) != 1:
-        raise ValueError(f"global_mesh: processes have different shard counts {counts}")
+        raise ValueError(f"global_mesh: processes have different (shard, card) counts {counts}")
     places = [None] * size
-    dist.all_gather_object(places, placement(local.devices[0]))
+    dist.all_gather_object(places, placement(local.cards))
     transport = choose_transport(places)
     group = dist.group.WORLD
-    ipc = None
+    link = None
     if transport == "device" and local.devices[0].type == "cuda":
-        ipc = mesh_reduce.IpcBuffers(group, rank, size, local.devices[0])
-    return dataclasses.replace(local, group=group, n_processes=size, process_index=rank, transport=transport, ipc=ipc)
+        link = mesh_reduce.IpcLinks(group, rank, size, local.cards)
+    elif transport == "nccl":
+        link = nccl_transport.NcclTransport(group, rank, size, local.cards)
+    return dataclasses.replace(local, group=group, n_processes=size, process_index=rank, transport=transport,
+                               link=link)
 
 
 def host_local_shard(array, axis=0):

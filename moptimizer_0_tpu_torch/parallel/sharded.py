@@ -16,10 +16,10 @@ then across processes.
   reduced over the mesh. Every process of a mesh that spans processes gets
   the same reduced bytes, so the solver's control flow is the same on all
   of them. On CUDA, with a mesh that captures on x's device
-  (``Mesh.captures_on``: one process, or processes of one host reducing on
-  the device), the solve is the unsharded one's CUDA graph in every
+  (``Mesh.captures_on``: one process, or processes reducing on the device,
+  through CUDA IPC buffers or NCCL), the solve is the unsharded one's CUDA graph in every
   process: one replay an outer iteration, the shards' data in its carry
-  (``core.solver``). Over one process's several peer cards it is one graph
+  (``core.solver``). Over a process's several peer cards it is one graph
   a card, each running its own shards (``ShardedProblem.on``).
 """
 
@@ -119,14 +119,13 @@ def distributed_levenberg_marquardt(problem, x0, mesh, config=LMConfig(), manifo
     without data counts once, on the mesh's first shard. The damped solve of
     the small (P, P) system runs on every process, on reduced inputs. On
     CUDA, with every local shard on x's device and the sums device work
-    (``Mesh.captures_on``: one process, or processes of one host reducing
-    through ``kernels/mesh_reduce.py``), the solve runs as
+    (``Mesh.captures_on``: one process, or processes reducing through
+    ``kernels/mesh_reduce.py`` or ``kernels/nccl_transport.py``), the solve runs as
     ``levenberg_marquardt`` does: one replay an outer iteration of a graph
     captured once per layout (the mesh and every shard's block structure in
     its key), each update hook (a shard's correspondence search) inside it,
-    no host read in the loop; over one process's several peer cards, one
-    graph a card, each over its own shards. A gloo mesh (processes on
-    several hosts) or cards without peer access both ways run the LM
+    no host read in the loop; over a process's several peer cards, one
+    graph a card, each over its own shards. A gloo mesh or cards without peer access both ways run the LM
     step's eager body, one read a trial."""
     if not isinstance(problem, Problem):
         problem = Problem(blocks=(problem,))

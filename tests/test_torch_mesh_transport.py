@@ -2,9 +2,10 @@
 predicate, and the device transport's plain version in two CPU processes.
 
 ``multihost.choose_transport`` decides from every process's placement
-(host, card, peer cards) whether a mesh reduces on the device ("device":
-``kernels/mesh_reduce.py`` on CUDA, ``mesh._all_reduce_plain`` on the CPU),
-over gloo, or locally; ``Mesh.captures_on`` admits a sharded step to the
+(host, and each card with its peer cards) whether a mesh reduces on the
+device ("device": ``kernels/mesh_reduce.py`` on CUDA; "nccl":
+``kernels/nccl_transport.py`` on CUDA; both ``mesh._all_reduce_plain`` on
+the CPU), over gloo, or locally; ``Mesh.captures_on`` admits a sharded step to the
 engines' CUDA graphs. Both are driven here on fake placements and meshes
 of ``torch.device("cuda", i)`` objects, which need no card.
 
@@ -39,20 +40,47 @@ TIMEOUT_S = 120
 GROUP_TIMEOUT_S = 60
 CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
 
+
+def _on(host, *cards):
+    """A process's placement: its host and (card, peers) for each card."""
+    return host, tuple((card, frozenset(peers)) for card, *peers in cards)
+
+
+# four peer cards of one host, each a peer of the others
+PEERS = {c: [d for d in "abcd" if d != c] for c in "abcd"}
+
+
+def _peer(c):
+    return (f"GPU-{c}", *(f"GPU-{d}" for d in PEERS[c]))
+
+
 # (case, every process's placement, the transport)
 PLACEMENTS = [
-    ("one process", [("h", "GPU-a", frozenset())], "local"),
-    ("one host, one card", [("h", "GPU-a", frozenset())] * 2, "device"),
-    ("one host, peer cards", [("h", "GPU-a", frozenset({"GPU-b"})), ("h", "GPU-b", frozenset({"GPU-a"}))], "device"),
+    ("one process", [_on("h", ("GPU-a",))], "local"),
+    ("one host, one card", [_on("h", ("GPU-a",))] * 2, "device"),
+    ("one host, peer cards", [_on("h", ("GPU-a", "GPU-b")), _on("h", ("GPU-b", "GPU-a"))], "device"),
     ("one host, four processes on two peer cards",
-     [("h", "GPU-a", frozenset({"GPU-b"}))] * 2 + [("h", "GPU-b", frozenset({"GPU-a"}))] * 2, "device"),
-    ("one host, no peer access", [("h", "GPU-a", frozenset()), ("h", "GPU-b", frozenset())], "gloo"),
-    ("one host, peer access one way", [("h", "GPU-a", frozenset({"GPU-b"})), ("h", "GPU-b", frozenset())], "gloo"),
-    ("two hosts", [("h1", "GPU-a", frozenset()), ("h2", "GPU-a", frozenset())], "gloo"),
-    ("one host, the CPU", [("h", "cpu", frozenset())] * 2, "device"),
-    ("one host, the CPU and a card", [("h", "cpu", frozenset()), ("h", "GPU-a", frozenset())], "gloo"),
-    ("one host, one card, too many processes", [("h", "GPU-a", frozenset())] * (mesh_reduce.MAX_MEMBERS + 1),
+     [_on("h", ("GPU-a", "GPU-b"))] * 2 + [_on("h", ("GPU-b", "GPU-a"))] * 2, "device"),
+    ("one host, no peer access", [_on("h", ("GPU-a",)), _on("h", ("GPU-b",))], "nccl"),
+    ("one host, peer access one way", [_on("h", ("GPU-a", "GPU-b")), _on("h", ("GPU-b",))], "nccl"),
+    ("two hosts", [_on("h1", ("GPU-a",)), _on("h2", ("GPU-a",))], "nccl"),
+    ("one host, the CPU", [_on("h", ("cpu",))] * 2, "device"),
+    ("one host, the CPU and a card", [_on("h", ("cpu",)), _on("h", ("GPU-a",))], "gloo"),
+    ("one host, one card, too many processes", [_on("h", ("GPU-a",))] * (mesh_reduce.MAX_MEMBERS + 1),
      "gloo"),
+    ("each process sees only its card", [_on("h", ("GPU-a",)), _on("h", ("GPU-b",))], "nccl"),
+    ("processes x cards, every card a peer", [_on("h", _peer("a"), _peer("b")), _on("h", _peer("c"), _peer("d"))],
+     "device"),
+    ("processes x cards, each sees only its own",
+     [_on("h", ("GPU-a", "GPU-b"), ("GPU-b", "GPU-a")), _on("h", ("GPU-c", "GPU-d"), ("GPU-d", "GPU-c"))], "nccl"),
+    ("processes x cards on two hosts", [_on("h1", _peer("a"), _peer("b")), _on("h2", _peer("a"), _peer("b"))],
+     "nccl"),
+    ("two processes share a card on two hosts", [_on("h1", ("GPU-a",))] * 2 + [_on("h2", ("GPU-b",))], "gloo"),
+    ("processes x cards sharing a card", [_on("h", ("GPU-a",), ("GPU-b",)), _on("h", ("GPU-b",), ("GPU-c",))],
+     "gloo"),
+    ("two hosts, the CPU", [_on("h1", ("cpu",)), _on("h2", ("cpu",))], "gloo"),
+    ("two hosts, nine processes", [_on(f"h{r % 2}", (f"GPU-{r}",)) for r in range(mesh_reduce.MAX_MEMBERS + 1)],
+     "nccl"),
 ]
 
 
@@ -62,17 +90,27 @@ def test_choose_transport(places, transport):
 
 
 def test_placement_of_the_cpu():
-    assert multihost.placement("cpu") == (socket.gethostname(), "cpu", frozenset())
+    assert multihost.placement("cpu") == (socket.gethostname(), (("cpu", frozenset()),))
+
+
+class _NoIfBodies:
+    """An NCCL link whose all-gather cannot be recorded in IF bodies (NCCL's
+    graph mixing left on)."""
+
+    in_if_bodies = False
 
 
 def test_captures_on():
-    """A sharded step is a graph only with every local shard on the device
-    and a "local" or "device" transport."""
+    """A sharded step is one graph only with every local shard on the device
+    and a "local", "device" or "nccl" transport."""
     group = object()
     assert make_mesh(2, device="cpu").captures_on("cpu")
-    device = Mesh(devices=(CUDA0, CUDA0), group=group, n_processes=2, transport="device")
-    assert device.captures_on(CUDA0) and not device.captures_on(CUDA1)
+    for transport in ("device", "nccl"):
+        mesh = Mesh(devices=(CUDA0, CUDA0), group=group, n_processes=2, transport=transport)
+        assert mesh.captures_on(CUDA0) and not mesh.captures_on(CUDA1) and not mesh.per_card(CUDA0)
     assert not Mesh(devices=(CUDA0, CUDA0), group=group, n_processes=2, transport="gloo").captures_on(CUDA0)
+    eager_nccl = Mesh(devices=(CUDA0,), group=group, n_processes=2, transport="nccl", link=_NoIfBodies())
+    assert not eager_nccl.captures_on(CUDA0)  # its all-gather cannot sit in IF nodes: the eager body
     across = Mesh(devices=(CUDA0, CUDA1), group=group, n_processes=2, transport="device")
     assert not across.captures_on(CUDA0) and not across.captures_on(CUDA1)
     assert Mesh(devices=(CUDA1,) * 3).captures_on(CUDA1)
@@ -85,14 +123,15 @@ def test_mesh_transport_defaults_and_refusals():
     cpu, group = torch.device("cpu"), object()
     assert Mesh(devices=(cpu,)).transport == "local"
     assert Mesh(devices=(cpu,), group=group, n_processes=2).transport == "gloo"
-    for kw in (dict(transport="device"), dict(group=group, n_processes=2, transport="local"),
-               dict(group=group, n_processes=2, transport="nccl")):
+    for kw in (dict(transport="device"), dict(transport="nccl"), dict(group=group, n_processes=2, transport="local"),
+               dict(group=group, n_processes=2, transport="ring")):
         with pytest.raises(ValueError):
             Mesh(devices=(cpu,), **kw)
-    a = Mesh(devices=(CUDA0,), group=group, n_processes=2, transport="device", ipc=object())
-    b = Mesh(devices=(CUDA0,), group=group, n_processes=2, transport="device", ipc=object())
+    a = Mesh(devices=(CUDA0,), group=group, n_processes=2, transport="device", link=object())
+    b = Mesh(devices=(CUDA0,), group=group, n_processes=2, transport="device", link=object())
     gloo = Mesh(devices=(CUDA0,), group=group, n_processes=2)
-    assert len({a.layout(), b.layout(), gloo.layout()}) == 3
+    nccl = Mesh(devices=(CUDA0,), group=group, n_processes=2, transport="nccl", link=a.link)
+    assert len({a.layout(), b.layout(), gloo.layout(), nccl.layout()}) == 4
     Mesh(devices=(cpu,), group=group, n_processes=2, transport="device").check()  # no buffers: nothing to read
 
 
@@ -151,7 +190,7 @@ def _worker_main(rank, port):
     multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
                          initialization_timeout=GROUP_TIMEOUT_S)
     mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
-    assert mesh.transport == "device" and mesh.ipc is None and mesh.captures_on("cpu")
+    assert mesh.transport == "device" and mesh.link is None and mesh.captures_on("cpu")
 
     def report(case, ok, payload):
         digest = hashlib.sha256(payload.encode()).hexdigest()[:16]

@@ -83,12 +83,92 @@ def test_the_order_shows_in_the_bits():
         assert not torch.equal(card_major, make_mesh(4, device="cpu").psum(parts))
 
 
+GROUPED = [(2, 2, 1), (2, 2, 2), (2, 4, 2), (4, 2, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("p,n,k", GROUPED, ids=[f"{p}procs-{n}shards-{k}cards" for p, n, k in GROUPED])
+def test_grouped_slot_order_equals_psum(p, n, k, op, dtype):
+    """Processes × cards: ``reduce_slots_plain`` over p processes of n
+    shards each, round-robin on k cards a process, is bit for bit
+    ``Mesh.psum``'s order: each process's shards in shard order (its local
+    psum), then the processes' sums in rank order (``_all_reduce_plain``)."""
+    parts = _parts(p * n, dtype, seed=1000 * p + 10 * n + k)
+    local = _round_robin(n, k)
+    groups = [(tuple(r * n + j for j in js), [parts[r * n + j] for j in js])
+              for r in range(p) for _, js in local.card_groups()]
+    outs = mesh_reduce.reduce_slots_plain(groups, op, n_processes=p)
+    cpu = make_mesh(n, device="cpu")
+    sums = [(cpu.psum if op == "sum" else cpu.pmax)(parts[r * n:(r + 1) * n]) for r in range(p)]
+    want = sums[0]
+    for s_r in sums[1:]:
+        want = mesh_module.COMBINE[op](want, s_r)
+    assert len(outs) == p * k
+    for out in outs:
+        assert torch.equal(out.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_grouped_and_flat_orders_differ_in_the_bits():
+    """Over 2 processes × 2 shards, (s0 + s1) + (s2 + s3), the grouped
+    order, is not ((s0 + s1) + s2) + s3, the flat one: the grouped plain
+    version is not the one-process card transport's order."""
+    for dtype in (torch.float32, torch.float64):
+        parts = _parts(4, dtype, seed=11)
+        groups = [((j,), [parts[j]]) for j in range(4)]
+        grouped = mesh_reduce.reduce_slots_plain(groups, "sum", n_processes=2)[0]
+        flat = mesh_reduce.reduce_slots_plain(groups, "sum")[0]
+        assert torch.equal(grouped, (parts[0] + parts[1]) + (parts[2] + parts[3]))
+        assert not torch.equal(grouped, flat)
+
+
+class _SlotsTransport:
+    """A card transport's stand-in on the CPU: the card's own shards in
+    shard order (the process's sum, where the card holds them all)."""
+
+    def reduce(self, flats, shards, card, op):
+        acc = flats[0]
+        for f in flats[1:]:
+            acc = mesh_module.COMBINE[op](acc, f)
+        return acc
+
+
+def test_card_mesh_across_processes_sends_what_the_eager_body_sends(monkeypatch):
+    """A card's view of a mesh across processes sums its process's shards
+    through the card transport, then hands the sums to the eager body's
+    all-reduce (``mesh._all_reduce``, here its plain version: the same
+    packing, one flat a dtype, and the same views back), so the step sees
+    the eager body's layouts; without a group there is no second stage."""
+    sent = []
+
+    def plain(flat, op, group):
+        sent.append((flat.dtype, flat.numel(), op))
+        return flat + 1
+
+    monkeypatch.setattr(mesh_module, "_all_reduce_plain", plain)
+    cpu = torch.device("cpu")
+    mesh = Mesh(devices=(cpu, cpu), group=object(), n_processes=2, transport="nccl")
+    view = mesh_module.CardMesh(mesh=mesh, card=1, shards=(0, 1), device=cpu, transport=_SlotsTransport())
+    parts = [(torch.full((2, 3), 1.0), torch.full((3, 2), 3.0).T, torch.full((4,), 2.0, dtype=torch.float64))
+             for _ in range(2)]
+    a, t, b = view.psum(parts)
+    assert sent == [(torch.float32, 6, "sum"), (torch.float32, 6, "sum"), (torch.float64, 4, "sum")]
+    eager = mesh.psum(parts)
+    for got, want in zip((a, t, b), eager):
+        assert torch.equal(got, want) and got.stride() == want.stride()
+    alone = mesh_module.CardMesh(mesh=Mesh(devices=(cpu, cpu)), card=0, shards=(0, 1), device=cpu,
+                                 transport=_SlotsTransport())
+    assert torch.equal(alone.psum([torch.ones(3), torch.ones(3)]), torch.full((3,), 2.0))
+
+
 def test_reduce_slots_plain_refuses_bad_groups():
     a = torch.ones(3)
     with pytest.raises(ValueError, match="two cards"):
         mesh_reduce.reduce_slots_plain([((0, 1), [a, a]), ((1,), [a])], "sum")
     with pytest.raises(ValueError, match="not 0"):
         mesh_reduce.reduce_slots_plain([((0,), [a]), ((2,), [a])], "sum")
+    with pytest.raises(ValueError, match="over 2 processes"):
+        mesh_reduce.reduce_slots_plain([((0, 1, 2), [a, a, a])], "sum", n_processes=2)
 
 
 @pytest.mark.parametrize("n,k", LAYOUTS, ids=[f"{n}shards-{k}cards" for n, k in LAYOUTS])
@@ -153,15 +233,23 @@ def test_captures_on_without_cuda(monkeypatch):
 
 
 def test_captures_on_processes_over_several_cards(monkeypatch):
-    """Processes that each hold several cards run the eager loop, whatever
-    their transport; so does a mesh of the CPU and a card."""
+    """Processes that each hold several peer cards capture a graph a card
+    on a "device" or "nccl" mesh, for a solve on the first shard's card; a
+    "gloo" mesh runs the eager loop, as do cards of the process without
+    peer access both ways and a mesh of the CPU and a card."""
     _peers(monkeypatch)
     group = object()
-    for transport in ("device", "gloo"):
-        mesh = Mesh(devices=(CUDA[0], CUDA[1]), group=group, n_processes=2, transport=transport)
-        assert not mesh.captures_on(CUDA[0]) and not mesh.per_card(CUDA[0])
+    for transport in ("device", "nccl"):
+        mesh = Mesh(devices=(CUDA[0], CUDA[1]) * 2, group=group, n_processes=2, transport=transport)
+        assert mesh.captures_on(CUDA[0]) and mesh.per_card(CUDA[0])
+        assert not mesh.captures_on(CUDA[1]) and not mesh.per_card(CUDA[1])
+    gloo = Mesh(devices=(CUDA[0], CUDA[1]), group=group, n_processes=2, transport="gloo")
+    assert not gloo.captures_on(CUDA[0]) and not gloo.per_card(CUDA[0])
     mixed = Mesh(devices=(torch.device("cpu"), CUDA[0]))
     assert not mixed.captures_on(torch.device("cpu")) and not mixed.captures_on(CUDA[0])
+    _peers(monkeypatch, refuse=((1, 0),))
+    nccl = Mesh(devices=(CUDA[0], CUDA[1]), group=group, n_processes=2, transport="nccl")
+    assert not nccl.captures_on(CUDA[0]) and not nccl.per_card(CUDA[0])
 
 
 def test_card_transport_refusals():

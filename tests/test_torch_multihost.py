@@ -50,12 +50,7 @@ SELFCAL_WRONG = [8.0, -6.0, 3.0, -2.0]  # tests/test_ba_intrinsics.py's perturba
 
 
 def _curve_worker(rank, port, _):
-    import torch
-
-    from moptimizer_0_tpu_torch.core.residual import make_block, problem
-    from moptimizer_0_tpu_torch.core.solver import LMConfig, levenberg_marquardt
-    from moptimizer_0_tpu_torch.models.curve_fitting import CERES_CURVE_DATA
-    from moptimizer_0_tpu_torch.parallel import distributed_levenberg_marquardt, multihost
+    from moptimizer_0_tpu_torch.parallel import multihost
 
     assert not multihost.is_initialized()
     multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank,
@@ -64,6 +59,31 @@ def _curve_worker(rank, port, _):
     mesh = multihost.global_mesh(shards_per_process=2, device="cpu")
     assert mesh.transport == "device"  # one host: the plain transport for CPU tensors
     assert mesh.shape["data"] == 4 and mesh.n_processes == 2 and mesh.process_index == rank
+    return _curve_fit(mesh)
+
+
+def _curve_nccl_worker(rank, port, _):
+    """The curve fit on a mesh whose transport is "nccl", the transport of
+    processes the device transport cannot join: its CPU tensors reduce
+    through the same plain version, so its bits are the "device" mesh's."""
+    import dataclasses
+
+    from moptimizer_0_tpu_torch.parallel import multihost
+
+    mesh = dataclasses.replace(multihost.global_mesh(shards_per_process=2, device="cpu"), transport="nccl")
+    assert mesh.link is None and mesh.captures_on("cpu")
+    return _curve_fit(mesh)
+
+
+def _curve_fit(mesh):
+    """The 64-row curve fit over ``mesh``, each process its 32 rows, held to
+    the port's single-device fit: "x0 x1 status iterations"."""
+    import torch
+
+    from moptimizer_0_tpu_torch.core.residual import make_block, problem
+    from moptimizer_0_tpu_torch.core.solver import LMConfig, levenberg_marquardt
+    from moptimizer_0_tpu_torch.models.curve_fitting import CERES_CURVE_DATA
+    from moptimizer_0_tpu_torch.parallel import distributed_levenberg_marquardt, multihost
 
     def residual(x, d):
         return torch.stack([d[1] - torch.exp(x[0] * d[0] + x[1])])
@@ -181,7 +201,7 @@ def _selfcal_worker(rank, port, path):
     return f"{float(res.cost)!r} {intr.numpy().tobytes().hex()} {cams.tobytes().hex()} {int(res.iterations)}"
 
 
-WORKERS = {"curve": _curve_worker, "ba": _ba_worker, "cg": _cg_worker, "selfcal": _selfcal_worker}
+WORKERS = {"curve": _curve_worker, "curve_nccl": _curve_nccl_worker, "ba": _ba_worker, "cg": _cg_worker, "selfcal": _selfcal_worker}
 
 
 def _worker_main(rank, port, path):
@@ -253,13 +273,24 @@ def pair(tmp_path_factory):
 
 
 def test_two_process_distributed_lm(pair):
+    _hold_curve(pair[1]["curve"])
+
+
+def test_two_process_distributed_lm_nccl_mesh(pair):
+    """The same processes' curve fit over an "nccl" mesh (its CPU tensors
+    through the plain transport, as the "device" mesh's): JAX's fit, and the
+    "device" mesh's bits."""
+    _hold_curve(pair[1]["curve_nccl"])
+    assert pair[1]["curve_nccl"][0] == pair[1]["curve"][0]
+
+
+def _hold_curve(results):
     import jax.numpy as jnp
 
     from moptimizer_0_tpu import LMConfig, levenberg_marquardt
     from moptimizer_0_tpu.core.residual import make_block, problem
     from moptimizer_0_tpu.models.curve_fitting import CERES_CURVE_DATA
 
-    results = pair[1]["curve"]
     assert results[0] == results[1]  # bit-equal
     m, c, status, iterations = results[0].split()
     data = jnp.asarray(np.asarray(CERES_CURVE_DATA)[:64], jnp.float64)
