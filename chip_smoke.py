@@ -223,6 +223,19 @@ prints no result):
     plain version bit for bit, its µs, and a card that never arrives
     raising through ``Mesh.check``. ``python3 chip_smoke.py --phase 23``
     runs the build and this phase alone.
+25. (run last, in a process of its own: one profiler session a process)
+    the port's tracing (``utils/tracing.py``): one small CG BA solve and
+    request A's ICP, each captured first, profiled together in one
+    ``torch.profiler`` session: the ``pcg_iteration`` markers on the device
+    equal Σ ``trace["pcg_iterations"]``, ``step_begin`` and ``step_end``
+    the outer iterations the two solves ran, ``ba_pcg_begin``/``_end`` the
+    trials and ``ba_linearize_begin``/``_end`` the BA's iterations; each
+    result bit-equal to its eager body's, no host read in the graph solves;
+    the spans nested as placed, the median offset of a span's start and
+    end from its range's event in the profiler's record within 20 µs, and
+    no range of the program copied onto the device's timeline.
+    ``python3 chip_smoke.py --phase 25`` runs the build and this phase
+    alone.
 
 Every LM, BA and PGO solve runs its step graph (outside phases 15's and
 19–22's eager runs and 15's gloo solve), the registrar's coarse multistart
@@ -323,6 +336,7 @@ from moptimizer_0_tpu_torch.registration import (
     point2plane,
 )
 from moptimizer_0_tpu_torch.registration import gicp as gicp_solve
+from moptimizer_0_tpu_torch.utils import tracing
 from moptimizer_0_tpu_torch.utils.pointcloud import load_txt_cloud
 
 # a fault in native code (a kernel's binding, the profiler) prints the
@@ -1157,13 +1171,13 @@ def _chi2_floor(O, C, L, extra=0):
 
 
 def _same_bits(a, b):
-    """The same trials, cost trace (a result with an empty trace, as the
-    self-calibration's, has none), status, iterations, cameras, points and
-    final cost, bit for bit."""
+    """The same trace (trials, the CG engine's PCG iterations, costs; a
+    result with an empty trace, as the self-calibration's, has none),
+    status, iterations, cameras, points and final cost, bit for bit."""
     return (
         a.trace.keys() == b.trace.keys()
-        and all(torch.equal(_bits(a.trace[k]), _bits(b.trace[k])) for k in a.trace if k != "trials")
-        and all(torch.equal(a.trace[k], b.trace[k]) for k in a.trace if k == "trials")
+        and all(torch.equal(_bits(a.trace[k]), _bits(b.trace[k])) for k in a.trace if a.trace[k].is_floating_point())
+        and all(torch.equal(a.trace[k], b.trace[k]) for k in a.trace if not a.trace[k].is_floating_point())
         and torch.equal(a.status, b.status)
         and torch.equal(a.iterations, b.iterations)
         and torch.equal(_bits(a.camera_params), _bits(b.camera_params))
@@ -4466,6 +4480,8 @@ def main():
     multiprocess = run_multiprocess(dev, cloud, ba_prob, refs)
     del ba_prob, refs
     stamp(24)
+    traced = _phase_process(25)
+    stamp(25)
 
     def entry(name, source, replaces, n_launches, err, t, bound, **extra):
         return dict(
@@ -4522,6 +4538,7 @@ def main():
                       "pgo_device_loop": pgo_loop, "sharded_device_loop": sharded_loop}))
     print(json.dumps({"multicard": multicard}))
     print(json.dumps({"multiprocess": multiprocess}))
+    print(json.dumps(traced))
     print(json.dumps({"kernels": kernels}))
     _print_ok()
 
@@ -4576,6 +4593,131 @@ def _multicard_launches(multicard, path):
     return {m: rows[path]["kernel_replayed"] for m, rows in multicard["meshes"].items()}
 
 
+# Phase 25: the small CG solve (O, C, L) it profiles with request A.
+TRACE_BA = (60_000, 60, 6_000)
+# A span's start and end against its range's event (the median, ns).
+TRACE_SPAN_OFFSET_NS = 20_000
+
+
+def _marker_count(cuda_events, name):
+    full = "moptimizer_mark_" + name
+    return sum(e.name() == full or e.name().startswith(full + "(") for e in cuda_events)
+
+
+def _span_offsets(events, spans):
+    """|start − start| and |end − end| of each span against the profiler's
+    event of its range (the events of a name in time order), and the spans
+    without an event."""
+    ranges = {}
+    for e in sorted(events, key=lambda e: e.start_ns()):
+        if e.device_type() == torch.autograd.DeviceType.CPU and e.name().startswith(tracing.PREFIX):
+            ranges.setdefault(e.name()[len(tracing.PREFIX):], []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    offsets, unmatched = [], 0
+    for name in {s.name for s in spans}:
+        mine = sorted((s for s in spans if s.name == name), key=lambda s: s.start_ns)
+        theirs = ranges.get(name, [])
+        unmatched += abs(len(mine) - len(theirs))
+        for s, (a, b) in zip(mine, theirs):
+            offsets += [abs(s.start_ns - a), abs(s.end_ns - b)]
+    return offsets, unmatched
+
+
+def run_tracing(dev, cloud):
+    """Phase 25 (module docstring): returns its readings."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    prob = ba.make_ba_problem(*TRACE_BA, seed=SEED, dtype=torch.float32, device=dev)
+    tgt = _transformed(cloud, X_A, np.random.default_rng(SEED + 1))
+
+    def solve_both():
+        return ba.solve_ba(prob), icp(cloud, tgt)
+
+    solve_both()  # captures both layouts
+    torch.cuda.synchronize()
+    reads = ba.HOST_READS, solver.HOST_READS
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ba_res, icp_res = solve_both()
+        with record_function("phase25.probe"):  # does a user range reach the device's timeline?
+            torch.ones(1024, device=dev).sum()
+        torch.cuda.synchronize()
+    reads = ba.HOST_READS - reads[0], solver.HOST_READS - reads[1]
+    spans = tracing.spans()
+    with device_loop.eager():
+        ba_eager, icp_eager = solve_both()
+    torch.cuda.synchronize()
+
+    events = list(prof.profiler.kineto_results.events())
+    cuda = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    counts = {name: _marker_count(cuda, name) for name in graph_cond.MARKS}
+    ba_steps = int(torch.isfinite(ba_res.trace["cost"]).sum())
+    steps = ba_steps + int(torch.isfinite(icp_res.trace["cost"]).sum())
+    trials = int(ba_res.trace["trials"].sum())
+    want = dict(step_begin=steps, step_end=steps, ba_linearize_begin=ba_steps, ba_linearize_end=ba_steps,
+                ba_pcg_begin=trials, ba_pcg_end=trials, pcg_iteration=int(ba_res.trace["pcg_iterations"].sum()))
+    offsets, unmatched = _span_offsets(events, spans)
+    names = sorted({s.name for s in spans})
+    roots = sorted(s.name for s in spans if s.parent is None)
+    by_id = {s.id: s for s in spans}
+    nested = all(s.parent is None or (s.parent in by_id and by_id[s.parent].start_ns <= s.start_ns
+                                      and s.end_ns <= by_id[s.parent].end_ns) for s in spans)
+    on_device = sorted({e.name() for e in cuda if e.name().startswith(tracing.PREFIX)})
+    marker_us = [e.duration_ns() / 1e3 for e in cuda if e.name().startswith("moptimizer_mark_")]
+    out = dict(
+        markers=counts, want=want, host_reads=reads, ba_iterations=int(ba_res.iterations), ba_trials=trials,
+        pcg_iterations=ba_res.trace["pcg_iterations"].tolist(), span_names=names, span_roots=roots,
+        spans=len(spans), span_offset_ns=dict(median=float(np.median(offsets)) if offsets else None,
+                                              max=max(offsets, default=None)),
+        unmatched_spans=unmatched, program_ranges_on_device=on_device,
+        user_range_on_device=any(e.name() == "phase25.probe" for e in cuda),
+        marker_us=dict(n=len(marker_us), mean=float(np.mean(marker_us)) if marker_us else None,
+                       max=max(marker_us, default=None)),
+        ba_bit_equal=_same_bits(ba_res, ba_eager), icp_bit_equal=_same_result(icp_res, icp_eager),
+    )
+    print(f"phase 25: markers {counts} (want {want}); host reads (BA, LM) {reads}; spans {len(spans)} "
+          f"{names}, roots {roots}, nested {nested}, offsets {out['span_offset_ns']} ns, unmatched {unmatched}; "
+          f"program ranges on the device {on_device}, a user range on the device {out['user_range_on_device']}; "
+          f"markers' device µs {out['marker_us']}; bit-equal to the eager bodies: BA {out['ba_bit_equal']}, "
+          f"ICP {out['icp_bit_equal']}", flush=True)
+    if counts != want:
+        raise AssertionError(f"phase 25: marker counts {counts} differ from {want}")
+    if reads != (0, 0):
+        raise AssertionError(f"phase 25: the graph solves read the device {reads} times")
+    if not (out["ba_bit_equal"] and out["icp_bit_equal"]):
+        raise AssertionError("phase 25: a traced graph solve differs from its eager body")
+    if roots != ["icp", "solve_ba"] or names != ["icp", "layout", "lm", "replays", "result", "solve_ba"] or not nested:
+        raise AssertionError(f"phase 25: spans {names}, roots {roots}, nested {nested}")
+    if unmatched or not out["span_offset_ns"]["median"] <= TRACE_SPAN_OFFSET_NS:
+        raise AssertionError(f"phase 25: spans off their ranges: {out['span_offset_ns']}, {unmatched} unmatched")
+    if on_device:
+        raise AssertionError(f"phase 25: the program's ranges {on_device} are on the device's timeline")
+    return out
+
+
+def _phase_process(phase, timeout=900):
+    """``chip_smoke.py --phase <phase>`` in a process of its own, its output
+    printed: the JSON object it prints before its ok line."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase", str(phase)],
+                          capture_output=True, text=True, timeout=timeout)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr, file=sys.stderr)
+        raise AssertionError(f"phase {phase}'s process exited {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-2])
+
+
+def tracing_main():
+    """``--phase 25``: the build and phase 25 alone."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this check runs on a GPU only")
+    dev = torch.device("cuda", 0)
+    _smi()
+    _build_all()
+    cloud = torch.as_tensor(load_txt_cloud(FACHADA), dtype=torch.float32, device=dev)
+    print(json.dumps({"tracing": run_tracing(dev, cloud)}))
+    _print_ok()
+
+
 def multicard_main():
     """``--phase 23``: the build and phase 23 alone, on two cards or more."""
     if not torch.cuda.is_available():
@@ -4597,9 +4739,9 @@ if __name__ == "__main__":
     parser.add_argument("--port", type=int, help="phase 15's group port on localhost (internal)")
     parser.add_argument("--layout", choices=tuple(MULTIPROCESS_LAYOUTS), help="run as one of phase 24's processes in "
                         "this layout (internal)")
-    parser.add_argument("--phase", type=int, choices=(23, 24), help="run the build and this phase alone (23: the "
+    parser.add_argument("--phase", type=int, choices=(23, 24, 25), help="run the build and this phase alone (23: the "
                         "one-process mesh over several cards; 24: meshes across processes over several cards; both "
-                        "on two cards or more)")
+                        "on two cards or more; 25: the port's tracing)")
     args = parser.parse_args()
     if args.layout is not None:
         multiprocess_rank_main(args.rank, args.port, args.layout)
@@ -4609,5 +4751,7 @@ if __name__ == "__main__":
         multicard_main()
     elif args.phase == 24:
         multiprocess_main()
+    elif args.phase == 25:
+        tracing_main()
     else:
         main()

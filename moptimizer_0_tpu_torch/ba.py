@@ -67,6 +67,7 @@ from moptimizer_0_tpu_torch.ops import device_loop
 from moptimizer_0_tpu_torch.ops.pcg import pcg
 from moptimizer_0_tpu_torch.ops.segment_sum import segment_plan, segment_sum
 from moptimizer_0_tpu_torch.parallel.mesh import GlobalArray, Mesh
+from moptimizer_0_tpu_torch.utils import tracing
 from moptimizer_0_tpu_torch.utils.device import require
 
 # Reads of the device by the BA solve loops, their CG and their plans (a
@@ -576,9 +577,12 @@ def _cam_mask(problem):
     return (torch.arange(C, device=dev) >= problem.n_fixed_cameras).to(problem.camera_params.dtype)[:, None]
 
 
-def _solve_delta(problem, U, V, g, h, lam, config, mesh, rows):
+def _solve_delta(problem, U, V, g, h, lam, config, mesh, rows, count=None):
     """One damped Gauss-Newton solve: (δcam (C,6), δpt (L,3)). U, V, g, h
-    are the mesh's sums; rows holds each local shard's (problem, plans, W)."""
+    are the mesh's sums; rows holds each local shard's (problem, plans, W).
+    count: a 0-dim int32 tensor that the PCG iterations run are added to
+    (``ops.pcg``), or None. The PCG solve lies between the markers
+    ``ba_pcg_begin`` and ``ba_pcg_end``."""
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device
     U_d = _damp_blocks(U, lam)
     Vinv = _inv3x3(_damp_blocks(V, lam) + 1e-12 * torch.eye(3, dtype=dtype, device=dev))
@@ -595,7 +599,9 @@ def _solve_delta(problem, U, V, g, h, lam, config, mesh, rows):
     def pre(u):
         return _bmv(U_inv, u) * cam_mask
 
-    d_cam = pcg(mv, rhs, pre, config.cg_iterations, config.cg_tol, _read) * cam_mask
+    tracing.mark("ba_pcg_begin", rhs)
+    d_cam = pcg(mv, rhs, pre, config.cg_iterations, config.cg_tol, _read, count=count) * cam_mask
+    tracing.mark("ba_pcg_end", rhs)
     # back-substitute: δl = V′⁻¹ (−h − Wᵀ δcam)
     return d_cam, _bmv(Vinv, -h - _to_landmarks(mesh, rows, d_cam, dev))
 
@@ -628,17 +634,22 @@ def _outer_step(problem, lam, config, mesh, shards, plans):
     points, over the rows of ``shards`` (``_shards``) with their ``plans``:
     (cams, pts, λ′, terminal, status, record), all tensors: ``terminal`` a
     0-dim bool, ``status`` a 0-dim int32, ``record`` cost, cost_new, rho,
-    lam and trials (int32)."""
+    lam, trials and pcg_iterations (int32, summed over the trials). The
+    linearization and λ's seed lie between the markers
+    ``ba_linearize_begin`` and ``ba_linearize_end``."""
     dtype = problem.camera_params.dtype
     cams0, pts0 = problem.camera_params, problem.points
+    tracing.mark("ba_linearize_begin", cams0)
     rows, (U, V, g, h, y0) = _linearize_shards(mesh, shards, plans, cams0, pts0)
     lam = _seed_lambda(lam, U, V, config.init_lambda_factor)
+    tracing.mark("ba_linearize_end", cams0)
 
     state = _lm_init_state(cams0, pts0, lam, y0, dtype)
     converged0 = state["stop"].clone()
+    pcg_iterations = torch.zeros((), dtype=torch.int32, device=cams0.device)
 
     def solve_fn(lam_k):
-        return _solve_delta(problem, U, V, g, h, lam_k, config, mesh, rows)
+        return _solve_delta(problem, U, V, g, h, lam_k, config, mesh, rows, count=pcg_iterations)
 
     def cost_fn(cams_i, pts_i):
         return _mesh_cost(mesh, shards, cams_i, pts_i)
@@ -649,7 +660,8 @@ def _outer_step(problem, lam, config, mesh, shards, plans):
         config.inner_iterations, rel_cost_tol=config.rel_cost_tol,
     )
     cams, pts = state["params"]
-    return (cams, pts, *_step_result(state, y0, converged0))
+    lam, terminal, status, record = _step_result(state, y0, converged0)
+    return cams, pts, lam, terminal, status, dict(record, pcg_iterations=pcg_iterations)
 
 
 def _layout_name(problem):
@@ -658,7 +670,8 @@ def _layout_name(problem):
 
 
 def _record_dtypes(dtype):
-    """The names and dtypes of an outer iteration's record (its trace row)."""
+    """The names and dtypes of an outer iteration's record (its trace row),
+    every BA engine's; the CG engine adds pcg_iterations (int32)."""
     return dict(cost=dtype, cost_new=dtype, rho=dtype, lam=dtype, trials=torch.int32)
 
 
@@ -683,19 +696,20 @@ def _observations_key(problem):
     return (mesh, *fields, *(f.local for f in fields))
 
 
-def _sharded_loop(problem, config, graph, make_body, carry, name):
+def _sharded_loop(problem, config, graph, make_body, carry, name, record=None):
     """The StepLoop of an observation-sharded (or unsharded) step: the
     shards and their plans made once, ``make_body(mesh, shards, plans)``
     the step's body over them, its context (mesh, shards); a graph a card
     over a process's several peer cards (``device_loop.card_loops``, every
-    carry entry on every card)."""
+    carry entry on every card). record: the body's record names and dtypes
+    (by default ``_record_dtypes``)."""
     mesh, shards = _shards(problem)
     plans = [_plans(s) for s in shards]
-    dtype = problem.camera_params.dtype
+    record = record or _record_dtypes(problem.camera_params.dtype)
 
     def make_loop(view, carry, capture):
         body = make_body(view, [shards[j] for j in view.shards], [plans[j] for j in view.shards])
-        return device_loop.StepLoop(body, carry, config.max_iterations, _record_dtypes(dtype),
+        return device_loop.StepLoop(body, carry, config.max_iterations, record,
                                     Status.MAXIMUM_ITERATIONS_REACHED, graph=capture, name=name,
                                     context=(mesh, shards))
 
@@ -722,7 +736,8 @@ def _cg_loop(problem, config):
 
     def make():
         carry = (problem.camera_params, problem.points, torch.full((), -1.0, dtype=dtype, device=dev))
-        return _sharded_loop(problem, config, graph, make_body, carry, f"ba_step {_layout_name(problem)}")
+        return _sharded_loop(problem, config, graph, make_body, carry, f"ba_step {_layout_name(problem)}",
+                             record=dict(_record_dtypes(dtype), pcg_iterations=torch.int32))
 
     if not graph:
         return make()
@@ -821,7 +836,8 @@ TRACE_KEYS = ("cost", "cost_new", "rho", "lam")
 def _loop_result(loop, cams, points, cost):
     """The BAResult of a finished StepLoop: its status, executed iterations
     and trace (cost, cost_new, rho and lam per outer iteration, NaN-filled to
-    max_iterations, and ``trials``, the damped solves of each), copied."""
+    max_iterations, ``trials``, the damped solves of each, and the CG
+    engine's ``pcg_iterations``), copied."""
     return BAResult(
         camera_params=cams,
         points=points,
@@ -856,28 +872,34 @@ def solve_ba(problem, config=BAConfig(), host_loop=False, engine="cg"):
     sharded solve are replicated on every process, and "dense" takes it
     within one process only. The result's
     trace holds cost, cost_new, rho and lam per outer iteration (NaN-filled
-    to max_iterations) and ``trials``.
+    to max_iterations) and ``trials``; the CG engine's also
+    ``pcg_iterations``, the PCG iterations run (summed over the trials), as
+    Ceres reports ``linear_solver_iterations``. The solve is the span
+    ``solve_ba``, its result's assembly the span ``result``
+    (``utils.tracing``).
     """
-    if engine == "auto":
-        engine = select_engine(problem)
-    if engine == "dense":
-        from moptimizer_0_tpu_torch import ba_dense
+    with tracing.span("solve_ba"):
+        if engine == "auto":
+            engine = select_engine(problem)
+        if engine == "dense":
+            from moptimizer_0_tpu_torch import ba_dense
 
-        return ba_dense.solve_ba_dense(
-            _unsharded(problem),
-            ba_dense.DenseBAConfig(
-                max_iterations=config.max_iterations,
-                inner_iterations=config.inner_iterations,
-                init_lambda_factor=config.init_lambda_factor,
-            ),
-        )
-    if engine != "cg":
-        raise ValueError(f"unknown engine {engine!r}")
+            return ba_dense.solve_ba_dense(
+                _unsharded(problem),
+                ba_dense.DenseBAConfig(
+                    max_iterations=config.max_iterations,
+                    inner_iterations=config.inner_iterations,
+                    init_lambda_factor=config.init_lambda_factor,
+                ),
+            )
+        if engine != "cg":
+            raise ValueError(f"unknown engine {engine!r}")
 
-    loop = _cg_loop(problem, config)
-    loop.start((problem.camera_params, problem.points, -1.0))
-    loop.solve(config.max_iterations, _read, host_loop)
-    cams, pts = loop.carry[0].clone(), loop.carry[1].clone()
-    result = _loop_result(loop, cams, pts, _mesh_cost(*loop.context, cams, pts))
-    loop.context[0].check()
-    return result
+        loop = _cg_loop(problem, config)
+        loop.start((problem.camera_params, problem.points, -1.0))
+        loop.solve(config.max_iterations, _read, host_loop)
+        with tracing.span("result"):
+            cams, pts = loop.carry[0].clone(), loop.carry[1].clone()
+            result = _loop_result(loop, cams, pts, _mesh_cost(*loop.context, cams, pts))
+            loop.context[0].check()
+        return result

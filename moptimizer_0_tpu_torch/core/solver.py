@@ -74,6 +74,7 @@ from moptimizer_0_tpu_torch.core.linearize import (
 from moptimizer_0_tpu_torch.core.residual import Problem
 from moptimizer_0_tpu_torch.ops import device_loop
 from moptimizer_0_tpu_torch.ops.small_solve import capturable_linalg, cholesky_solve_unrolled
+from moptimizer_0_tpu_torch.utils import tracing
 
 # Reads of the device by the LM loops (a Python counter).
 HOST_READS = 0
@@ -538,24 +539,27 @@ def levenberg_marquardt(problem, x0, config=LMConfig(), manifold=None):
     mesh or over cards without peer access the same step runs eagerly. A
     problem sharded over a process's several cards replays a graph a card
     and returns on the first shard's card. A sharded solve ends with
-    ``Mesh.check``."""
-    problem = _as_problem(problem)
-    x = torch.as_tensor(x0)
-    problem = _on_device(problem, x)
-    loop = _single_loop(problem, x, config, manifold)
-    loop.start((x, -1.0, *_data_leaves(problem)))
-    loop.solve(config.max_iterations, _read)
-    x, lam, *data = (t.clone() for t in loop.carry)
-    result = LMResult(
-        x=x,
-        status=loop.status.clone(),
-        iterations=loop.it.clone(),
-        cost=compute_cost(_with_data(loop.context, data), x, accum_dtype=config.accum_dtype),
-        lam=lam,
-        trace=_trace_of(loop),
-    )
-    _check_mesh(problem)
-    return result
+    ``Mesh.check``. The solve is the span ``lm``, its result's assembly the
+    span ``result`` (``utils.tracing``)."""
+    with tracing.span("lm"):
+        problem = _as_problem(problem)
+        x = torch.as_tensor(x0)
+        problem = _on_device(problem, x)
+        loop = _single_loop(problem, x, config, manifold)
+        loop.start((x, -1.0, *_data_leaves(problem)))
+        loop.solve(config.max_iterations, _read)
+        with tracing.span("result"):
+            x, lam, *data = (t.clone() for t in loop.carry)
+            result = LMResult(
+                x=x,
+                status=loop.status.clone(),
+                iterations=loop.it.clone(),
+                cost=compute_cost(_with_data(loop.context, data), x, accum_dtype=config.accum_dtype),
+                lam=lam,
+                trace=_trace_of(loop),
+            )
+            _check_mesh(problem)
+        return result
 
 
 def _check_mesh(problem):
@@ -795,38 +799,42 @@ def levenberg_marquardt_batched(problem, x0_batch, config=LMConfig(), manifold=N
     the device once before each trial and once a pass.
 
     Returns an LMResult with a leading B on every field: the trace is
-    (B, max_iterations) and (B, max_iterations, inner_iterations).
+    (B, max_iterations) and (B, max_iterations, inner_iterations). The solve
+    is the span ``lm_batched``, its result's assembly the span ``result``
+    (``utils.tracing``).
     """
-    problem = _as_problem(problem)
-    x = torch.as_tensor(x0_batch)
-    problem = _on_device(problem, x)
-    B = x.shape[0]
+    with tracing.span("lm_batched"):
+        problem = _as_problem(problem)
+        x = torch.as_tensor(x0_batch)
+        problem = _on_device(problem, x)
+        B = x.shape[0]
 
-    # a block with an update hook gets per-lane data from its first update on
-    hooked = tuple(
-        blk.update_fn is not None or blk.batch_update_fn is not None for blk in problem.blocks
-    )
-    if not batch_data:
-        problem = Problem(
-            blocks=tuple(
-                dataclasses.replace(blk, data=_broadcast_lanes(blk.data, B)) if h else blk
-                for blk, h in zip(problem.blocks, hooked)
-            )
+        # a block with an update hook gets per-lane data from its first update on
+        hooked = tuple(
+            blk.update_fn is not None or blk.batch_update_fn is not None for blk in problem.blocks
         )
-    lane_data = tuple(batch_data or h for h in hooked)
+        if not batch_data:
+            problem = Problem(
+                blocks=tuple(
+                    dataclasses.replace(blk, data=_broadcast_lanes(blk.data, B)) if h else blk
+                    for blk, h in zip(problem.blocks, hooked)
+                )
+            )
+        lane_data = tuple(batch_data or h for h in hooked)
 
-    loop = _batched_loop(problem, x, config, manifold, hooked, lane_data, batch_data)
-    loop.start((x, -1.0, int(Status.MAXIMUM_ITERATIONS_REACHED), 0, False, *_data_leaves(problem)))
-    loop.solve(config.max_iterations, _read)
-    x, lam, status, it, _, *data = (t.clone() for t in loop.carry)
-    return LMResult(
-        x=x,
-        status=status,
-        iterations=it,
-        cost=compute_cost_batched(_with_data(loop.context, data), x, config.accum_dtype, lane_data),
-        lam=lam,
-        trace=_trace_of(loop),
-    )
+        loop = _batched_loop(problem, x, config, manifold, hooked, lane_data, batch_data)
+        loop.start((x, -1.0, int(Status.MAXIMUM_ITERATIONS_REACHED), 0, False, *_data_leaves(problem)))
+        loop.solve(config.max_iterations, _read)
+        with tracing.span("result"):
+            x, lam, status, it, _, *data = (t.clone() for t in loop.carry)
+            return LMResult(
+                x=x,
+                status=status,
+                iterations=it,
+                cost=compute_cost_batched(_with_data(loop.context, data), x, config.accum_dtype, lane_data),
+                lam=lam,
+                trace=_trace_of(loop),
+            )
 
 
 def solve_multistart(problem, x0_batch, config=LMConfig(), manifold=None, batch_data=False):

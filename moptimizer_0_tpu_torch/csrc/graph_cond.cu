@@ -17,11 +17,33 @@
 // dl_end_if(child) ends that capture; the body graph belongs to the node.
 // Both return a cudaError_t (0 on success), or -1 when `parent` is not
 // capturing.
+//
+// dl_mark(which, stream, count) launches the marker `which` (an index of
+// kernels/graph_cond.py's MARKS) on `stream`: an empty one-thread kernel
+// named moptimizer_mark_<name>, so that a device trace shows on the
+// device's clock where a captured step, linearization, PCG solve or PCG
+// iteration ran. Captured, it is a node of the graph or of the IF body
+// being captured. pcg_iteration adds one to *count unless count is null.
+// Returns a cudaError_t, or -1 for an unknown marker.
 
 #include <cuda_runtime.h>
 
 __global__ void set_if_kernel(cudaGraphConditionalHandle handle, const unsigned char* pred) {
     cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+#define MARKER(name) \
+    extern "C" __global__ void moptimizer_mark_##name() {}
+MARKER(step_begin)
+MARKER(step_end)
+MARKER(ba_linearize_begin)
+MARKER(ba_linearize_end)
+MARKER(ba_pcg_begin)
+MARKER(ba_pcg_end)
+#undef MARKER
+
+extern "C" __global__ void moptimizer_mark_pcg_iteration(int* count) {
+    if (count != nullptr) *count += 1;
 }
 
 extern "C" int dl_begin_if(void* parent, void* child, const void* pred) {
@@ -63,4 +85,19 @@ extern "C" int dl_begin_if(void* parent, void* child, const void* pred) {
 extern "C" int dl_end_if(void* child) {
     cudaGraph_t body;
     return cudaStreamEndCapture(static_cast<cudaStream_t>(child), &body);
+}
+
+extern "C" int dl_mark(int which, void* stream, int* count) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (which) {
+        case 0: moptimizer_mark_step_begin<<<1, 1, 0, s>>>(); break;
+        case 1: moptimizer_mark_step_end<<<1, 1, 0, s>>>(); break;
+        case 2: moptimizer_mark_ba_linearize_begin<<<1, 1, 0, s>>>(); break;
+        case 3: moptimizer_mark_ba_linearize_end<<<1, 1, 0, s>>>(); break;
+        case 4: moptimizer_mark_ba_pcg_begin<<<1, 1, 0, s>>>(); break;
+        case 5: moptimizer_mark_ba_pcg_end<<<1, 1, 0, s>>>(); break;
+        case 6: moptimizer_mark_pcg_iteration<<<1, 1, 0, s>>>(count); break;
+        default: return -1;
+    }
+    return cudaGetLastError();
 }

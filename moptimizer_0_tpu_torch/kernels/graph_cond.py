@@ -4,7 +4,9 @@
 next the body of an IF node of the graph that ``parent`` is capturing,
 taken at replay where the 0-dim bool CUDA tensor ``pred`` is true;
 ``end_if(child)`` closes the body. ``ops.device_loop.cond`` is the one
-caller. The library builds at first use, like the kernels.
+caller. ``mark(name, stream, count)`` launches the marker kernel
+``moptimizer_mark_<name>`` (a name of MARKS) on ``stream``, for
+``utils.tracing.mark``. The library builds at first use, like the kernels.
 """
 
 import ctypes
@@ -16,6 +18,10 @@ from moptimizer_0_tpu_torch.kernels import build
 
 NAME = "graph_cond"
 SOURCES = ("graph_cond.cu",)
+# The markers of csrc/graph_cond.cu, in the order of dl_mark's index.
+MARKS = ("step_begin", "step_end", "ba_linearize_begin", "ba_linearize_end", "ba_pcg_begin", "ba_pcg_end",
+         "pcg_iteration")
+_MARK_INDEX = {name: i for i, name in enumerate(MARKS)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,6 +32,8 @@ def _library():
     lib.dl_begin_if.restype = ctypes.c_int
     lib.dl_end_if.argtypes = [ctypes.c_void_p]
     lib.dl_end_if.restype = ctypes.c_int
+    lib.dl_mark.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.dl_mark.restype = ctypes.c_int
     return lib
 
 
@@ -47,3 +55,13 @@ def end_if(child):
     err = _library().dl_end_if(child.cuda_stream)
     if err != 0:
         raise RuntimeError(f"dl_end_if failed with CUDA error {err}")
+
+
+def mark(name, stream, count=None):
+    if count is not None and (not count.is_cuda or count.dtype != torch.int32 or count.numel() != 1
+                              or name != "pcg_iteration"):
+        raise ValueError(f"mark: a count is one CUDA int32 for pcg_iteration, got {count.dtype} "
+                         f"{tuple(count.shape)} on {count.device} for {name}")
+    err = _library().dl_mark(_MARK_INDEX[name], stream.cuda_stream, None if count is None else count.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"dl_mark({name}) failed with CUDA error {err}")

@@ -27,6 +27,12 @@ captured once per layout and replayed:
 * ``eager()`` is a context in which the engines run the step's body eagerly
   on the card, op by op: the reference the graph must equal bit for bit.
 
+Tracing (``utils.tracing``): an outer iteration's body lies between the
+markers ``step_begin`` and ``step_end``, inside its IF(¬done), so a
+replay's device trace shows each step that ran; ``lookup`` is the span
+``layout`` (on a miss with the warm-up and capture), and a solve's
+enqueue of its replays, or its eager loop, the span ``replays``.
+
 Capture: a warm-up first runs the step once outside capture with every IF
 body taken and no read, on the streams the capture uses, so that kernel
 builds, plans, library handles and their workspaces exist before it; the
@@ -45,6 +51,7 @@ import time
 import torch
 
 from moptimizer_0_tpu_torch.kernels import graph_cond
+from moptimizer_0_tpu_torch.utils.tracing import mark, span
 
 # IF bodies nest this deep at most: the step, an LM trial, a PCG iteration.
 MAX_DEPTH = 3
@@ -206,6 +213,7 @@ class StepLoop:
             v.fill_(float("nan") if v.is_floating_point() else 0)
 
     def _advance(self):
+        mark("step_begin", self.done)
         new, terminal, status, record = self.body(*self.carry)
         for s, t in zip(self.carry, new):
             if t is not s:
@@ -219,6 +227,7 @@ class StepLoop:
         self.status.copy_(status)
         self.it.copy_(torch.where(terminal, self.it, self.it + 1))
         self.done.copy_(terminal)
+        mark("step_end", self.done)
 
     def _iterate(self, read=None):
         return cond(~self.done, self._advance, read)
@@ -238,11 +247,12 @@ class StepLoop:
         replays n times, each IF(¬done), and reads nothing back; with
         ``host_loop`` it reads done after each replay and stops there. The
         eager loop reads ¬done before each iteration."""
-        for _ in range(n):
-            if not self.step(read):
-                break
-            if host_loop and self.graph is not None and read(self.done):
-                break
+        with span("replays"):
+            for _ in range(n):
+                if not self.step(read):
+                    break
+                if host_loop and self.graph is not None and read(self.done):
+                    break
 
     def outputs(self):
         """Copies of the carry, of done (the step's terminal), the status and
@@ -383,10 +393,11 @@ class CardLoops:
     def solve(self, n, read, host_loop=False):
         """n steps; with ``host_loop`` reads the first card's done after
         each (after every card's replay is enqueued) and stops there."""
-        for _ in range(n):
-            self.step(read)
-            if host_loop and read(self.done):
-                break
+        with span("replays"):
+            for _ in range(n):
+                self.step(read)
+                if host_loop and read(self.done):
+                    break
 
     def outputs(self):
         return ([t.clone() for t in self.carry], self.done.clone(), self.status.clone(),
@@ -437,16 +448,17 @@ def lookup(store, parts, make, size, drop=None):
     parts stands for its identity, version (an in-place change is a new
     key), shape, dtype and device, an unhashable object for its identity;
     the entry keeps parts alive, so no identity is reused while it lives."""
-    key = tuple(key_part(p) for p in parts)
-    entry = store.pop(key, None)
-    if entry is None:
-        entry = (make(), parts)
-        while len(store) >= size:
-            _, (old, _) = store.popitem(last=False)
-            if drop is not None:
-                drop(old)
-    store[key] = entry
-    return entry[0]
+    with span("layout"):
+        key = tuple(key_part(p) for p in parts)
+        entry = store.pop(key, None)
+        if entry is None:
+            entry = (make(), parts)
+            while len(store) >= size:
+                _, (old, _) = store.popitem(last=False)
+                if drop is not None:
+                    drop(old)
+        store[key] = entry
+        return entry[0]
 
 
 def cached(parts, make):

@@ -9,21 +9,30 @@ iteration would stop the device once an iteration, so the test is read every
 computed and discarded (x, r, p and rz are frozen by ``torch.where``). Both
 give the x of a test at every iteration, bit for bit. The BA CG engines and
 the pose graph's CG solve share it.
+
+Every iteration body starts with the marker ``pcg_iteration``
+(``utils.tracing.mark``); with a ``count`` the iterations that ran are
+added to it on the device: under capture by that marker (one graph node an
+iteration does both), eagerly by adding the test's flag, so the iterations
+computed past the test and discarded do not count.
 """
 
 import torch
 
 from moptimizer_0_tpu_torch.ops import device_loop
+from moptimizer_0_tpu_torch.utils import tracing
 
 # iterations between two host reads of the stopping test
 CHECK = 32
 
 
-def pcg(matvec, b, precond, iters, tol, read, check=CHECK):
+def pcg(matvec, b, precond, iters, tol, read, check=CHECK, count=None):
     """x ≈ A⁻¹ b from x = 0 by at most ``iters`` iterations, stopping when
     ‖r‖² ≤ tol². matvec(u) = A·u and precond(u) = M⁻¹·u on tensors shaped
     like b; ``read(flag)`` brings a 0-dim bool to the host (the caller
-    counts it). Both divisions are guarded by the dtype's ``tiny``."""
+    counts it). Both divisions are guarded by the dtype's ``tiny``.
+    count: a 0-dim int32 tensor on b's device to which the iterations that
+    ran are added (module docstring), or None."""
     tiny = torch.full((), torch.finfo(b.dtype).tiny, dtype=b.dtype, device=b.device)
     tol_sq = tol * tol
 
@@ -47,6 +56,7 @@ def pcg(matvec, b, precond, iters, tol, read, check=CHECK):
         state = (x, r.clone(), p.clone(), rz)
 
         def iteration():
+            tracing.mark("pcg_iteration", b, count)
             for old, new in zip(state, advance(*state)):
                 old.copy_(new)
             active.copy_(torch.sum(state[1] * state[1]) > tol_sq)
@@ -57,6 +67,9 @@ def pcg(matvec, b, precond, iters, tol, read, check=CHECK):
     for k in range(iters):
         if k % check == 0 and not read(active):
             break
+        tracing.mark("pcg_iteration", b)
+        if count is not None:
+            count += active
         x, r, p, rz = (torch.where(active, new, old) for new, old in zip(advance(x, r, p, rz), (x, r, p, rz)))
         active = active & (torch.sum(r * r) > tol_sq)
     return x

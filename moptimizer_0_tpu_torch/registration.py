@@ -44,6 +44,7 @@ from moptimizer_0_tpu_torch.ops.grid_nn import (
 from moptimizer_0_tpu_torch.ops.icp_linearize import fused_point2point_linearizer
 from moptimizer_0_tpu_torch.ops.nn_search import nearest_neighbors
 from moptimizer_0_tpu_torch.ops.surface import estimate_normals, gicp_covariances
+from moptimizer_0_tpu_torch.utils import tracing
 from moptimizer_0_tpu_torch.utils.device import as_input
 from moptimizer_0_tpu_torch.utils.stats import median as _median
 
@@ -643,16 +644,18 @@ def icp(
     init="centroid" (when x0 is None): seed the translation with
     median(tgt) − median(src), robust to outliers; correspondence search
     cannot recover large offsets from identity. init="identity" starts at 0.
+    The call is the span ``icp`` (``utils.tracing``).
     """
-    src = as_input(src)
-    tgt_cloud = as_input(tgt_cloud)
-    if x0 is None:
-        x0 = _centroid_seed(src, tgt_cloud) if init == "centroid" else src.new_zeros(6)
-    else:
-        x0 = as_input(x0, src.device)
-    if config is None:
-        config = _icp_config()
-    return _solve_pair("icp", src, tgt_cloud, None, x0, config, loss, max_corr_dist, nn_backend)
+    with tracing.span("icp"):
+        src = as_input(src)
+        tgt_cloud = as_input(tgt_cloud)
+        if x0 is None:
+            x0 = _centroid_seed(src, tgt_cloud) if init == "centroid" else src.new_zeros(6)
+        else:
+            x0 = as_input(x0, src.device)
+        if config is None:
+            config = _icp_config()
+        return _solve_pair("icp", src, tgt_cloud, None, x0, config, loss, max_corr_dist, nn_backend)
 
 
 def icp_batched(
@@ -682,43 +685,45 @@ def icp_batched(
     loop on its B / n_shards lanes, with one search of its lanes a pass, on
     its device. Lanes are independent, so nothing is reduced; the results
     are concatenated in lane order (and gathered from every process of a
-    mesh that spans processes). B must divide the shard count.
+    mesh that spans processes). B must divide the shard count. The call is
+    the span ``icp_batched`` (``utils.tracing``).
     """
-    srcs = as_input(srcs)
-    tgt_clouds = as_input(tgt_clouds)
-    if config is None:
-        config = _icp_config()
-    if x0s is None:
-        t0 = _median(tgt_clouds.to(srcs.dtype), dim=1) - _median(srcs, dim=1)
-        x0s = torch.cat([t0, torch.zeros_like(t0)], dim=1)
-    else:
-        x0s = as_input(x0s, srcs.device)
-    if mesh is None:
-        blk = _icp_fleet_block(srcs, tgt_clouds, loss=loss, max_corr_dist=max_corr_dist)
-        return levenberg_marquardt_batched(problem(blk), x0s, config)
-    axis = mesh_axis or mesh.axis_names[0]
-    n_shards = mesh.check_axis(axis)
-    B = srcs.shape[0]
-    if B % n_shards:
-        raise ValueError(
-            f"fleet size B={B} must divide the mesh axis {axis!r} ({n_shards} shards): "
-            "pad the fleet to a multiple"
-        )
-    lanes = B // n_shards
-    parts = []
-    for j, dev in enumerate(mesh.devices):
-        sl = slice((mesh.first_shard + j) * lanes, (mesh.first_shard + j + 1) * lanes)
-        blk = _icp_fleet_block(srcs[sl].to(dev), tgt_clouds[sl].to(dev), loss=loss, max_corr_dist=max_corr_dist)
-        parts.append(levenberg_marquardt_batched(problem(blk), x0s[sl].to(dev), config))
+    with tracing.span("icp_batched"):
+        srcs = as_input(srcs)
+        tgt_clouds = as_input(tgt_clouds)
+        if config is None:
+            config = _icp_config()
+        if x0s is None:
+            t0 = _median(tgt_clouds.to(srcs.dtype), dim=1) - _median(srcs, dim=1)
+            x0s = torch.cat([t0, torch.zeros_like(t0)], dim=1)
+        else:
+            x0s = as_input(x0s, srcs.device)
+        if mesh is None:
+            blk = _icp_fleet_block(srcs, tgt_clouds, loss=loss, max_corr_dist=max_corr_dist)
+            return levenberg_marquardt_batched(problem(blk), x0s, config)
+        axis = mesh_axis or mesh.axis_names[0]
+        n_shards = mesh.check_axis(axis)
+        B = srcs.shape[0]
+        if B % n_shards:
+            raise ValueError(
+                f"fleet size B={B} must divide the mesh axis {axis!r} ({n_shards} shards): "
+                "pad the fleet to a multiple"
+            )
+        lanes = B // n_shards
+        parts = []
+        for j, dev in enumerate(mesh.devices):
+            sl = slice((mesh.first_shard + j) * lanes, (mesh.first_shard + j + 1) * lanes)
+            blk = _icp_fleet_block(srcs[sl].to(dev), tgt_clouds[sl].to(dev), loss=loss, max_corr_dist=max_corr_dist)
+            parts.append(levenberg_marquardt_batched(problem(blk), x0s[sl].to(dev), config))
 
-    def lanes_of(*leaves):
-        if isinstance(leaves[0], dict):
-            return {k: lanes_of(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
-        return mesh.gather_rows(torch.cat([leaf.to(srcs.device) for leaf in leaves]))
+        def lanes_of(*leaves):
+            if isinstance(leaves[0], dict):
+                return {k: lanes_of(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+            return mesh.gather_rows(torch.cat([leaf.to(srcs.device) for leaf in leaves]))
 
-    return LMResult(**{
-        f.name: lanes_of(*(getattr(r, f.name) for r in parts)) for f in dataclasses.fields(LMResult)
-    })
+        return LMResult(**{
+            f.name: lanes_of(*(getattr(r, f.name) for r in parts)) for f in dataclasses.fields(LMResult)
+        })
 
 
 def _solve_pair(method, src, tgt_cloud, covs, x0, config, loss, max_corr_dist, nn_backend):
