@@ -236,11 +236,22 @@ prints no result):
     no range of the program copied onto the device's timeline.
     ``python3 chip_smoke.py --phase 25`` runs the build and this phase
     alone.
+26. (run after 3) the CG engine's matvec kernels (``csrc/schur_matvec.cu``)
+    on the benchmark's Venice instance (``portbench/configs``, instance seed
+    1; O = 5,001,946, C = 1,778, L = 993,923) at its start, with random u
+    and s: each half within float32's error bound ((n + 6)·2⁻²⁴·Σ|terms|) of
+    a float64 sum, as its plain version is, two calls bit-equal; the plan's
+    build, W's copy in camera order, each half's ms beside its bytes bound
+    and its plain ms, and each half over tile sizes and lanes a landmark.
+    Phases 19 and 22 hold the kernels' replayed launches in every CG solve
+    to 2 a PCG iteration and a trial on every shard (none eager, none in the
+    dense solves). ``python3 chip_smoke.py --phase 26`` runs the build and
+    this phase alone.
 
 Every LM, BA and PGO solve runs its step graph (outside phases 15's and
 19–22's eager runs and 15's gloo solve), the registrar's coarse multistart
 and every sharded solve too, across phase 15's processes included: the
-launches of K5, K6, K11 and the transport there are counted on the card
+launches of K5, K6, K11, the matvec kernels and the transport there are counted on the card
 (``replayed``), and a capture's warm-up launches each kernel of the step
 once more, eagerly. The dense-BA solve runs twice and
 must repeat itself bit for bit.
@@ -291,6 +302,7 @@ from moptimizer_0_tpu_torch.kernels import nccl_transport
 from moptimizer_0_tpu_torch.kernels import nn_expand as k_expand
 from moptimizer_0_tpu_torch.kernels import nn_search as k_nn
 from moptimizer_0_tpu_torch.kernels import schur as k_schur
+from moptimizer_0_tpu_torch.kernels import schur_matvec as k_matvec
 from moptimizer_0_tpu_torch.lie import se3, so3
 from moptimizer_0_tpu_torch.models import accelerometer, camera, curve_fitting, powell, rational
 from moptimizer_0_tpu_torch.models.point2point import point2point_block
@@ -316,6 +328,7 @@ from moptimizer_0_tpu_torch.parallel import (
 from moptimizer_0_tpu_torch.parallel import mesh as mesh_module
 from moptimizer_0_tpu_torch.ops import device_loop, grid_nn, surface
 from moptimizer_0_tpu_torch.ops.nn_search import _nn_expand_torch, _nn_torch
+from moptimizer_0_tpu_torch.ops.segment_sum import segment_sum
 from moptimizer_0_tpu_torch.ops.schur import (
     _schur_corr_pairs_torch,
     _schur_corr_torch,
@@ -578,7 +591,7 @@ PEAK_BYTES = 3.35e12
 
 def _reset_launches():
     """Every kernel's launch count set to 0, its replayed launches too."""
-    for k in (k_nn, k_expand, k_schur, k_mesh, nccl_transport):
+    for k in (k_nn, k_expand, k_schur, k_matvec, k_mesh, nccl_transport):
         k.reset_launches()
 
 
@@ -1075,6 +1088,127 @@ def check_schur_kernel(prob, grouped, dev, rng, extra):
     return max_abs_err, {k: sum(v) / len(v) for k, v in t.items()}, bound
 
 
+# Phase 26: the Schur matvec's kernels at the benchmark's Venice shape (the
+# configuration's first fixed instance), and the tile sizes and lanes a
+# landmark they were chosen among.
+MATVEC_CONFIG = ROOT / "portbench" / "configs" / "ba-bal-venice1778.json"
+MATVEC_TILES = (128, 256, 512, 1024, 2048, 4096, 8192)
+MATVEC_GROUPS = (1, 2, 3, 4, 5)
+MATVEC_REPS = 20
+
+
+def venice_problem(dev):
+    """The BA problem of the benchmark's Venice configuration, instance
+    seed 1, from its start (``portbench.generate``)."""
+    from portbench import generate
+
+    cfg = json.loads(MATVEC_CONFIG.read_text())
+    d = generate.bal_instance(cfg, cfg["instance_seeds"][0], dev)
+    return ba.BAProblem(camera_params=d["cams0"], points=d["pts0"], cam_idx=d["cam_idx"], pt_idx=d["pt_idx"],
+                        pixels=d["pixels"], intrinsics=d["intrinsics"], n_fixed_cameras=d["n_fixed"])
+
+
+def _matvec_error(k, ref, scale, counts):
+    """max |k − ref| / ((n + 6)·2⁻²⁴·Σ|terms|) over a half's sums: at most 1
+    for any order of n products of 6 or 3 terms each, to first order."""
+    bound = (counts.double()[:, None] + 6) * 2.0**-24 * scale
+    return float(((k.double() - ref).abs() / bound.clamp_min(torch.finfo(torch.float64).tiny)).max())
+
+
+def _alternated(fns, reps):
+    """Mean ms of each of ``fns`` (a dict), timed in order and then in the
+    reverse order (CUDA events)."""
+    names = list(fns) + list(fns)[::-1]
+    out = {n: [] for n in fns}
+    for n in names:
+        out[n].append(_time_ms(fns[n], reps))
+    return {n: sum(v) / len(v) for n, v in out.items()}
+
+
+def check_matvec_kernel(dev):
+    """The matvec's halves (``kernels/schur_matvec.py``) on the Venice
+    instance at its start, against their plain versions (``ba._landmark_sum_plain``,
+    ``_camera_sum_plain``) and a float64 sum: each kernel within float32's
+    error bound of the float64 sum (``_matvec_error`` ≤ 1), two calls
+    bit-equal; the plan's build, W's copy in camera order, each half's ms
+    beside its bound and its plain ms, and each half over the tile sizes and
+    lane groups around the plan's."""
+    prob = venice_problem(dev)
+    C, L, O = prob.camera_params.shape[0], prob.points.shape[0], prob.cam_idx.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plans = ba._plans(prob)
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = k_matvec.matvec_plan(prob.cam_idx, prob.pt_idx, C, L)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    mesh, shards = ba._shards(prob)
+    rows, _ = ba._linearize_shards(mesh, shards, [plans], prob.camera_params, prob.points)
+    p, _, W, W_cam = rows[0]
+    copy_ms = _time_ms(lambda: ba._shard_row(p, plans, W), MATVEC_REPS)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.randn(C, 6, generator=g, device=dev)
+    s = torch.randn(L, 3, generator=g, device=dev)
+    Wd, Wa = W.double(), W.double().abs()
+    seg_l, seg_c = plans[1], plans[0]
+    halves = dict(
+        to_landmarks=dict(
+            kernel=lambda: k_matvec.to_landmarks_cuda(plan, W, u),
+            plain=lambda: ba._landmark_sum_plain(p, plans, W, u),
+            ref=segment_sum(seg_l, torch.sum(Wd * u.double()[p.cam_idx][:, :, None], dim=1)),
+            scale=segment_sum(seg_l, torch.sum(Wa * u.double().abs()[p.cam_idx][:, :, None], dim=1)),
+            counts=torch.bincount(prob.pt_idx, minlength=L),
+            n_bytes=72 * O + 8 * O + 4 * (L + 1) + 24 * C + 12 * L),
+        to_cameras=dict(
+            kernel=lambda: k_matvec.to_cameras_cuda(plan, W_cam, s),
+            plain=lambda: ba._camera_sum_plain(p, plans, W, s),
+            ref=segment_sum(seg_c, torch.sum(Wd * s.double()[p.pt_idx][:, None, :], dim=2)),
+            scale=segment_sum(seg_c, torch.sum(Wa * s.double().abs()[p.pt_idx][:, None, :], dim=2)),
+            counts=torch.bincount(prob.cam_idx, minlength=C),
+            n_bytes=72 * O + 4 * O + 4 * (plan.n_tiles + 1) + 4 * (C + 1) + 12 * L + 24 * C),
+    )
+    del Wd, Wa
+    print(f"schur matvec plan at the Venice shape (O={O} C={C} L={L}): built in {plan_s * 1e3:.2f} ms "
+          f"({plan.nbytes / 1e6:.2f} MB; the CG engine's plans with it {plans_s * 1e3:.2f} ms), lanes a landmark "
+          f"{1 << plan.group_log2}, tile {plan.tile} items, {plan.n_tiles} tiles; W in camera order written in "
+          f"{copy_ms:.4f} ms a linearization")
+    out = dict(O=O, C=C, L=L, plan_ms=plan_s * 1e3, plan_bytes=plan.nbytes, group=1 << plan.group_log2,
+               tile=plan.tile, n_tiles=plan.n_tiles, camera_order_copy_ms=copy_ms)
+    for name, h in halves.items():
+        k, again, plain = h["kernel"](), h["kernel"](), h["plain"]()
+        torch.cuda.synchronize()
+        err = _matvec_error(k, h["ref"], h["scale"], h["counts"])
+        err_plain = _matvec_error(plain, h["ref"], h["scale"], h["counts"])
+        rel = float((k - plain).abs().max()) / float(plain.abs().max())
+        same = torch.equal(k.view(torch.int32), again.view(torch.int32))
+        t = _alternated(dict(plain=h["plain"], kernel=h["kernel"]), MATVEC_REPS)
+        bound_ms = h["n_bytes"] / PEAK_BYTES * 1e3
+        print(f"schur matvec {name}: error / float32 bound {err:.3e} (plain {err_plain:.3e}), max|k − plain| / "
+              f"max|plain| {rel:.3e}, two calls bit-equal {same}; kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, bound {bound_ms:.4f} ms ({h['n_bytes'] / 1e6:.1f} MB by bytes)")
+        if not torch.isfinite(k).all() or not err <= 1.0 or not same:
+            raise AssertionError(f"schur matvec {name}: error {err} of its bound, bit-equal {same}")
+        out[name] = dict(err=err, plain_err=err_plain, rel_plain=rel, ms=t["kernel"], plain_ms=t["plain"],
+                         bound_ms=bound_ms, bytes=h["n_bytes"])
+    counts = halves["to_cameras"]["counts"]
+    sweep = {}
+    for T in MATVEC_TILES:
+        n = int(((counts + T - 1) // T).sum())
+        tile_ptr, cam_tiles = k_matvec.tiles(counts, T, n)
+        plan_t = dataclasses.replace(plan, tile=T, n_tiles=n, tile_ptr=tile_ptr.to(torch.int32),
+                                     cam_tiles=cam_tiles.to(torch.int32))
+        sweep[f"tile {T}"] = functools.partial(k_matvec.to_cameras_cuda, plan_t, W_cam, s)
+    for gl in MATVEC_GROUPS:
+        sweep[f"lanes {1 << gl}"] = functools.partial(k_matvec.to_landmarks_cuda,
+                                                     dataclasses.replace(plan, group_log2=gl), W, u)
+    t = _alternated(sweep, MATVEC_REPS)
+    print("schur matvec sweep (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    out["sweep_ms"] = t
+    return out
+
+
 def _flat_g(segs):
     """The G of (G, cam_ids, mask) segments in one flat (n_slots, 6, 3)
     buffer, the kernel's layout."""
@@ -1518,6 +1652,49 @@ def _outer_run(res):
     return int(res.iterations) + (Status(int(res.status)) != Status.MAXIMUM_ITERATIONS_REACHED)
 
 
+def _matvec_runs(res):
+    """The PCG iterations and trials of a CG solve's trace, which each run
+    both halves of the Schur matvec once a shard (the trials: the rhs and
+    the back-substitution); None for a trace without PCG iterations."""
+    if "pcg_iterations" not in res.trace:
+        return None
+    return sum(res.trace["pcg_iterations"].tolist()) + sum(res.trace["trials"].tolist())
+
+
+def _hold_matvec_launches(what, runs, replayed, eager_in_graph, dense):
+    """The matvec kernels' launches in a graph's solve: none eager, 2 a run
+    on every shard (``runs`` counts shards × runs; None for a solve whose
+    trace counts no PCG iterations, then some), none on a path without the
+    CG engine (``dense``)."""
+    expected = 0 if dense else None if runs is None else 2 * runs
+    print(f"  {what}: schur matvec replayed {replayed} (expected {'some' if expected is None else expected}), "
+          f"eager {eager_in_graph}")
+    if eager_in_graph or (replayed != expected if expected is not None else replayed <= 0):
+        raise AssertionError(f"{what}: schur matvec replayed {replayed}, eager {eager_in_graph}, for {runs} runs")
+
+
+def _matvec_by_card(groups):
+    """The matvec kernels' replayed launches on each card of ``groups``
+    (``Mesh.card_groups()``), by the card's name."""
+    by_card = k_matvec.replayed_by_card()
+    return {str(d): by_card.get(d, 0) for d, _ in groups}
+
+
+def _matvec_card_runs(res, groups, lm, selfcal):
+    """What ``_matvec_by_card`` must read after a graph's solve: 2 a run
+    (``_matvec_runs``) for each shard on the card in a CG solve, 0 without
+    the CG engine; None for a self-calibration (its trace counts no PCG
+    iterations: some on every card)."""
+    runs = None if lm else _matvec_runs(res)
+    if runs is None and selfcal:
+        return None
+    return {str(d): 2 * len(js) * (runs or 0) for d, js in groups}
+
+
+def _matvec_cards_ok(replayed, expected):
+    return all(v > 0 for v in replayed.values()) if expected is None else replayed == expected
+
+
 def run_device_loop(prob, wrong):
     """19: the three BA steps as CUDA-graph replays on the headline. Each
     engine's solve through the graph (host_loop=False, and host_loop=True
@@ -1545,6 +1722,7 @@ def run_device_loop(prob, wrong):
         _reset_launches()
         graph, graph_s, graph_reads = _timed_solve(solve)
         replayed = k_schur.replayed()
+        mv_replayed, mv_eager_in_graph = k_matvec.replayed(), k_matvec.LAUNCHES
         host, host_s, host_reads = _timed_solve(lambda: solve(host_loop=True))
         _reset_launches()
         with device_loop.eager():
@@ -1569,6 +1747,7 @@ def run_device_loop(prob, wrong):
             device_ms=dict(graph=g_dev_ms, eager=e_dev_ms),
             busy=dict(graph=g_dev_ms / 1e3 / g_prof_s, eager=e_dev_ms / 1e3 / e_prof_s),
             profiled_s=dict(graph=g_prof_s, eager=e_prof_s), k11_replayed=replayed, k11_eager=eager_k11,
+            matvec_replayed=mv_replayed, matvec_runs=_matvec_runs(_ba_result(graph)),
         )
         out[name] = row
         print(f"device loop, {name} (headline O={BA_O} C={BA_C} L={BA_L} float32): outer iterations {run}, trials "
@@ -1596,6 +1775,8 @@ def run_device_loop(prob, wrong):
             raise AssertionError(f"device loop: K11 replayed {replayed} and eager {eager_k11} for {trials} trials")
         if name != "ba_step_dense" and (replayed or eager_k11):
             raise AssertionError(f"device loop, {name}: K11 launched")
+        _hold_matvec_launches(f"device loop, {name}", row["matvec_runs"], mv_replayed, mv_eager_in_graph,
+                              dense=name == "ba_step_dense")
     out["captures"] = list(device_loop.CAPTURES)
     for c in device_loop.CAPTURES:
         print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
@@ -3014,7 +3195,8 @@ def run_sharded_device_loop(icp_solves, ba_solves, cg_problems, selfcal_problems
         graph, graph_s, graph_reads = _loop_timed(fn)
         replays = loop.replays - replays
         replayed = kernel.replayed() if kernel else 0
-        eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES
+        mv_replayed = k_matvec.replayed()
+        eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES + k_matvec.LAUNCHES
         _reset_launches()
         reductions = mesh_module.REDUCTIONS
         with device_loop.eager(), (capturable_linalg(dev) if lm else contextlib.nullcontext()):
@@ -3035,6 +3217,8 @@ def run_sharded_device_loop(icp_solves, ba_solves, cg_problems, selfcal_problems
                    reads=dict(graph=graph_reads, eager=eager_reads), replays=replays, bit_equal=same,
                    iterations=int(res.iterations), status=Status(int(res.status)).name, outer=run,
                    eager_reductions=reductions, kernel_replayed=replayed, kernel_eager=eager_k, kernel_runs=expect,
+                   matvec_replayed=mv_replayed,
+                   matvec_runs=None if lm or _matvec_runs(res) is None else shards * _matvec_runs(res),
                    launches={}, device_ms={}, busy={}, capture=loop.stats)
         sides = (("graph", contextlib.nullcontext),) * (not pcg) + (("eager", device_loop.eager),)
         for side, context in sides if eager_s <= SHARDED_PROFILE_MAX_S else ():
@@ -3067,6 +3251,8 @@ def run_sharded_device_loop(icp_solves, ba_solves, cg_problems, selfcal_problems
         if kernel and not replayed == eager_k == expect > 0:
             raise AssertionError(f"sharded device loop, {name}: {kernel.NAME} replayed {replayed}, eager {eager_k}, "
                                  f"for {expect} runs")
+        _hold_matvec_launches(f"sharded device loop, {name}", row["matvec_runs"], mv_replayed, 0,
+                              dense=lm or name.startswith("dense"))
     out["captures"] = device_loop.CAPTURES[n_start:]
     for c in out["captures"]:
         print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
@@ -3161,9 +3347,10 @@ def _multicard_path(name, mesh, fn, kernel, lm, reference_gap):
     per_card = _card_bits(loops)
     cards = mesh.cards  # the counters of cards off this mesh (earlier meshes') read 0
     k_replayed = {str(d): v for d, v in (kernel.replayed_by_card() if kernel else {}).items() if d in cards}
-    k_eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES
+    k_eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES + k_matvec.LAUNCHES
     t_replayed = {str(d): v for d, v in k_mesh.replayed_by_card().items() if d in cards}
     t_eager_in_graph = k_mesh.LAUNCHES
+    mv_replayed = _matvec_by_card(mesh.card_groups())
     _reset_launches()
     with device_loop.eager(), (capturable_linalg(dev) if lm else contextlib.nullcontext()):
         eager, eager_s, eager_reads = _loop_timed(fn)
@@ -3186,7 +3373,8 @@ def _multicard_path(name, mesh, fn, kernel, lm, reference_gap):
                bit_equal_eager=_same_result(graph, eager), bit_equal_repeat=_same_result(graph, first),
                cards_bit_equal=per_card, iterations=int(res.iterations), status=Status(int(res.status)).name,
                outer=run, unsharded_gap=gap, camera_gap=camera_gap, camera_bound=camera_bound, kernel_replayed=k_replayed, kernel_eager=k_eager, kernel_runs=expect,
-               transport_replayed=t_replayed,
+               transport_replayed=t_replayed, matvec_replayed=mv_replayed,
+               matvec_runs=_matvec_card_runs(res, groups, lm, selfcal),
                captures=[dict(c) for c in device_loop.CAPTURES[n0:]])
     print(f"multi-card {name}: {row['status']}, iterations {row['iterations']}; first call {first_s:.4f} s "
           f"({captured} captures), graphs {graph_s:.4f} s, eager body {eager_s:.4f} s; host reads graph {graph_reads}, "
@@ -3195,7 +3383,8 @@ def _multicard_path(name, mesh, fn, kernel, lm, reference_gap):
           f"{MULTICARD_RTOL:g})"
           + ("" if camera_gap is None else f", cameras {camera_gap:.3e} (bound {camera_bound:.3e})")
           + f"; transport replayed a card {t_replayed}"
-          + (f"; {kernel.NAME} replayed a card {k_replayed}, eager {k_eager}, runs {expect}" if kernel else ""))
+          + (f"; {kernel.NAME} replayed a card {k_replayed}, eager {k_eager}, runs {expect}" if kernel else "")
+          + f"; schur matvec replayed a card {mv_replayed} (expected {row['matvec_runs'] or 'some'})")
     for c in row["captures"]:
         print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
               f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
@@ -3212,6 +3401,8 @@ def _multicard_path(name, mesh, fn, kernel, lm, reference_gap):
         raise AssertionError(f"multi-card {name}: {kernel.NAME} replayed {k_replayed}, eager {k_eager}, for {expect}")
     if not all(t_replayed.get(str(d), 0) > 0 for d, _ in groups):
         raise AssertionError(f"multi-card {name}: the card transport replayed {t_replayed}")
+    if not _matvec_cards_ok(mv_replayed, row["matvec_runs"]):
+        raise AssertionError(f"multi-card {name}: schur matvec replayed {mv_replayed}, expected {row['matvec_runs']}")
     if not gap <= MULTICARD_RTOL or camera_gap is not None and not camera_gap <= camera_bound:
         raise AssertionError(f"multi-card {name}: {gap} from the unsharded solve, cameras {camera_gap}")
     return row
@@ -3927,7 +4118,8 @@ def _mp_path(name, mesh, fn, kernel, lm):
     per_card = _card_bits(loops) if len(each) > 1 else True
     cards = mesh.cards
     k_replayed = {str(d): v for d, v in (kernel.replayed_by_card() if kernel else {}).items() if d in cards}
-    k_eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES
+    k_eager_in_graph = k_nn.LAUNCHES + k_expand.LAUNCHES + k_schur.LAUNCHES + k_matvec.LAUNCHES
+    mv_replayed = _matvec_by_card(mesh.card_groups())
     t_replayed = {str(d): v for d, v in link.replayed_by_card().items() if d in cards}
     c_replayed = {str(d): v for d, v in k_mesh.replayed_by_card().items() if d in cards} if len(cards) > 1 else {}
     t_eager_in_graph = link.LAUNCHES + (k_mesh.LAUNCHES if link is not k_mesh else 0)
@@ -3958,7 +4150,9 @@ def _mp_path(name, mesh, fn, kernel, lm):
                 bit_equal_eager=_same_result(graph, eager), bit_equal_repeat=_same_result(graph, first),
                 cards_bit_equal=per_card, difference="" if _same_result(graph, eager) else _first_difference(graph, eager),
                 kernel_replayed=k_replayed, kernel_eager=k_eager, kernel_runs=expect,
-                kernel_eager_in_graph=k_eager_in_graph, transport_replayed=t_replayed, card_replayed=c_replayed,
+                kernel_eager_in_graph=k_eager_in_graph, matvec_replayed=mv_replayed,
+                matvec_runs=_matvec_card_runs(res, groups, lm, name == "selfcal"),
+                transport_replayed=t_replayed, card_replayed=c_replayed,
                 transport_eager_in_graph=t_eager_in_graph, transport_eager=t_eager, digests=digests, **value)
 
 
@@ -4168,7 +4362,8 @@ def _hold_mp_path(layout, name, a, b, ref, lm):
               f"{row['transport_eager']}"
               + (f", card transport replayed {row['card_replayed']}" if row["card_replayed"] else "")
               + (f"; kernel replayed {row['kernel_replayed']}, eager {row['kernel_eager']}, runs {row['kernel_runs']}"
-                 if row["kernel_runs"] else ""))
+                 if row["kernel_runs"] else "")
+              + f"; schur matvec replayed {row['matvec_replayed']} (expected {row['matvec_runs'] or 'some'})")
         for c in row["captures"]:
             print(f"  capture {c['name']}: warm-up {c['warm_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, "
                   f"instantiation {c['instantiate_ms']:.1f} ms, pools {c['pool_bytes'] / 2**20:.1f} MiB")
@@ -4185,6 +4380,9 @@ def _hold_mp_path(layout, name, a, b, ref, lm):
                                        and all(row["kernel_runs"].values())):
             raise AssertionError(f"multi-process {name} over {layout}, rank {rank}: kernel replayed "
                                  f"{row['kernel_replayed']}, eager {row['kernel_eager']}, for {row['kernel_runs']}")
+        if not _matvec_cards_ok(row["matvec_replayed"], row["matvec_runs"]):
+            raise AssertionError(f"multi-process {name} over {layout}, rank {rank}: schur matvec replayed "
+                                 f"{row['matvec_replayed']}, expected {row['matvec_runs']}")
     if ra["digests"] != rb["digests"]:
         raise AssertionError(f"multi-process {name} over {layout}: the ranks' results differ")
     if lm:
@@ -4375,7 +4573,9 @@ def main():
     ba_grouped = ba_dense.group_by_landmark(ba_prob, segments="auto")
     s_err, s_t, s_bound = check_schur_kernel(ba_prob, ba_grouped, dev, rng, examples_in["schur"])
     del examples_in
-    stamp("1-3")
+    matvec = check_matvec_kernel(dev)
+    torch.cuda.empty_cache()
+    stamp("1-3, 26")
 
     requests = [
         ("A", X_A, {}),
@@ -4526,6 +4726,12 @@ def main():
               examples_launches={k: v["k11"] for k, v in examples.items() if v["k11"]},
               blocked_dense_launches=blocked["k11"]),
         transport_entry(two, multicard, multiprocess),
+        dict(name="schur_matvec", route="cuda", source="moptimizer_0_tpu_torch/csrc/schur_matvec.cu",
+             replaces=None, **{half: matvec[half] for half in ("to_landmarks", "to_cameras")},
+             device_loop_replayed_launches={k: r["matvec_replayed"] for k, r in device.items()
+                                            if isinstance(r, dict) and r.get("matvec_replayed")},
+             sharded_device_loop_replayed_launches={k: r["matvec_replayed"] for k, r in sharded_loop.items()
+                                                    if isinstance(r, dict) and r.get("matvec_replayed")}),
     ]
     print(json.dumps({"slam": {
         m: {k: v for k, v in r.items() if k != "reg"} for m, r in slam.items()
@@ -4574,7 +4780,7 @@ def _build_all():
     """Every CUDA source compiled, one nvcc each, all started together; the
     libraries and ptxas's register lines printed."""
     t0 = time.perf_counter()
-    kernels = (k_nn, k_expand, k_schur, graph_cond, k_mesh)
+    kernels = (k_nn, k_expand, k_schur, k_matvec, graph_cond, k_mesh)
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
         futures = [pool.submit(build.build, k.NAME, k.SOURCES) for k in kernels]
         built = [f.result() for f in futures]
@@ -4718,6 +4924,16 @@ def tracing_main():
     _print_ok()
 
 
+def matvec_main():
+    """``--phase 26``: the build and phase 26 alone."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this check runs on a GPU only")
+    _smi()
+    _build_all()
+    print(json.dumps({"schur_matvec": check_matvec_kernel(torch.device("cuda", 0))}))
+    _print_ok()
+
+
 def multicard_main():
     """``--phase 23``: the build and phase 23 alone, on two cards or more."""
     if not torch.cuda.is_available():
@@ -4739,9 +4955,10 @@ if __name__ == "__main__":
     parser.add_argument("--port", type=int, help="phase 15's group port on localhost (internal)")
     parser.add_argument("--layout", choices=tuple(MULTIPROCESS_LAYOUTS), help="run as one of phase 24's processes in "
                         "this layout (internal)")
-    parser.add_argument("--phase", type=int, choices=(23, 24, 25), help="run the build and this phase alone (23: the "
-                        "one-process mesh over several cards; 24: meshes across processes over several cards; both "
-                        "on two cards or more; 25: the port's tracing)")
+    parser.add_argument("--phase", type=int, choices=(23, 24, 25, 26), help="run the build and this phase alone (23: "
+                        "the one-process mesh over several cards; 24: meshes across processes over several cards; "
+                        "both on two cards or more; 25: the port's tracing; 26: the Schur matvec's kernels at the "
+                        "Venice shape)")
     args = parser.parse_args()
     if args.layout is not None:
         multiprocess_rank_main(args.rank, args.port, args.layout)
@@ -4753,5 +4970,7 @@ if __name__ == "__main__":
         multiprocess_main()
     elif args.phase == 25:
         tracing_main()
+    elif args.phase == 26:
+        matvec_main()
     else:
         main()

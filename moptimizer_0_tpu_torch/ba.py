@@ -15,7 +15,10 @@ poses and L landmarks from O pixel observations.
 * landmarks eliminated by the Schur complement, applied matrix-free,
       S u = U′ u − Σ_o W_o V′⁻¹ (Σ_o W_oᵀ u),
   and solved by block-Jacobi preconditioned CG (``ops.pcg``); S is never
-  built, so memory is O(C + L + O) whatever the camera graph;
+  built, so memory is O(C + L + O) whatever the camera graph. On CUDA the
+  matvec's two sums over the observations are the kernels of
+  ``kernels/schur_matvec.py``, one pass each over a per-layout plan, each
+  sum in one order fixed by the plan (no atomics either);
 * back-substitution δl = V′⁻¹ (−h − Wᵀ δc) per landmark;
 * the reference's LM λ/ν/ρ schedule (src/levenberg_marquadt_dyn.cpp:67-114)
   over the joint state, decided on the device: each trial under
@@ -62,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from moptimizer_0_tpu_torch.core.solver import Status
+from moptimizer_0_tpu_torch.kernels import schur_matvec
 from moptimizer_0_tpu_torch.lie import se3, so3
 from moptimizer_0_tpu_torch.ops import device_loop
 from moptimizer_0_tpu_torch.ops.pcg import pcg
@@ -495,14 +499,21 @@ def make_ba_problem(O, C, L, seed=0, dtype=torch.float32, device="cuda"):
 
 
 def _plans(problem):
-    """The camera and landmark sums' plans of this incidence (made once a
-    solve; each level of a plan reads the device twice)."""
+    """The camera and landmark sums' plans of this incidence and, on CUDA,
+    the matvec kernels' ``schur_matvec.MatvecPlan`` (None on the CPU): made
+    once a layout, before a capture; each level of a sum's plan reads the
+    device twice, the matvec plan once."""
     global HOST_READS
+    C, L = problem.camera_params.shape[0], problem.points.shape[0]
     ones = torch.ones_like(problem.cam_idx)
-    cam = segment_plan(problem.cam_idx, ones, problem.camera_params.shape[0])
-    pt = segment_plan(problem.pt_idx, ones, problem.points.shape[0])
+    cam = segment_plan(problem.cam_idx, ones, C)
+    pt = segment_plan(problem.pt_idx, ones, L)
     HOST_READS += 2 * (len(cam[0]) + len(pt[0]))
-    return cam, pt
+    matvec = None
+    if problem.cam_idx.is_cuda:
+        matvec = schur_matvec.matvec_plan(problem.cam_idx, problem.pt_idx, C, L)
+        HOST_READS += 1
+    return cam, pt, matvec
 
 
 def _linearize(problem):
@@ -532,7 +543,7 @@ def _irls(problem, r, *mats):
 def _gn_blocks(problem, r, A, B, plans):
     """Gauss-Newton blocks U (C,6,6), V (L,3,3), W (O,6,3), g (C,6), h (L,3);
     a robust loss weights H and b only."""
-    cam, pt = plans
+    cam, pt = plans[:2]
     Aw, Bw, rw = _irls(problem, r, A, B)
     C, L = problem.camera_params.shape[0], problem.points.shape[0]
     U = segment_sum(cam, _outer_rows(Aw, A).reshape(-1, 36)).reshape(C, 6, 6)
@@ -543,22 +554,51 @@ def _gn_blocks(problem, r, A, B, plans):
     return U, V, W, g, h
 
 
+def _shard_row(shard, plans, W):
+    """A local shard's row for the matvec: (problem, plans, W, W_cam), W_cam
+    W's rows in the matvec plan's camera order on CUDA, so that
+    ``schur_matvec.to_cameras_cuda`` reads them in turn (360 MB more at the
+    Venice shape; a camera's rows lie scattered over W), None on the CPU."""
+    W_cam = None if plans[2] is None else torch.index_select(W, 0, plans[2].cam_rows)
+    return shard, plans, W, W_cam
+
+
 def _to_landmarks(mesh, rows, u, dev):
     """Σ_o W_oᵀ u[cam_idx_o] per landmark (L, 3), over every shard's rows and
-    the mesh; u (C, 6). rows: each local shard's (problem, plans, W)."""
-    return mesh.psum(
-        [segment_sum(plans[1], torch.sum(W * u.to(p.cam_idx.device)[p.cam_idx][:, :, None], dim=1))
-         for p, plans, W in rows],
-        device=dev,
-    )
+    the mesh; u (C, 6). rows: each local shard's ``_shard_row``. A shard's
+    sum is the kernel ``schur_matvec.to_landmarks_cuda`` on CUDA, its plain
+    version (a gather, a product and a segment sum) on the CPU."""
+    return mesh.psum([_landmark_sum(p, plans, W, u.to(p.cam_idx.device)) for p, plans, W, _ in rows], device=dev)
+
+
+def _landmark_sum(p, plans, W, u):
+    if W.is_cuda:
+        return schur_matvec.to_landmarks_cuda(plans[2], W, u.contiguous())
+    return _landmark_sum_plain(p, plans, W, u)
+
+
+def _landmark_sum_plain(p, plans, W, u):
+    """One shard's Σ_o W_oᵀ u[cam_idx_o] per landmark: the kernel's plain version."""
+    return segment_sum(plans[1], torch.sum(W * u[p.cam_idx][:, :, None], dim=1))
 
 
 def _to_cameras(mesh, rows, s, dev):
     """Σ_o W_o s[pt_idx_o] per camera (C, 6), over every shard's rows and the
-    mesh; s (L, 3)."""
-    return mesh.psum(
-        [segment_sum(plans[0], _bmv(W, s.to(p.pt_idx.device)[p.pt_idx])) for p, plans, W in rows], device=dev
-    )
+    mesh; s (L, 3). A shard's sum is ``schur_matvec.to_cameras_cuda`` on
+    CUDA, its plain version on the CPU."""
+    return mesh.psum([_camera_sum(p, plans, W, W_cam, s.to(p.pt_idx.device)) for p, plans, W, W_cam in rows],
+                     device=dev)
+
+
+def _camera_sum(p, plans, W, W_cam, s):
+    if W.is_cuda:
+        return schur_matvec.to_cameras_cuda(plans[2], W_cam, s.contiguous())
+    return _camera_sum_plain(p, plans, W, s)
+
+
+def _camera_sum_plain(p, plans, W, s):
+    """One shard's Σ_o W_o s[pt_idx_o] per camera: the kernel's plain version."""
+    return segment_sum(plans[0], _bmv(W, s[p.pt_idx]))
 
 
 def _schur_matvec(u, U_d, Vinv, mesh, rows, cam_mask):
@@ -579,7 +619,7 @@ def _cam_mask(problem):
 
 def _solve_delta(problem, U, V, g, h, lam, config, mesh, rows, count=None):
     """One damped Gauss-Newton solve: (δcam (C,6), δpt (L,3)). U, V, g, h
-    are the mesh's sums; rows holds each local shard's (problem, plans, W).
+    are the mesh's sums; rows holds each local shard's ``_shard_row``.
     count: a 0-dim int32 tensor that the PCG iterations run are added to
     (``ops.pcg``), or None. The PCG solve lies between the markers
     ``ba_pcg_begin`` and ``ba_pcg_end``."""
@@ -617,14 +657,14 @@ def _seed_lambda(lam, U, V, factor, v_diag_max=None):
 
 def _linearize_shards(mesh, shards, plans, cams, pts):
     """Each shard's rows linearized at (cams, pts): (rows, (U, V, g, h, y0)),
-    rows holding each local shard's (problem, plans, W) and the blocks and
-    the cost summed over the mesh on cams' device."""
+    rows holding each local shard's ``_shard_row`` and the blocks and the
+    cost summed over the mesh on cams' device."""
     rows, parts = [], []
     for shard, plan in zip(shards, plans):
         s = _at(shard, cams, pts)
         r, A, B = _linearize(s)
         U, V, W, g, h = _gn_blocks(s, r, A, B, plan)
-        rows.append((s, plan, W))
+        rows.append(_shard_row(s, plan, W))
         parts.append((U, V, g, h, torch.sum(r * r)))
     return rows, mesh.psum(parts, device=cams.device)
 

@@ -50,7 +50,7 @@ def _linearize_full(problem):
 
 def _gn_blocks_full(problem, r, A, B, K, plans):
     """U, V, W, P (C,6,4), Y (L,3,4), Z (4,4), g, h and g_θ (4,)."""
-    cam, pt = plans
+    cam, pt = plans[:2]
     Aw, Bw, Kw, rw = ba._irls(problem, r, A, B, K)
     C, L = problem.camera_params.shape[0], problem.points.shape[0]
     U = segment_sum(cam, ba._outer_rows(Aw, A).reshape(-1, 36)).reshape(C, 6, 6)
@@ -68,14 +68,14 @@ def _gn_blocks_full(problem, r, A, B, K, plans):
 def _linearize_shards_full(mesh, shards, plans, params):
     """Each shard's rows linearized at params = (cams, pts, θ): (rows,
     (U, V, P, Y, Z, g, h, g_t, y0)), rows holding each local shard's
-    (problem, plans, W) and the blocks and the cost summed over the mesh on
+    ``ba._shard_row`` and the blocks and the cost summed over the mesh on
     cams' device."""
     rows, parts = [], []
     for shard, plan in zip(shards, plans):
         s = ba._at(shard, *params)
         r, A, B, K = _linearize_full(s)
         U, V, W, P, Y, Z, g, h, g_t = _gn_blocks_full(s, r, A, B, K, plan)
-        rows.append((s, plan, W))
+        rows.append(ba._shard_row(s, plan, W))
         parts.append((U, V, P, Y, Z, g, h, g_t, torch.sum(r * r)))
     return rows, mesh.psum(parts, device=params[0].device)
 
@@ -83,7 +83,7 @@ def _linearize_shards_full(mesh, shards, plans, params):
 def _solve_delta_full(problem, blocks, lam, config, mesh, rows):
     """Damped Schur solve over (cams, θ): (δcam, δpt, δθ). blocks: the
     mesh's sums (U, V, P, Y, Z, g, h, g_t); rows: each local shard's
-    (problem, plans, W)."""
+    ``ba._shard_row``."""
     U, V, P, Y, Z, g, h, g_t = blocks
     C = problem.camera_params.shape[0]
     dtype, dev = problem.camera_params.dtype, problem.camera_params.device

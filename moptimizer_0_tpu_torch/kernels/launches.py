@@ -36,17 +36,28 @@ class ReplayCounter:
         for c in self._counters.values():
             c.zero_()
 
-    def captured(self, device):
-        """Count one launch on ``device``: True when it is being captured
-        (the card then counts it at every replay that runs it), False when it
-        runs eagerly, for the caller to count on the host. The counter of a
-        card is made at the first eager launch there; a graph's warm-up makes
-        one before every capture."""
+    def slot(self, device):
+        """The card's counter for a launch on ``device``, for a kernel that
+        counts its own replays: under capture the counter, to which the
+        captured launch adds one each time a replay runs it; eagerly None,
+        for the caller to count on the host. The counter of a card is made
+        at the first eager launch there; a graph's warm-up makes one before
+        every capture."""
         if torch.cuda.is_current_stream_capturing():
             if device not in self._counters:
                 raise RuntimeError(f"{self.name}: captured before any eager launch on its device")
-            self._counters[device].add_(1)
-            return True
+            return self._counters[device]
         if device not in self._counters:
             self._counters[device] = torch.zeros((), dtype=torch.int64, device=device)
-        return False
+        return None
+
+    def captured(self, device):
+        """Count one launch on ``device``: True when it is being captured
+        (the card then counts it at every replay that runs it, by a graph
+        node that this adds), False when it runs eagerly, for the caller to
+        count on the host."""
+        counter = self.slot(device)
+        if counter is None:
+            return False
+        counter.add_(1)
+        return True

@@ -43,7 +43,7 @@ def _solve_delta(prob, blocks, lam, cfg, plans):
     hold W, the other eight blocks are the mesh's sums."""
     U, V, W, *sums = blocks
     mesh = Mesh(devices=(prob.camera_params.device,))
-    return tbi._solve_delta_full(prob, (U, V, *sums), lam, cfg, mesh, [(prob, plans, W)])
+    return tbi._solve_delta_full(prob, (U, V, *sums), lam, cfg, mesh, [tba._shard_row(prob, plans, W)])
 
 
 def test_selfcal_schur_matches_dense_oracle():
